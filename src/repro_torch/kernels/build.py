@@ -1,0 +1,80 @@
+"""Build and bind the CUDA kernels: ``nvcc`` into a shared library with a
+plain C interface, loaded with ``ctypes``.
+
+The library goes to ``build/repro_torch/`` at the root of the checkout,
+named by a hash of its source and flags, and is built on first use (a few
+seconds). Nothing here runs at import: the CPU tests import every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+# IEEE expf/logf/log1pf and IEEE division: no --use_fast_math.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``,
+    then ``PATH``."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").is_file():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH)")
+    return found
+
+
+def build_library(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library of the same source and
+    flags is already built; return the library's path. The compiler's
+    report (``-Xptxas -v``: registers, shared memory, spills) is kept beside
+    it as ``.log``."""
+    src = CSRC / f"{name}.cu"
+    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    lib = BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build under a private name, then rename: concurrent builders never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        run = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                             capture_output=True, text=True)
+        if run.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src} "
+                               f"(exit {run.returncode}):\n{run.stderr}")
+        lib.with_suffix(".log").write_text(run.stdout + run.stderr)
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_retention() -> ctypes.CDLL:
+    """The retention kernel's library, built if needed, with its C
+    signatures declared."""
+    lib = ctypes.CDLL(str(build_library("retention")))
+    lib.retention_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    lib.retention_launch.restype = ctypes.c_int
+    lib.retention_error_string.argtypes = [ctypes.c_int]
+    lib.retention_error_string.restype = ctypes.c_char_p
+    return lib

@@ -1,0 +1,68 @@
+"""Retention kernel wrapper: ``retention_batch(params, ts)``.
+
+On a CUDA tensor it launches the hand-written kernel of
+``kernels/csrc/retention.cu`` (built on first use by ``kernels.build``) and
+counts the launch in ``retention_batch.launches``; it never falls back. On
+a CPU tensor it runs the plain version, ``kernels.ref.retention_ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import N_FIELDS, UT, retention_ref  # noqa: F401
+
+# ts is staged in dynamic shared memory, which a launch gets up to 48 KB of
+# without opting in
+_MAX_GRID_POINTS = 48 * 1024 // 4
+
+
+def _check(params: torch.Tensor, ts: torch.Tensor) -> None:
+    if params.dtype != torch.float32 or ts.dtype != torch.float32:
+        raise TypeError(f"retention_batch takes float32 params and ts, got "
+                        f"{params.dtype} and {ts.dtype}")
+    if params.dim() != 2 or params.shape[1] != N_FIELDS:
+        raise ValueError(f"params must be (B, {N_FIELDS}), got "
+                         f"{tuple(params.shape)}")
+    if ts.dim() != 1 or not 2 <= ts.shape[0] <= _MAX_GRID_POINTS:
+        raise ValueError(f"ts must be (N+1,) with 2 <= N+1 <= "
+                         f"{_MAX_GRID_POINTS}, got {tuple(ts.shape)}")
+    if params.device != ts.device:
+        raise ValueError(f"params on {params.device} but ts on {ts.device}")
+    if not (params.is_contiguous() and ts.is_contiguous()):
+        raise ValueError("params and ts must be contiguous")
+
+
+def retention_batch(params: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
+    """params (B, 10) float32 ``[vt, n, ispec, eta, i_floor, jg, c_sn, w,
+    v0, v_min]``, ts (N+1,) float32 -> (B,) retention seconds.
+
+    Same contract as ``ref.retention_ref``: first crossing below ``v_min``,
+    ``ts[-1]`` if none, and ``ts[-1]`` for rows with ``v0 < v_min``."""
+    _check(params, ts)
+    if params.device.type == "cpu":
+        return retention_ref(params, ts)
+    if params.device.type != "cuda":
+        raise ValueError(f"retention_batch runs on cuda or cpu, got "
+                         f"{params.device}")
+    B = params.shape[0]
+    out = torch.empty(B, dtype=torch.float32, device=params.device)
+    if B == 0:
+        return out
+    lib = build.load_retention()
+    # (10, B) field-major copy: neighbouring threads read neighbouring words
+    params_t = params.t().contiguous()
+    with torch.cuda.device(params.device):
+        stream = torch.cuda.current_stream(params.device).cuda_stream
+        err = lib.retention_launch(params_t.data_ptr(), ts.data_ptr(),
+                                   out.data_ptr(), B, ts.shape[0] - 1,
+                                   stream)
+    if err != 0:
+        msg = lib.retention_error_string(err).decode()
+        raise RuntimeError(f"retention kernel launch failed: cudaError "
+                           f"{err} ({msg})")
+    retention_batch.launches += 1
+    return out
+
+
+retention_batch.launches = 0

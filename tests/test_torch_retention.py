@@ -1,0 +1,162 @@
+"""The retention kernel's plain version and the main-path retention of the
+PyTorch port against the JAX reference (its oracle, its Pallas kernel in
+interpret mode, and its solver)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import bitcells as jbitcells
+from repro.core import devices as jdevices
+from repro.core import retention as jretention
+from repro.kernels.ref import retention_ref as jax_retention_ref
+from repro.kernels.retention_kernel import retention_pallas
+from repro_torch.core import bitcells, corners, retention
+from repro_torch.kernels import ref
+from repro_torch.kernels import retention as kretention
+
+# kernel-level gate, the one the reference holds its Pallas kernel to
+# (tests/test_kernels.py); the port's plain version meets it against both
+RTOL_KERNEL = 1e-5
+# main-path retention vs the reference solver: worst measured 4.9e-7
+# (``python tests/test_torch_retention.py`` prints it)
+RTOL_SOLVER = 2e-6
+
+NAMES = jbitcells.MEM_TYPE_ORDER
+
+
+def _jax_packed_rows():
+    """(14, 10) rows of the 7 bitcells x ls, packed from the reference the
+    way tests/test_kernels.py packs them."""
+    rows = []
+    for ls in (0, 1):
+        for name in NAMES:
+            c = jbitcells.BITCELLS[name]
+            wd = jdevices.take_device(jbitcells.DEVICE_STACK, int(c.write_dev))
+            rd = jdevices.take_device(jbitcells.DEVICE_STACK, int(c.read_dev))
+            rows.append([float(wd.vt), float(wd.n), float(wd.ispec),
+                         float(wd.eta_dibl), float(wd.i_floor),
+                         float(rd.j_gate * c.w_read / 1.1), float(c.c_sn),
+                         float(c.w_write),
+                         float(jbitcells.sn_high_level(c, ls)),
+                         float(jretention.read_margin_threshold(c))])
+    return np.asarray(rows, np.float32)
+
+
+def _perturbed_rows(n, seed):
+    """``n`` rows drawn from the 14 nominal rows, with log-uniform factors in
+    [0.1, 10] on ispec, i_floor, c_sn and w and vt shifted by +-50 mV."""
+    rng = np.random.default_rng(seed)
+    base = _jax_packed_rows().astype(np.float64)
+    p = base[rng.integers(0, len(base), n)]
+    for field in (2, 4, 6, 7):
+        p[:, field] *= 10.0 ** rng.uniform(-1.0, 1.0, n)
+    p[:, 0] += rng.uniform(-0.05, 0.05, n)
+    return p.astype(np.float32)
+
+
+def _stiff_rows():
+    """The level-shifted gc_sisi row with a tiny storage cap and a large gate
+    leak: RK4 overshoots on the first steps, so the [0, 2] clip of V decides
+    the crossing time."""
+    base = _jax_packed_rows()[len(NAMES) + NAMES.index("gc_sisi")]
+    rows = []
+    for c_sn in (1e-18, 3e-18, 1e-17, 1e-16):
+        for jg in (1e-9, 1e-7, 1e-5):
+            rows.append(base.copy())
+            rows[-1][6], rows[-1][5] = c_sn, jg
+    return np.asarray(rows, np.float32)
+
+
+ROWS = {"nominal-14": _jax_packed_rows,
+        "perturbed-130": lambda: _perturbed_rows(130, 0),
+        "stiff-12": _stiff_rows}
+
+
+@pytest.fixture(scope="module")
+def ts_np():
+    return np.array(jretention.time_grid())
+
+
+@pytest.mark.parametrize("rows", sorted(ROWS))
+def test_plain_kernel_version_matches_jax_oracle_and_pallas(rows, ts_np):
+    params = ROWS[rows]()
+    got = ref.retention_ref(torch.from_numpy(params),
+                            torch.from_numpy(ts_np)).numpy()
+    want_ref = np.asarray(jax_retention_ref(jnp.asarray(params),
+                                            jnp.asarray(ts_np)))
+    want_pallas = np.asarray(retention_pallas(jnp.asarray(params),
+                                              jnp.asarray(ts_np),
+                                              interpret=True))
+    np.testing.assert_allclose(got, want_ref, rtol=RTOL_KERNEL, atol=0)
+    np.testing.assert_allclose(got, want_pallas, rtol=RTOL_KERNEL, atol=0)
+    # the kernel's start state: rows with v0 < v_min return ts[-1]
+    start = params[:, 8] < params[:, 9]
+    assert start.any() or rows == "stiff-12"
+    np.testing.assert_array_equal(got[start], ts_np[-1])
+
+
+def test_wrapper_on_cpu_is_the_plain_version(ts_np):
+    params = torch.from_numpy(_perturbed_rows(33, 1))
+    ts = torch.from_numpy(ts_np)
+    torch.testing.assert_close(kretention.retention_batch(params, ts),
+                               ref.retention_ref(params, ts), rtol=0, atol=0)
+
+
+def test_pack_matches_the_reference_packing():
+    """``pack_retention_params`` gives the rows tests/test_kernels.py packs
+    from the reference (``ispec`` within its 1-ulp calibration drift)."""
+    got = torch.cat([retention.pack_retention_params(
+        bitcells.stack_bitcells(), torch.full((7,), float(ls)))
+        for ls in (0, 1)]).numpy()
+    np.testing.assert_allclose(got, _jax_packed_rows(), rtol=RTOL_SOLVER,
+                               atol=0)
+
+
+@pytest.mark.parametrize("ls", [0, 1])
+def test_retention_time_batch_matches_reference_solver(ls):
+    """All 7 cells at nominal, the start-crossed rows (HVT write device
+    without a level shifter) included: the kernel path returns what
+    ``retention_time`` returns, ~ts[0], not the kernel's ts[-1]."""
+    cells = bitcells.stack_bitcells()
+    got = retention.retention_time_batch(
+        cells, torch.full((7,), float(ls))).numpy()
+    plain = retention.retention_time(cells, torch.full((7,), float(ls)))
+    want = np.array([float(jretention.retention_time(jbitcells.BITCELLS[n],
+                                                     ls)) for n in NAMES],
+                    np.float32)
+    np.testing.assert_allclose(got, want, rtol=RTOL_SOLVER, atol=0)
+    np.testing.assert_allclose(plain.numpy(), want, rtol=RTOL_SOLVER, atol=0)
+    crossed = [NAMES.index(n) for n in ("gc_sisi_hvt", "gc_ossi_hvt",
+                                        "gc_osos_hvt")]
+    if ls == 0:
+        np.testing.assert_array_equal(got[crossed], want[crossed])
+        assert (got[crossed] < 2e-9).all()
+    else:
+        assert (got[crossed] > 1e-6).all()
+
+
+@pytest.mark.parametrize("corner", ["hot", "cold", corners.LOW_VDD,
+                                    corners.TechParams.from_op(corners.HOT)])
+def test_retention_time_batch_refuses_other_corners(corner):
+    with pytest.raises(NotImplementedError, match="nominal"):
+        retention.retention_time_batch(bitcells.stack_bitcells(),
+                                       torch.zeros(7), tp=corner)
+
+
+if __name__ == "__main__":
+    # the measurements behind RTOL_KERNEL and RTOL_SOLVER
+    ts = np.array(jretention.time_grid())
+    for name, make in sorted(ROWS.items()):
+        p = make()
+        got = ref.retention_ref(torch.from_numpy(p), torch.from_numpy(ts))
+        want = np.asarray(jax_retention_ref(jnp.asarray(p), jnp.asarray(ts)))
+        print(f"plain kernel version vs JAX oracle, {name}: max rel "
+              f"{np.max(np.abs(got.numpy() - want) / want):.3e}")
+    for ls in (0, 1):
+        got = retention.retention_time_batch(bitcells.stack_bitcells(),
+                                             torch.full((7,), float(ls)))
+        want = np.array([float(jretention.retention_time(
+            jbitcells.BITCELLS[n], ls)) for n in NAMES], np.float32)
+        print(f"retention_time_batch vs JAX retention_time, ls={ls}: max rel "
+              f"{np.max(np.abs(got.numpy() - want) / want):.3e}")
