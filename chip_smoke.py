@@ -7,7 +7,9 @@ Run from the root of a checkout; it needs one CUDA device and ``nvcc``.
 Phases, each of which fails the run (non-zero exit) if its check fails:
 
 1. device   name, count, and ``nvidia-smi`` name and power limit;
-2. build    the retention kernel from ``kernels/csrc/retention.cu``;
+2. build    every kernel from ``kernels/csrc/*.cu`` (retention, ssm_scan,
+            flash_attention), one ``nvcc`` each, all started together, and
+            print each ``-Xptxas -v`` report (registers, spills);
 3. kernel   against its plain PyTorch version on the card at B = 14 (the
             packed nominal rows: 7 bitcells x level shifter), 130 (ragged)
             and 2^20 (rows perturbed from ``--seed``), rtol 1e-5; rows that
@@ -20,7 +22,28 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
 6. timing   kernel and plain version with CUDA events at B = 120 (the main
             path's shape) and 2^20, beside the kernel's bound;
 7. profile  one warm ``explore`` under ``torch.profiler``: device busy time
-            and share, and the kernels that take it.
+            and share, and the kernels that take it;
+8. kernels  flash attention and the selective scan against their plain
+            versions on the card: the reference's shapes, ragged S, GQA,
+            a di no block divides, and hymba-1.5b's full-width prefill
+            shapes (tolerances ``TOL_ATTN``, ``TOL_SSM``);
+9. serve    hymba-1.5b at full width (32 layers, d_model 1600, bf16,
+            weights from a ``torch.Generator`` seeded with ``--seed``):
+            ``Engine.generate`` of 4 requests x 1,000-token prompts, 32
+            greedy decode steps, max_seq 1,040 (the SWA ring wraps). Both
+            new kernels launch (3 attention, 32 scan launches a call), every
+            logit is finite, two calls give identical tokens; prefill
+            seconds and decode tokens/s, first call and warm; decode-vs-
+            prefill logit agreement at this width with the depth cut to
+            1-32 layers, float32 and bf16, gated in float32 at <= 2 layers
+            (``RTOL_DECODE_PREFILL``), printed otherwise;
+10. parity  the reduced hymba (float32) on the card and on the CPU with the
+            same weights, carried to the card by ``convert``: identical
+            greedy tokens, logits within ``RTOL_SERVE_CPU``;
+11. timing  each new kernel, its plain version and (attention)
+            ``scaled_dot_product_attention`` with CUDA events at the full-
+            width shapes, beside the kernel's bound;
+12. profile one prefill and one warm decode step under ``torch.profiler``.
 
 It prints one ``{"kernels": [...]}`` line, then, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -49,6 +72,43 @@ PEAK_BYTES = 3.35e12    # H100 SXM HBM3 [B/s]
 # time. The crossing step adds 9 ops and 3 transcendentals once per row.
 OPS_PER_STEP = 4 * (26 + 4) + 21
 OPS_PER_CROSSING = 9 + 3
+
+KERNELS = ("retention", "ssm_scan", "flash_attention")
+PEAK_BF16_TC = 989e12   # H100 SXM bf16 dense on the tensor cores [FLOP/s]
+# kernel vs plain version: the reference's gates for its Pallas kernels
+TOL_ATTN = {"float32": 2e-5, "bfloat16": 2e-2}
+TOL_SSM = 1e-4
+# reduced hymba on the card vs on the CPU, max|card - cpu| / max|cpu| over
+# every step's logits (float32 on both; TF32 is off)
+RTOL_SERVE_CPU = 1e-4
+# full-width decode vs prefill, float32, depth <= 2: max|decode - prefill| /
+# max|prefill| of the last logits (measured 1.5e-5; a cache fault is O(1))
+RTOL_DECODE_PREFILL = 1e-3
+# hymba-1.5b serving cell of this smoke run
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX_SEQ = 4, 1000, 32, 1040
+# (B, H, K, S, D) for the attention checks: the reference's shapes
+# (tests/test_kernels.py), a ragged S, GQA, and hymba's prefill (25 q heads
+# on 5 kv heads, 128 meta tokens + the 1,000-token prompt)
+ATTN_SHAPES = [(1, 2, 2, 256, 64), (2, 1, 1, 128, 128), (1, 4, 4, 512, 64),
+               (2, 2, 2, 256, 96), (2, 4, 4, 200, 64), (1, 6, 2, 77, 32),
+               (4, 25, 5, 1128, 64)]
+# (B, S, di, n) for the scan checks: the reference's shapes, a di no block
+# divides, and hymba's full width (di = 2 x 1600, n = 16, S = 128 + 1,000)
+SSM_SHAPES = [(1, 128, 256, 16), (2, 256, 512, 8), (1, 64, 1024, 16),
+              (2, 45, 200, 8), (4, 1128, 3200, 16)]
+# Bounds of the two serve kernels, counted from their function (not from
+# what the kernels do):
+# - flash attention, causal: S(S+1)/2 scores per (batch, head); 2D flops for
+#   q.k and 2D for p.v each, on the bf16 tensor-core peak; 5 fp32 ops per
+#   score (scale, mask, max, exp, sum) on the fp32 peak; bytes: q, k, v read
+#   once and o written once. The least time is the largest of the three.
+# - selective scan: per (b, t, channel) and state, 7 fp32 ops (dt*A, exp,
+#   a*h, dt*x*B as 2, the add, h*C and its sum, each transcendental counted
+#   as one), plus 3 per (b, t, channel) (dt*x, D*x, the add); bytes: x, dt,
+#   B, C, A, D read once, y and h_final written once.
+ATTN_FLOPS_PER_SCORE_DIM = 4
+ATTN_ELEM_OPS_PER_SCORE = 5
+SSM_OPS_PER_STATE, SSM_OPS_PER_CHANNEL = 7, 3
 
 
 def fail(msg: str) -> None:
@@ -129,6 +189,136 @@ def bound(params, ts, out):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def attn_bound(B, H, K, S, D, itemsize):
+    """(bound ms, 'bytes' | 'operations') of causal attention, (B,H,S,D)
+    queries on (B,K,S,D) keys and values."""
+    scores = B * H * S * (S + 1) // 2
+    t_mm = scores * ATTN_FLOPS_PER_SCORE_DIM * D / PEAK_BF16_TC
+    t_elem = scores * ATTN_ELEM_OPS_PER_SCORE / PEAK_FP32_OPS
+    t_bytes = (2 * B * H * S * D + 2 * B * K * S * D) * itemsize / PEAK_BYTES
+    t_ops = max(t_mm, t_elem)
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ssm_bound(B, S, di, n):
+    """(bound ms, 'bytes' | 'operations') of the selective scan, float32."""
+    ops = B * S * di * (SSM_OPS_PER_STATE * n + SSM_OPS_PER_CHANNEL)
+    nbytes = 4 * (3 * B * S * di + 2 * B * S * n + di * n + di + B * di * n)
+    t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attn_inputs(shape, dtype, seed, device):
+    import numpy as np
+    import torch
+    B, H, K, S, D = shape
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=(B, h, S, D)).astype(
+        np.float32)).to(device, dtype) for h in (H, K, K))
+
+
+def ssm_inputs(shape, seed, device):
+    import numpy as np
+    import torch
+    B, S, di, n = shape
+    rng = np.random.default_rng(seed)
+    arrays = (rng.normal(size=(B, S, di)),
+              rng.uniform(0.001, 0.1, size=(B, S, di)),
+              -rng.uniform(0.5, 2.0, size=(di, n)),
+              rng.normal(size=(B, S, n)), rng.normal(size=(B, S, n)),
+              rng.normal(size=(di,)))
+    return tuple(torch.from_numpy(np.asarray(a, np.float32)).to(device)
+                 for a in arrays)
+
+
+def record_steps(engine):
+    """Wrap an engine's prefill and decode steps so that a ``generate``
+    records the prefill's seconds (host clock between two synchronizes) and
+    every step's logits; what the steps compute is unchanged."""
+    import torch
+    rec = {"prefill_s": [], "logits": []}
+    prefill, decode = engine._prefill, engine._decode
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def timed_prefill(params, batch):
+        sync()
+        t0 = time.perf_counter()
+        cache, logits = prefill(params, batch)
+        sync()
+        rec["prefill_s"].append(time.perf_counter() - t0)
+        rec["logits"].append(logits)
+        return cache, logits
+
+    def recorded_decode(params, cache, batch):
+        logits, cache = decode(params, cache, batch)
+        rec["logits"].append(logits)
+        return logits, cache
+
+    engine._prefill, engine._decode = timed_prefill, recorded_decode
+    return rec
+
+
+def decode_vs_prefill(lm, params, toks, n_prompt, max_seq):
+    """Prefill toks[:, :n_prompt], decode the rest one by one, and compare
+    the last logits with a prefill of all of toks: (max abs gap, max |logit|
+    of the prefill, share of requests whose argmax agrees)."""
+    import torch
+    with torch.inference_mode():
+        cache, logits = lm.prefill(params, {"tokens": toks[:, :n_prompt]},
+                                   max_seq=max_seq)
+        for t in range(n_prompt, toks.shape[1]):
+            logits, cache = lm.decode(params, cache, {"tokens": toks[:, t]})
+        _, full = lm.prefill(params, {"tokens": toks}, max_seq=max_seq)
+    logits, full = logits.float(), full.float()
+    return ((logits - full).abs().max().item(), full.abs().max().item(),
+            (logits.argmax(-1) == full.argmax(-1)).float().mean().item())
+
+
+def to_leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in to_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def profile_report(label, fn):
+    """Run ``fn`` once under ``torch.profiler``; print its wall time,
+    device busy share, kernel launches and five largest device entries."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    # device-side events only (kernels, copies): an operator's entry also
+    # carries the device time of the kernels it launched, so summing both
+    # would count that time twice
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
+    print(f"profile: {label} {wall_s:.4f} s wall, device busy "
+          f"{device_us / 1e3:.4f} ms ({device_us / 1e4 / wall_s:.2f} %) in "
+          f"{launches} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+        print(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+    return {"wall_s": wall_s, "device_ms": device_us / 1e3,
+            "launches": launches}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -142,8 +332,18 @@ def main() -> int:
     import numpy as np
     from repro_torch import api
     from repro_torch.core import bitcells, gainsight, retention
+    from repro_torch import convert
+    from repro_torch.configs import get_config, reduce_config
     from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import retention as kretention
+    from repro_torch.kernels import ssm_scan as kssm
+    from repro_torch.models import LM
+    from repro_torch.serve.engine import Engine
+    # float32 products in full float32 (the defaults, stated): the plain
+    # versions and the card-vs-CPU parity phase need IEEE float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # 1. device --------------------------------------------------------------
     dev = torch.device("cuda")
@@ -157,9 +357,12 @@ def main() -> int:
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    build.load_retention()
-    print(f"build: retention kernel in {time.perf_counter() - t0:.2f} s")
-    print(build.build_library("retention").with_suffix(".log").read_text(),
+    libs = build.build_libraries(KERNELS)     # one nvcc each, all at once
+    for name, lib in zip(KERNELS, libs):
+        build.load(name)
+        print(f"build: {name} -> {lib.name}")
+        print(lib.with_suffix(".log").read_text(), flush=True)
+    print(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
 
     # 3. kernel vs plain -----------------------------------------------------
@@ -246,25 +449,191 @@ def main() -> int:
               flush=True)
 
     # 7. where a warm explore's time goes ----------------------------------
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        api.explore(device="cuda")
+    profile_report("warm explore", lambda: api.explore(device="cuda"))
+    print(f"end-to-end: explore(device='cuda') {explore_s:.4f} s (first "
+          f"call), {explore_warm_s:.4f} s (warm); {smi}", flush=True)
+
+    # 8. the serve kernels against their plain versions ---------------------
+    attn_err = 0.0
+    for shape in ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attn_inputs(shape, dtype, args.seed, dev)
+            for causal in (True, False):
+                got = kflash.flash_attention(q, k, v, causal=causal)
+                want = ref.attention_ref(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                tol = TOL_ATTN[str(dtype).split(".")[1]]
+                if not (torch.isfinite(got).all() and err <= tol):
+                    fail(f"flash attention {shape} {dtype} causal={causal}: "
+                         f"max abs err {err:.3e} > {tol}")
+                attn_err = max(attn_err, err)
+                print(f"kernel flash_attention {shape} {dtype} causal="
+                      f"{causal}: max abs err {err:.3e} (tol {tol})")
+    ssm_err = 0.0
+    for shape in SSM_SHAPES:
+        xs = ssm_inputs(shape, args.seed, dev)
+        y, h = kssm.ssm_scan(*xs)
+        y_ref, h_ref = ref.ssm_scan_ref(*xs)
         torch.cuda.synchronize()
-        profiled_s = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    device_us = sum(e.self_device_time_total for e in kernels)
-    print(f"profile: warm explore {profiled_s:.4f} s wall, device busy "
-          f"{device_us / 1e3:.4f} ms ({device_us / 1e4 / profiled_s:.2f} %) "
-          f"in {sum(e.count for e in kernels)} kernel launches")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
-        print(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<5d} "
-              f"{e.key[:90]}")
+        errs = [(a - b).abs().max().item() for a, b in ((y, y_ref),
+                                                         (h, h_ref))]
+        bad = [(a - b).abs() > TOL_SSM * (1 + b.abs())
+               for a, b in ((y, y_ref), (h, h_ref))]
+        if any(b.any().item() for b in bad):
+            fail(f"ssm_scan {shape}: max abs err y {errs[0]:.3e}, h_final "
+                 f"{errs[1]:.3e} beyond rtol = atol = {TOL_SSM}")
+        ssm_err = max(ssm_err, *errs)
+        print(f"kernel ssm_scan {shape}: max abs err y {errs[0]:.3e}, "
+              f"h_final {errs[1]:.3e} (rtol = atol = {TOL_SSM})", flush=True)
+
+    # 9. serve hymba-1.5b at full width -------------------------------------
+    cfg = get_config("hymba-1.5b")
+    t0 = time.perf_counter()
+    lm = LM(cfg, device=dev)
+    params = lm.init(torch.Generator(device=dev).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in to_leaves(params))
+    print(f"serve: {cfg.name} {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters "
+          f"({n_params * 2 / 1e9:.2f} GB bf16), initialized on the card in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    prompt = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT)).astype(np.int32)
+    engine = Engine(cfg, params, max_seq=SERVE_MAX_SEQ, device=dev)
+    rec = record_steps(engine)
+    serve = {}
+    outs = []
+    for call in ("first", "warm"):
+        kflash.flash_attention.launches = kssm.ssm_scan.launches = 0
+        kretention.retention_batch.launches = 0
+        n_logits = len(rec["logits"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(engine.generate({"tokens": prompt}, steps=SERVE_STEPS))
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        serve[call] = {
+            "generate_s": total_s, "prefill_s": rec["prefill_s"][-1],
+            "decode_tok_s": SERVE_REQUESTS * SERVE_STEPS
+            / (total_s - rec["prefill_s"][-1]),
+            "launches": {"flash_attention": kflash.flash_attention.launches,
+                         "ssm_scan": kssm.ssm_scan.launches,
+                         "retention": kretention.retention_batch.launches}}
+        logits = rec["logits"][n_logits:]
+        if not all(torch.isfinite(t).all().item() for t in logits):
+            fail(f"serve ({call} call): non-finite logits")
+        print(f"serve ({call} call): generate {total_s:.4f} s, prefill "
+              f"{serve[call]['prefill_s']:.4f} s, decode "
+              f"{serve[call]['decode_tok_s']:.1f} tokens/s, launches "
+              f"{serve[call]['launches']}, {len(logits)} logit sets finite",
+              flush=True)
+    serve_launches = serve["first"]["launches"]
+    if serve_launches["flash_attention"] != len(cfg.full_attn_every) or \
+            serve_launches["ssm_scan"] != cfg.num_layers:
+        fail(f"serve launches {serve_launches}, expected "
+             f"{len(cfg.full_attn_every)} flash_attention and "
+             f"{cfg.num_layers} ssm_scan")
+    if not np.array_equal(outs[0], outs[1]) or outs[0].shape != (
+            SERVE_REQUESTS, SERVE_STEPS):
+        fail("serve: two generate calls gave different tokens")
+    # decode vs prefill at this width, the depth cut to 1..32 layers, in
+    # float32 and bf16, with weights drawn from --seed: rounding carried
+    # through the random-weight layers grows with depth, while a cache fault
+    # shows at any depth. Gated where rounding cannot hide a fault (float32,
+    # <= 2 layers: one global-attention and one SWA layer, the ring wrapping
+    # during the 32 steps); the rest is printed.
+    toks = np.concatenate([prompt, outs[0]], axis=1)
+    for dtype in ("float32", "bfloat16"):
+        for depth in (1, 2, 4, 8, 16, 32):
+            dcfg = cfg.replace(dtype=dtype, num_layers=depth,
+                               full_attn_every=(0,) if depth <= 2 else
+                               (0, depth // 2 - 1, depth - 1))
+            dlm = LM(dcfg, dev)
+            gap, scale, agree = decode_vs_prefill(
+                dlm, dlm.init(torch.Generator(device=dev).manual_seed(
+                    args.seed)), toks, SERVE_PROMPT, SERVE_MAX_SEQ)
+            gated = dtype == "float32" and depth <= 2
+            print(f"serve: decode vs prefill, {depth} layers {dtype}, "
+                  f"{SERVE_STEPS} steps: max abs {gap:.4e} of max |logit| "
+                  f"{scale:.4e} ({gap / scale:.3e}), argmax agreement "
+                  f"{agree:.2f}" + (f" (gate {RTOL_DECODE_PREFILL})"
+                                    if gated else " (not gated)"),
+                  flush=True)
+            if gated and (gap > RTOL_DECODE_PREFILL * scale or agree < 1):
+                fail(f"decode vs prefill at full width, {depth} layers "
+                     f"float32: {gap / scale:.3e} > {RTOL_DECODE_PREFILL}")
+
+    # 10. reduced hymba: the card against the CPU ---------------------------
+    rcfg = reduce_config(cfg)
+    cpu_params = LM(rcfg, device="cpu").init(
+        torch.Generator().manual_seed(args.seed))
+    card_params = convert.lm_params_from_numpy(
+        rcfg, tree_map(lambda t: t.numpy(), cpu_params), device=dev)
+    rprompt = np.random.default_rng(args.seed).integers(
+        0, rcfg.vocab_size, (4, 40)).astype(np.int32)
+    runs = {}
+    for where, p_ in (("cuda", card_params), ("cpu", cpu_params)):
+        eng = Engine(rcfg, p_, max_seq=64, device=where)
+        r = record_steps(eng)
+        runs[where] = (eng.generate({"tokens": rprompt}, steps=24),
+                       [t.float().cpu() for t in r["logits"]])
+    (tok_g, log_g), (tok_c, log_c) = runs["cuda"], runs["cpu"]
+    parity = max(((g - c).abs().max() / c.abs().max()).item()
+                 for g, c in zip(log_g, log_c))
+    if not np.array_equal(tok_g, tok_c) or parity > RTOL_SERVE_CPU:
+        fail(f"reduced hymba card vs CPU: tokens equal "
+             f"{np.array_equal(tok_g, tok_c)}, logits max rel {parity:.3e} "
+             f"(gate {RTOL_SERVE_CPU})")
+    print(f"parity: reduced hymba card vs CPU, 4 x 40-token prompts, 24 "
+          f"steps: tokens identical, logits max rel {parity:.3e} (gate "
+          f"{RTOL_SERVE_CPU})", flush=True)
+
+    # 11. timing of the serve kernels ---------------------------------------
+    B, H, K, D = (SERVE_REQUESTS, cfg.num_heads, cfg.num_kv_heads,
+                  cfg.head_dim)
+    S = cfg.meta_tokens + SERVE_PROMPT
+    q, k, v = attn_inputs((B, H, K, S, D), torch.bfloat16, args.seed, dev)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    attn_ms = time_ms(lambda: kflash.flash_attention(q, k, v), 20, 3)
+    attn_plain_ms = time_ms(lambda: ref.attention_ref(q, k, v), 10, 2)
+    attn_lib_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                       enable_gqa=True), 20, 3)
+    attn_bound_ms, attn_bound_by = attn_bound(B, H, K, S, D, 2)
+    print(f"timing flash_attention {(B, H, K, S, D)} bf16 causal: kernel "
+          f"{attn_ms:.4f} ms, plain {attn_plain_ms:.4f} ms, SDPA "
+          f"{attn_lib_ms:.4f} ms, bound {attn_bound_ms:.4f} ms "
+          f"({attn_bound_by})", flush=True)
+    di, n = cfg.d_model * cfg.ssm_expand, cfg.ssm_state
+    xs = ssm_inputs((B, S, di, n), args.seed, dev)
+    ssm_ms = time_ms(lambda: kssm.ssm_scan(*xs), 20, 3)
+    ssm_plain_ms = time_ms(lambda: ref.ssm_scan_ref(*xs), 3, 1)
+    ssm_bound_ms, ssm_bound_by = ssm_bound(B, S, di, n)
+    print(f"timing ssm_scan {(B, S, di, n)}: kernel {ssm_ms:.4f} ms, plain "
+          f"{ssm_plain_ms:.4f} ms, bound {ssm_bound_ms:.4f} ms "
+          f"({ssm_bound_by}); no single PyTorch call computes the scan",
+          flush=True)
+
+    # 12. where serve time goes ---------------------------------------------
+    with torch.inference_mode():
+        box = {}
+
+        def prefill():
+            box["cache"], box["logits"] = lm.prefill(
+                params, {"tokens": prompt}, max_seq=SERVE_MAX_SEQ)
+        profile_report("prefill", prefill)
+        tok = {"tokens": box["logits"].argmax(-1)}
+        lm.decode(params, box["cache"], tok)            # warm the step
+        profile_report("warm decode step",
+                       lambda: lm.decode(params, box["cache"], tok))
 
     main_shape = shapes["main"]
-    print(f"end-to-end: explore(device='cuda') {explore_s:.4f} s (first "
-          f"call), {explore_warm_s:.4f} s (warm); {smi}")
+    warm = serve["warm"]
+    print(f"end-to-end: serve {cfg.name} {SERVE_REQUESTS} x {SERVE_PROMPT} "
+          f"tokens + {SERVE_STEPS} steps: prefill "
+          f"{serve['first']['prefill_s']:.4f} s first, {warm['prefill_s']:.4f}"
+          f" s warm; decode {serve['first']['decode_tok_s']:.1f} tokens/s "
+          f"first, {warm['decode_tok_s']:.1f} tokens/s warm; {smi}")
     print(json.dumps({"kernels": [{
         "name": "retention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/retention.cu",
@@ -274,7 +643,22 @@ def main() -> int:
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
-        "shapes": shapes}]}))
+        "shapes": shapes}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:68",
+        "launches": serve_launches["flash_attention"],
+        "max_abs_err": attn_err, "tol": TOL_ATTN, "ms": attn_ms,
+        "plain_ms": attn_plain_ms, "bound_ms": attn_bound_ms,
+        "bound_by": attn_bound_by, "library_ms": attn_lib_ms,
+        "shape": [B, H, K, S, D]}, {
+        "name": "ssm_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:50",
+        "launches": serve_launches["ssm_scan"], "max_abs_err": ssm_err,
+        "tol": TOL_SSM, "ms": ssm_ms, "plain_ms": ssm_plain_ms,
+        "bound_ms": ssm_bound_ms, "bound_by": ssm_bound_by,
+        "library_ms": None, "shape": [B, S, di, n]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

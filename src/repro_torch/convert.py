@@ -1,14 +1,15 @@
 """Carry the reference's parameter stacks across into the port.
 
-The state of this system is its physics catalog, not weights: the device
-stack (``DEVICE_STACK``), the bitcell stack (``stack_bitcells()``) and the
-retention time grid. These functions take them as numpy arrays, one per
-field, and return the port's tensors on a device, so a caller can check
-that both packages compute from the same catalog.
+The compiler's state is its physics catalog: the device stack
+(``DEVICE_STACK``), the bitcell stack (``stack_bitcells()``) and the
+retention time grid. The language models' state is their parameter tree
+(``LM.init``). These functions take them as numpy arrays and return the
+port's tensors on a device, so a caller can check that both packages
+compute from the same catalog and the same weights.
 """
 from __future__ import annotations
 
-from typing import Mapping, Type, TypeVar
+from typing import Any, Mapping, Type, TypeVar
 
 import numpy as np
 import torch
@@ -42,3 +43,45 @@ def time_grid_from_numpy(ts: np.ndarray,
                          device: DeviceLike = None) -> torch.Tensor:
     """The retention time grid (N+1,) float32 as a tensor on ``device``."""
     return _tensor(ts, "ts", resolve_device(device))
+
+
+def _lm_tensor(array, path: str, want: torch.Tensor,
+               device: torch.device) -> torch.Tensor:
+    array = np.asarray(array)
+    if array.dtype.name == "bfloat16":     # ml_dtypes' bfloat16, as jax has it
+        got_dtype = torch.bfloat16
+        t = torch.from_numpy(array.view(np.int16).copy()).view(torch.bfloat16)
+    elif array.dtype == np.float32:
+        got_dtype = torch.float32
+        t = torch.from_numpy(array.copy())
+    else:
+        raise TypeError(f"{path}: dtype {array.dtype} is neither float32 nor "
+                        f"bfloat16")
+    if got_dtype != want.dtype:
+        raise TypeError(f"{path}: expected {want.dtype}, got {array.dtype}")
+    if tuple(array.shape) != tuple(want.shape):
+        raise ValueError(f"{path}: expected shape {tuple(want.shape)}, got "
+                         f"{tuple(array.shape)}")
+    return t.to(device)
+
+
+def lm_params_from_numpy(cfg, tree: Mapping[str, Any],
+                         device: DeviceLike = None):
+    """The reference's ``LM(cfg).init(key)`` tree, as nested dicts of numpy
+    arrays (segments stacked on a leading layer axis, as ``jax.vmap`` lays
+    them out), as the port's parameters on ``device``. Names, shapes and
+    dtypes must match the port's ``LM(cfg).init`` exactly."""
+    from repro_torch.models import LM
+    dev = resolve_device(device)
+    spec = LM(cfg, device="meta").init()    # shapes and dtypes, no data
+
+    def walk(node, want, path):
+        if isinstance(want, dict):
+            if not isinstance(node, Mapping) or set(node) != set(want):
+                got = sorted(node) if isinstance(node, Mapping) else type(node)
+                raise KeyError(f"{path or 'params'}: expected keys "
+                               f"{sorted(want)}, got {got}")
+            return {k: walk(node[k], want[k], f"{path}/{k}") for k in want}
+        return _lm_tensor(node, path, want, dev)
+
+    return walk(tree, spec, "")

@@ -14,7 +14,9 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -66,15 +68,46 @@ def build_library(name: str) -> Path:
     return lib
 
 
+def build_libraries(names: Sequence[str]) -> List[Path]:
+    """``build_library`` for each of ``names``, all ``nvcc`` processes
+    started together; returns the libraries' paths in the same order."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return list(pool.map(build_library, names))
+
+
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+# the C signature of each library's launch function, `<name>_launch`; every
+# library also exports `const char* <name>_error_string(int)`
+LAUNCH_ARGTYPES = {
+    # params_t, ts, out, B, n_steps, stream
+    "retention": [_P, _P, _P, _I64, _I, _P],
+    # x, dt, A, Bc, Cc, D, y, h_final, B, S, di, n, stream
+    "ssm_scan": [_P] * 8 + [_I] * 4 + [_P],
+    # q, k, v, o, B, H, K, S, Sk, D, scale, bf16, causal, stream
+    "flash_attention": [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P],
+}
+
+
 @functools.lru_cache(maxsize=None)
-def load_retention() -> ctypes.CDLL:
-    """The retention kernel's library, built if needed, with its C
-    signatures declared."""
-    lib = ctypes.CDLL(str(build_library("retention")))
-    lib.retention_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    lib.retention_launch.restype = ctypes.c_int
-    lib.retention_error_string.argtypes = [ctypes.c_int]
-    lib.retention_error_string.restype = ctypes.c_char_p
+def load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built if needed, with the C
+    signatures of its launch and error-string functions declared."""
+    lib = ctypes.CDLL(str(build_library(name)))
+    launch_fn = getattr(lib, f"{name}_launch")
+    launch_fn.argtypes = LAUNCH_ARGTYPES[name]
+    launch_fn.restype = ctypes.c_int
+    error_string = getattr(lib, f"{name}_error_string")
+    error_string.argtypes = [ctypes.c_int]
+    error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call ``<name>_launch(*args)`` of the library ``name`` and raise if
+    the launch was refused (``cudaGetLastError`` after the launch)."""
+    lib = load(name)
+    err = getattr(lib, f"{name}_launch")(*args)
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err} "
+                           f"({msg})")

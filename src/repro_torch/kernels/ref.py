@@ -1,11 +1,16 @@
-"""Plain PyTorch version of the retention kernel: the allclose target of
-``kernels/csrc/retention.cu`` and what ``kernels.retention.retention_batch``
-runs for tensors on the CPU.
+"""Plain PyTorch versions of the hand-written kernels: the allclose targets
+of ``kernels/csrc/*.cu`` and what the wrappers run for tensors on the CPU.
 
-It repeats, op for op in float32, what the reference's packed oracle
-(``repro/kernels/ref.py::retention_ref``) computes.
+- ``retention_ref`` repeats, op for op in float32, what the reference's
+  packed oracle (``repro/kernels/ref.py::retention_ref``) computes.
+- ``attention_ref`` is the flash-attention forward with the kernel's kv
+  blocking, masking and bf16 rounding of ``p``.
+- ``ssm_scan_ref`` is the sequential selective scan, returning the final
+  state as well.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -59,3 +64,72 @@ def retention_ref(params: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
         found = found | crossed
         v = v_new
     return t_ret
+
+
+# ---------------------------------------------------------------------------
+# flash attention forward
+# ---------------------------------------------------------------------------
+
+NEG = -0.7 * torch.finfo(torch.float32).max     # the reference's mask value
+BLOCK_K = 64    # kv tile of kernels/csrc/flash_attention.cu
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """q (B,H,S,D), k/v (B,K,Sk,D) with H % K == 0 -> (B,H,S,D) in q's dtype.
+
+    The online softmax of ``repro/kernels/flash_attention.py::_flash_kernel``
+    over kv tiles of ``BLOCK_K`` columns: scores in float32 scaled by
+    1/sqrt(D), entries above the diagonal (causal) set to ``NEG``, running
+    max m, sum l and accumulator in float32, ``p`` rounded to v's dtype
+    before the PV product, l clamped to >= 1e-30. Query head h reads kv head
+    h // (H/K) (GQA). A kv tile the kernel skips (wholly above the diagonal)
+    is all ``NEG`` here and leaves m, l and the accumulator bit for bit
+    unchanged, so processing it is the same as skipping it."""
+    B, H, S, D = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(D)
+    qf = q.float()
+    kf = k.float().repeat_interleave(G, dim=1)
+    vg = v.repeat_interleave(G, dim=1)
+    m = torch.full((B, H, S), NEG, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, S, D), dtype=torch.float32, device=q.device)
+    rows = torch.arange(S, device=q.device)[:, None]
+    for j0 in range(0, Sk, BLOCK_K):
+        s = (qf @ kf[:, :, j0:j0 + BLOCK_K].transpose(-1, -2)) * scale
+        if causal:
+            cols = torch.arange(j0, j0 + s.shape[-1], device=q.device)
+            s = torch.where(rows >= cols[None, :], s, NEG)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + (
+            p.to(v.dtype).float() @ vg[:, :, j0:j0 + BLOCK_K].float())
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# selective scan
+# ---------------------------------------------------------------------------
+
+
+def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bc: torch.Tensor, Cc: torch.Tensor, D: torch.Tensor):
+    """Sequential selective scan from h0 = 0, all float32.
+
+    x/dt (B,S,di); Bc/Cc (B,S,n); A (di,n); D (di,) -> (y (B,S,di),
+    h_final (B,di,n)). Each step: ``h = exp(dt*A)*h + (dt*x) B``, then
+    ``y = <h, C> + D*x``."""
+    Bsz, S, di = x.shape
+    h = torch.zeros((Bsz, di, A.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        a = torch.exp(dt[:, t, :, None] * A)
+        h = a * h + (dt[:, t] * x[:, t])[..., None] * Bc[:, t, None, :]
+        ys.append((h * Cc[:, t, None, :]).sum(-1) + D * x[:, t])
+    return torch.stack(ys, dim=1), h

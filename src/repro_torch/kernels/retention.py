@@ -49,18 +49,12 @@ def retention_batch(params: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
     out = torch.empty(B, dtype=torch.float32, device=params.device)
     if B == 0:
         return out
-    lib = build.load_retention()
     # (10, B) field-major copy: neighbouring threads read neighbouring words
     params_t = params.t().contiguous()
     with torch.cuda.device(params.device):
         stream = torch.cuda.current_stream(params.device).cuda_stream
-        err = lib.retention_launch(params_t.data_ptr(), ts.data_ptr(),
-                                   out.data_ptr(), B, ts.shape[0] - 1,
-                                   stream)
-    if err != 0:
-        msg = lib.retention_error_string(err).decode()
-        raise RuntimeError(f"retention kernel launch failed: cudaError "
-                           f"{err} ({msg})")
+        build.launch("retention", params_t.data_ptr(), ts.data_ptr(),
+                     out.data_ptr(), B, ts.shape[0] - 1, stream)
     retention_batch.launches += 1
     return out
 

@@ -1,0 +1,2 @@
+"""Language models of the port: the dense and hybrid (hymba) families."""
+from repro_torch.models.lm import LM, Segment, build_plan  # noqa: F401

@@ -1,5 +1,5 @@
-"""Card-only checks of the PyTorch port: the CUDA retention kernel against
-its plain version on the card. They skip where no CUDA device is present;
+"""Card-only checks of the PyTorch port: each CUDA kernel (retention,
+selective scan, flash attention) against its plain version on the card. They skip where no CUDA device is present;
 on a GPU machine run them with ``python -m pytest -m cuda tests/``. This
 file imports no jax, so it also runs where jax is not installed."""
 import numpy as np
@@ -7,10 +7,17 @@ import pytest
 import torch
 
 from repro_torch.core import bitcells, retention
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ref
 from repro_torch.kernels import retention as kretention
+from repro_torch.kernels import ssm_scan as kssm
 
 RTOL_KERNEL = 1e-5      # the reference's gate for its Pallas kernel
+# the reference's gates for its flash-attention and selective-scan kernels
+# (tests/test_kernels.py), held here between each kernel and its plain
+# version on the card
+TOL_ATTN = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+TOL_SSM = 1e-4
 
 
 @pytest.fixture
@@ -81,3 +88,61 @@ def test_main_path_retention_goes_through_the_kernel(cuda):
     assert kretention.retention_batch.launches == before + 1
     want = retention.retention_time_batch(cells.to("cpu"), ls.cpu())
     torch.testing.assert_close(got.cpu(), want, rtol=RTOL_KERNEL, atol=0)
+
+
+# (B, H, K, S, D): the reference's shapes (tests/test_kernels.py), a ragged
+# S, GQA, and hymba-1.5b's full-width prefill (25 q heads on 5 kv heads,
+# 128 meta tokens + a 1,000-token prompt)
+ATTN_SHAPES = [(1, 2, 2, 256, 64), (2, 1, 1, 128, 128), (1, 4, 4, 512, 64),
+               (2, 2, 2, 256, 96), (2, 4, 4, 200, 64), (1, 6, 2, 77, 32),
+               (4, 25, 5, 1128, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_attention_kernel_matches_plain_version(cuda, shape, dtype,
+                                                      causal):
+    B, H, K, S, D = shape
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, h, S, D)).astype(
+        np.float32)).to(cuda, dtype) for h in (H, K, K))
+    before = kflash.flash_attention.launches
+    got = kflash.flash_attention(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kflash.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = TOL_ATTN[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# (B, S, di, n): the reference's shapes, a di that no block divides, and
+# hymba-1.5b's full width (di = 2 * 1600, n = 16, S = 128 + 1,000)
+SSM_SHAPES = [(1, 128, 256, 16), (2, 256, 512, 8), (1, 64, 1024, 16),
+              (2, 45, 200, 8), (4, 1128, 3200, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSM_SHAPES, ids=str)
+def test_ssm_scan_kernel_matches_plain_version(cuda, shape):
+    B, S, di, n = shape
+    rng = np.random.default_rng(2)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+
+    x = t(rng.normal(size=(B, S, di)))
+    dt = t(rng.uniform(0.001, 0.1, size=(B, S, di)))
+    A = t(-rng.uniform(0.5, 2.0, size=(di, n)))
+    Bc, Cc = t(rng.normal(size=(B, S, n))), t(rng.normal(size=(B, S, n)))
+    D = t(rng.normal(size=(di,)))
+    before = kssm.ssm_scan.launches
+    y, h = kssm.ssm_scan(x, dt, A, Bc, Cc, D)
+    y_ref, h_ref = ref.ssm_scan_ref(x, dt, A, Bc, Cc, D)
+    torch.cuda.synchronize()
+    assert kssm.ssm_scan.launches == before + 1
+    torch.testing.assert_close(y, y_ref, rtol=TOL_SSM, atol=TOL_SSM)
+    torch.testing.assert_close(h, h_ref, rtol=TOL_SSM, atol=TOL_SSM)

@@ -11,9 +11,15 @@ import pytest
 import torch
 
 from repro_torch import api, convert
+from repro_torch.configs import get_config, reduce_config
 from repro_torch.core import characterize as chz
 from repro_torch.core.devices import DeviceParams
+from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import retention as kretention
+from repro_torch.kernels import ssm_scan as kssm
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import LM
+from repro_torch.serve.engine import Engine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -25,6 +31,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import sys\n"
         "import repro_torch, repro_torch.api, repro_torch.convert\n"
         "import repro_torch.core.characterize, repro_torch.kernels.build\n"
+        "import repro_torch.models.lm, repro_torch.serve.engine\n"
+        "import repro_torch.launch.serve, repro_torch.kernels.ssm_scan\n"
+        "import repro_torch.kernels.flash_attention, repro_torch.configs\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n")
@@ -60,6 +69,11 @@ ENTRY_POINTS = {
     "convert.params_from_numpy": lambda: convert.params_from_numpy(
         DeviceParams, {f: np.zeros(1, np.float32)
                        for f in DeviceParams._fields}),
+    "LM": lambda: LM(reduce_config(get_config("hymba-1.5b"))),
+    "Engine": lambda: Engine(reduce_config(get_config("hymba-1.5b")), {}),
+    "launch.serve": lambda: launch_serve.main(["--reduced"]),
+    "convert.lm_params_from_numpy": lambda: convert.lm_params_from_numpy(
+        reduce_config(get_config("hymba-1.5b")), {}),
 }
 
 
@@ -90,3 +104,53 @@ def test_cpu_path_does_not_count_kernel_launches():
     before = kretention.retention_batch.launches
     kretention.retention_batch(torch.ones((3, 10)), torch.logspace(-9, 7, 9))
     assert kretention.retention_batch.launches == before
+
+
+def test_serve_path_calls_the_kernel_wrappers(monkeypatch):
+    """Prefill of the reduced hymba: every global-attention layer goes
+    through the flash-attention wrapper and every layer's SSM heads through
+    the scan wrapper (on the CPU they run the plain versions)."""
+    from repro_torch.models import attention, ssm
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return wrapped
+    monkeypatch.setattr(attention, "flash_attention",
+                        spy("flash_attention", attention.flash_attention))
+    monkeypatch.setattr(ssm, "ssm_scan", spy("ssm_scan", ssm.ssm_scan))
+    cfg = reduce_config(get_config("hymba-1.5b"))
+    lm = LM(cfg, device="cpu")
+    lm.prefill(lm.init(torch.Generator().manual_seed(0)),
+               {"tokens": np.zeros((2, 12), np.int32)}, max_seq=24)
+    assert calls.count("flash_attention") == len(cfg.full_attn_every)
+    assert calls.count("ssm_scan") == cfg.num_layers
+
+
+def test_device_tensors_never_reach_the_plain_versions(monkeypatch):
+    """Off the CPU each wrapper launches its kernel or raises; it never
+    runs its plain version. On the meta device (neither CPU nor CUDA) the
+    serve path and every wrapper raise before any plain version runs."""
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain version ran on a device tensor")
+    monkeypatch.setattr(kflash, "attention_ref", plain)
+    monkeypatch.setattr(kssm, "ssm_scan_ref", plain)
+    monkeypatch.setattr(kretention, "retention_ref", plain)
+    cfg = reduce_config(get_config("hymba-1.5b"))
+    lm = LM(cfg, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        lm.prefill(lm.init(), {"tokens": np.zeros((2, 12), np.int32)})
+    meta = torch.ones((1, 2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kflash.flash_attention(meta, meta, meta)
+    x = torch.ones((1, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kssm.ssm_scan(x, x, torch.ones((8, 4), device="meta"),
+                      torch.ones((1, 4, 4), device="meta"),
+                      torch.ones((1, 4, 4), device="meta"),
+                      torch.ones((8,), device="meta"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kretention.retention_batch(torch.ones((4, 10), device="meta"),
+                                   torch.ones((9,), device="meta"))

@@ -1,0 +1,138 @@
+"""The selective-scan plain version of the PyTorch port (what the wrapper
+runs on the CPU and what the CUDA kernel is held to on the card) against the
+JAX reference: its Pallas kernel in interpret mode, its sequential oracle
+``repro.kernels.ref.ssm_scan_ref`` (y and the final state) and the model's
+chunked associative scan ``repro.models.ssm.ssm_scan_chunked``.
+
+Tolerance: 1e-4, rtol and atol, the reference's own gate for its kernel
+(``tests/test_kernels.py``). Measured worst case on the CPU: 1.2e-6 abs on
+y and 3.0e-7 on h_final (``python tests/test_torch_ssm_scan.py`` prints
+them).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ref import ssm_scan_ref as jax_ssm_scan_ref
+from repro.kernels.ssm_scan import ssm_scan_pallas
+from repro.models.ssm import ssm_scan_chunked
+from repro_torch.kernels import ref
+from repro_torch.kernels import ssm_scan as kssm
+
+TOL = 1e-4
+
+
+def _inputs(B, S, di, n, seed, A=None, D=None):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, S, di)).astype(np.float32)
+    dt = rng.uniform(0.001, 0.1, size=(B, S, di)).astype(np.float32)
+    if A is None:
+        A = -rng.uniform(0.5, 2.0, size=(di, n)).astype(np.float32)
+    Bc = rng.normal(size=(B, S, n)).astype(np.float32)
+    Cc = rng.normal(size=(B, S, n)).astype(np.float32)
+    if D is None:
+        D = rng.normal(size=(di,)).astype(np.float32)
+    return x, dt, A, Bc, Cc, D
+
+
+def _port(arrays):
+    y, h = ref.ssm_scan_ref(*(torch.from_numpy(a) for a in arrays))
+    return y.numpy(), h.numpy()
+
+
+def _jax_ref(arrays):
+    x, dt, A, Bc, Cc, D = (jnp.asarray(a) for a in arrays)
+    B, _, di = x.shape
+    return jax_ssm_scan_ref(x, dt, A, Bc, Cc, D,
+                            jnp.zeros((B, di, A.shape[1]), jnp.float32))
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got, np.asarray(want), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("B,S,di,n", [(1, 128, 256, 16), (2, 256, 512, 8),
+                                      (1, 64, 1024, 16)])
+def test_plain_version_matches_pallas_kernel_and_oracle(B, S, di, n):
+    arrays = _inputs(B, S, di, n, 2)
+    y, h = _port(arrays)
+    pallas = ssm_scan_pallas(*(jnp.asarray(a) for a in arrays),
+                             block_d=min(256, di), chunk=min(64, S),
+                             interpret=True)
+    _close(y, pallas)
+    y_ref, h_ref = _jax_ref(arrays)
+    _close(y, y_ref)
+    _close(h, h_ref)
+
+
+@pytest.mark.parametrize("chunk", [32, 128])
+def test_plain_version_matches_pallas_chunkings(chunk):
+    """The reference's chunk-invariance case: one sequential scan here
+    against the Pallas kernel cut into chunks of 32 and of 128."""
+    B, S, di, n = 1, 128, 256, 8
+    arrays = _inputs(B, S, di, n, 3, A=-np.ones((di, n), np.float32),
+                     D=np.zeros((di,), np.float32))
+    pallas = ssm_scan_pallas(*(jnp.asarray(a) for a in arrays), chunk=chunk,
+                             interpret=True)
+    _close(_port(arrays)[0], pallas)
+
+
+# di that no Pallas block divides (hymba's 3200 among them) and S that no
+# chunk divides: the Pallas kernel asserts both, so these go to the oracle
+# and to the model's chunked associative scan
+@pytest.mark.parametrize("B,S,di,n", [(2, 45, 200, 8), (1, 37, 3200, 16),
+                                      (3, 130, 96, 4)])
+def test_plain_version_ragged_against_oracle_and_model_scan(B, S, di, n):
+    arrays = _inputs(B, S, di, n, 4)
+    y, h = _port(arrays)
+    y_ref, h_ref = _jax_ref(arrays)
+    _close(y, y_ref)
+    _close(h, h_ref)
+    x, dt, A, Bc, Cc, D = (jnp.asarray(a) for a in arrays)
+    y_m, h_m = ssm_scan_chunked(x, dt, A, Bc, Cc, D,
+                                jnp.zeros((B, di, n), jnp.float32), chunk=16)
+    _close(y, y_m)
+    _close(h, h_m)
+
+
+def test_wrapper_runs_the_plain_version_on_the_cpu():
+    arrays = [torch.from_numpy(a) for a in _inputs(2, 20, 48, 16, 5)]
+    before = kssm.ssm_scan.launches
+    y, h = kssm.ssm_scan(*arrays)
+    y_ref, h_ref = ref.ssm_scan_ref(*arrays)
+    assert torch.equal(y, y_ref) and torch.equal(h, h_ref)
+    assert kssm.ssm_scan.launches == before
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    good = [torch.from_numpy(a) for a in _inputs(1, 4, 8, 4, 6)]
+    with pytest.raises(TypeError):
+        kssm.ssm_scan(good[0].double(), *good[1:])
+    with pytest.raises(ValueError):     # Bc with the wrong state size
+        kssm.ssm_scan(*good[:3], good[3][..., :3], *good[4:])
+    with pytest.raises(ValueError):
+        kssm.ssm_scan(good[0].transpose(1, 2).contiguous().transpose(1, 2),
+                      *good[1:])
+    # neither the CPU nor a CUDA device: no plain-version fallback
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kssm.ssm_scan(*(t.to("meta") for t in good))
+
+
+if __name__ == "__main__":
+    worst_y = worst_h = 0.0
+    for shape in [(1, 128, 256, 16), (2, 256, 512, 8), (1, 64, 1024, 16),
+                  (2, 45, 200, 8), (1, 37, 3200, 16), (3, 130, 96, 4)]:
+        arrays = _inputs(*shape, 2)
+        y, h = _port(arrays)
+        y_ref, h_ref = _jax_ref(arrays)
+        worst_y = max(worst_y, float(np.abs(y - np.asarray(y_ref)).max()))
+        worst_h = max(worst_h, float(np.abs(h - np.asarray(h_ref)).max()))
+        if shape[1] % min(64, shape[1]) == 0 and shape[2] % 256 == 0:
+            pallas = ssm_scan_pallas(*(jnp.asarray(a) for a in arrays),
+                                     block_d=256, chunk=min(64, shape[1]),
+                                     interpret=True)
+            worst_y = max(worst_y,
+                          float(np.abs(y - np.asarray(pallas)).max()))
+    print(f"plain version vs Pallas kernel and oracle, max abs err: y "
+          f"{worst_y:.3e}, h_final {worst_h:.3e}")
