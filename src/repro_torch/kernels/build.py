@@ -83,8 +83,9 @@ LAUNCH_ARGTYPES = {
     "retention": [_P, _P, _P, _I64, _I, _P],
     # x, dt, A, Bc, Cc, D, y, h_final, B, S, di, n, stream
     "ssm_scan": [_P] * 8 + [_I] * 4 + [_P],
-    # q, k, v, o, B, H, K, S, Sk, D, scale, bf16, causal, stream
-    "flash_attention": [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P],
+    # q, k, v, o, B, H, K, S, Sk, D, scale, bf16, causal, window, sink,
+    # round_p, stream
+    "flash_attention": [_P] * 4 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
 }
 
 

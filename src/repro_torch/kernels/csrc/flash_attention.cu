@@ -2,80 +2,404 @@
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention (body
 // _flash_kernel). Same function: o = softmax(q k^T / sqrt(D) + mask) v with
-// an online softmax over kv tiles, m, l and the accumulator in fp32,
-// entries above the diagonal (causal) set to -0.7 * FLT_MAX, p rounded to
-// v's dtype before the PV product, l clamped to >= 1e-30, output in q's
-// dtype. Beyond the TPU kernel it takes grouped-query attention (query head
-// h reads kv head h / (H / K), so K and V are never repeated in memory) and
-// any sequence length (the ragged last tile is masked). The plain PyTorch
-// version is repro_torch/kernels/ref.py::attention_ref, which uses the same
-// kv tile width.
+// an online softmax over kv tiles, m, l and the accumulator in fp32, masked
+// scores set to -0.7 * FLT_MAX, l summing the unrounded p and clamped to
+// >= 1e-30, output in q's dtype. Beyond the TPU kernel it takes
+//   - grouped-query attention: query head h reads kv head h / (H / K), so K
+//     and V are never repeated in memory;
+//   - any sequence length (the ragged last tiles are masked);
+//   - a sliding window with a sink, the mask of the model's
+//     repro/models/attention.py::causal_attention with the queries at
+//     positions 0..S-1: key c is visible to row r when c <= r and
+//     (no window, or r - c < window, or c < sink);
+//   - two treatments of p in the PV product: rounded to v's dtype
+//     (round_p = 1, the TPU kernel's), or kept at fp32 precision (round_p =
+//     0, what the model's blocked computation does).
+// The plain PyTorch version is repro_torch/kernels/ref.py::attention_ref,
+// which uses the same kv tile width and mask.
 //
-// What bounds it on this card: at hymba's prefill shape the work is
-// ~16 GFLOP on ~35 MB, far above the bytes-per-op ridge, so operations
-// bound it. This first version does them as fp32 FMAs from shared memory,
-// not on the tensor cores (wgmma is later work), which also keeps fp32
-// inputs in IEEE fp32, as the reference's 2e-5 gate needs (TF32 could not
-// meet it). The design:
-//   - one block of 256 threads per (batch * head, 64-row q tile), over a
-//     (ceil(S / 64), B * H) grid; four threads share a q row, each owning
-//     16 of the 64 score columns and D/4 of the output columns;
-//   - the q tile stays in shared memory (fp32) for the whole kv loop; each
-//     64-row kv tile of K and V is staged in shared memory (fp32, rows of K
-//     padded by one word so the row-strided reads hit distinct banks);
-//   - the row max and row sum of a tile reduce over the four threads of a
-//     row with warp shuffles; p goes through shared memory (a row's p is
-//     written and read by the same four lanes, so a warp barrier orders it);
-//   - with causal masking the loop stops at the last kv tile that meets
-//     the diagonal of the tile's last real row: tiles above it are never
-//     loaded (the TPU kernel skips them too);
-//   - D is a template parameter (16, 32, 64, 96, 128), so the per-thread
-//     accumulator is an unrolled register array.
-// IEEE expf, no --use_fast_math.
+// What bounds it on this card: at hymba's prefill shape (4, 25, 5, 1128, 64)
+// the causal work is ~16 GFLOP on ~35 MB, far above the bytes-per-op ridge,
+// so operations bound it, and in bf16 only the tensor cores reach them.
+//
+// bf16 inputs: tensor cores through mma.sync.m16n8k16 (fp32 accumulate),
+// the FlashAttention-2 layout. wgmma would reach a higher peak (and its
+// asynchronous issue would let one warpgroup's softmax overlap another's
+// products); mma.sync keeps to register fragments whose layout is fixed by
+// the instruction, with no shared-memory descriptors to get right.
+//   - one block of 4 warps per (batch * head, 64-row q tile), over a
+//     (ceil(S / 64), B * H) grid, the q tiles in reverse order so that the
+//     longest causal rows start first; each warp owns 16 q rows;
+//   - Q and a double buffer of 64-row K and V tiles are brought into shared
+//     memory by cp.async (rows past the end zero-filled), rows padded by 16
+//     bytes so that ldmatrix reads 8 rows from 8 distinct bank groups;
+//   - S = Q K^T: Q's A fragments stay in registers for the whole kv loop,
+//     K's B fragments come from ldmatrix; the online softmax runs on the
+//     fp32 accumulator fragments, the row max and sum reduced over the 4
+//     lanes of a row with shuffles, exp(x) as exp2f(x * log2(e));
+//   - O += P V: P goes from the accumulator fragments straight into bf16 A
+//     fragments (no shared-memory round trip), V's B fragments come from
+//     ldmatrix.trans;
+//   - round_p = 0 splits p = p_hi + p_lo with p_hi = bf16(p) and p_lo =
+//     bf16(p - p_hi) and issues both products into the same fp32
+//     accumulator: p keeps ~17 bits (relative error ~2^-17, far below one
+//     bf16 ulp of the output) for 1.5x the tensor-core work of round_p = 1.
+//     TF32 for PV would need V widened and P in tf32 fragments, twice the
+//     registers of the bf16 split, for no more precision.
+// fp32 inputs: IEEE fp32 FMAs out of shared memory (no TF32), so that the
+// 2e-5 gate of the reference's tests holds; there round_p changes nothing.
+//   - one block of 256 threads per (batch * head, 64-row q tile); four
+//     threads share a q row, each owning 16 of the 64 score columns and D/4
+//     of the output columns; q, k and v tiles staged in shared memory, rows
+//     of q and k padded by one word; p goes through shared memory.
+// Both visit only the kv tiles that some row of the q tile can see: the
+// sink tiles [0, ceil(sink / 64)), then the tiles from the one holding key
+// q0 - window + 1 up to the one that meets the diagonal of the tile's last
+// real row. The per-element mask runs only on tiles that cross the diagonal,
+// the window's edge or the end of the keys. Skipping gives the plain
+// version's result in exact arithmetic: every real row sees its own key, in
+// a visited tile; a tile that is wholly masked for a row either finds that
+// row with real keys already (p = exp(NEG - m) = 0 and alpha = 1: m, l and
+// the accumulator are unchanged), or with none yet (m = NEG), and then
+// whatever it added is wiped by alpha = exp(NEG - m) = 0 when the row's
+// first real key arrives. IEEE expf in the fp32 kernel, no
+// --use_fast_math anywhere.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kBQ = 64;        // q rows per block
 constexpr int kBK = 64;        // kv rows per tile (ref.BLOCK_K)
-constexpr int kThreads = 256;  // 4 threads per q row
 // -0.7 * FLT_MAX, rounded once from double, as the plain version has it
 constexpr float kNeg = static_cast<float>(-0.7 * 3.4028234663852886e38);
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// the mask, with window <= 0 meaning no window
+struct Mask {
+  int Sk, causal, window, sink;
+  __device__ __forceinline__ bool visible(int r, int c) const {
+    return c < Sk && (!causal || (c <= r && (window <= 0 || r - c < window ||
+                                             c < sink)));
+  }
+  // whether some (row, key) of the tile (q0.., k0..) is masked
+  __device__ __forceinline__ bool partial(int q0, int k0) const {
+    if (k0 + kBK > Sk) return true;
+    if (!causal) return false;
+    if (k0 + kBK - 1 > q0) return true;
+    return window > 0 && q0 + kBQ - 1 - k0 >= window && k0 + kBK > sink;
+  }
+};
+
+// the kv tiles a q tile visits, in increasing order: tile i < n_sink is i,
+// the others first + (i - n_sink)
+struct Tiles {
+  int n_sink, first, n;
+  __device__ __forceinline__ int operator[](int i) const {
+    return i < n_sink ? i : first + (i - n_sink);
+  }
+};
+
+__device__ __forceinline__ Tiles tiles_of(const Mask& mk, int q0, int S) {
+  int hi = (mk.Sk + kBK - 1) / kBK - 1;
+  int first = 0, n_sink = 0;
+  if (mk.causal) {
+    hi = min(hi, (min(q0 + kBQ, S) - 1) / kBK);
+    if (mk.window > 0) {
+      first = max(0, q0 - mk.window + 1) / kBK;
+      n_sink = min((mk.sink + kBK - 1) / kBK, first);
+    }
+  }
+  return Tiles{n_sink, first, n_sink + max(hi - first + 1, 0)};
 }
 
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16_rn(v);
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kWarps = 4;
+constexpr int kThreadsTC = 32 * kWarps;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// p as the PV product sees it: rounded to v's dtype
-template <typename T> __device__ __forceinline__ float round_p(float p) {
-  return to_f(from_f<T>(p));
+// 16 bytes global -> shared; src_bytes = 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats -> bf16x2, the first in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// the part of each float that bf16 rounding dropped, as bf16x2
+__device__ __forceinline__ uint32_t pack_bf16_residual(float lo, float hi,
+                                                       uint32_t rounded) {
+  const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(&rounded);
+  return pack_bf16(lo - __bfloat162float(r.x), hi - __bfloat162float(r.y));
+}
+
+constexpr int kPad = 8;  // row pitch D + kPad bf16: rows 16 bytes apart
 
 template <int D>
-constexpr size_t smem_bytes() {
+constexpr size_t smem_bytes_tc() {
+  return sizeof(__nv_bfloat16) * (D + kPad) * (kBQ + 4 * kBK);
+}
+
+// 64 rows of D bf16 from rows [row0, row0 + 64) of src (n_rows rows) into
+// dst with pitch D + kPad; rows past n_rows are zero-filled
+template <int D>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, int row0,
+                                          int n_rows, int tid) {
+  constexpr int kChunks = D / 8;  // 16-byte chunks a row
+  constexpr int LD = D + kPad;
+  for (int i = tid; i < kBK * kChunks; i += kThreadsTC) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool in = row0 + r < n_rows;
+    const __nv_bfloat16* s =
+        src + static_cast<long long>(in ? row0 + r : 0) * D + c * 8;
+    cp_async16(smem_u32(dst + r * LD + c * 8), s, in ? 16 : 0);
+  }
+}
+
+template <int D, bool kSplitP>
+__global__ void __launch_bounds__(kThreadsTC)
+flash_kernel_tc(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
+                const __nv_bfloat16* __restrict__ k,   // (B, K, Sk, D)
+                const __nv_bfloat16* __restrict__ v,   // (B, K, Sk, D)
+                __nv_bfloat16* __restrict__ o,         // (B, H, S, D)
+                int H, int K, int S, Mask mk, float scale) {
+  constexpr int LD = D + kPad;
+  constexpr int NT = kBK / 8;    // score n-tiles of 8 keys
+  constexpr int KQ = D / 16;     // k-steps of S = Q K^T
+  constexpr int NO = D / 8;      // output n-tiles of 8 columns
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* k_s = q_s + kBQ * LD;          // 2 x kBK x LD
+  __nv_bfloat16* v_s = k_s + 2 * kBK * LD;      // 2 x kBK x LD
+
+  const int bh = blockIdx.y;                    // b * H + h
+  const int kvh = (bh / H) * K + (bh % H) / (H / K);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int Sk = mk.Sk;
+  const __nv_bfloat16* qp = q + static_cast<long long>(bh) * S * D;
+  const __nv_bfloat16* kp = k + static_cast<long long>(kvh) * Sk * D;
+  const __nv_bfloat16* vp = v + static_cast<long long>(kvh) * Sk * D;
+  __nv_bfloat16* op = o + static_cast<long long>(bh) * S * D;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row0 = q0 + warp * 16 + (lane >> 2);   // rows row0, row0 + 8
+  const int quad_col = 2 * (lane & 3);             // fragment column
+
+  const Tiles tiles = tiles_of(mk, q0, S);
+  load_tile<D>(q_s, qp, q0, S, tid);
+  cp_async_commit();
+  load_tile<D>(k_s, kp, tiles[0] * kBK, Sk, tid);
+  load_tile<D>(v_s, vp, tiles[0] * kBK, Sk, tid);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // Q's A fragments: ldmatrix lane l addresses row l % 16, column 8 (l / 16)
+  uint32_t qf[KQ][4];
+#pragma unroll
+  for (int kk = 0; kk < KQ; ++kk)
+    ldsm_x4(qf[kk], smem_u32(q_s + (warp * 16 + (lane & 15)) * LD + 16 * kk +
+                             8 * (lane >> 4)));
+
+  const float c2 = scale * kLog2e;  // exp(x * scale) = exp2(x * c2)
+  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  for (int i = 0; i < tiles.n; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < tiles.n) {
+      const int k1 = tiles[i + 1] * kBK;
+      load_tile<D>(k_s + (buf ^ 1) * kBK * LD, kp, k1, Sk, tid);
+      load_tile<D>(v_s + (buf ^ 1) * kBK * LD, vp, k1, Sk, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int k0 = tiles[i] * kBK;
+    const __nv_bfloat16* kt = k_s + buf * kBK * LD;
+    const __nv_bfloat16* vt = v_s + buf * kBK * LD;
+
+    // S = Q K^T (unscaled). ldmatrix x4 gives the B fragments of n-tiles
+    // j and j + 1: lane l addresses key 8 (j + l / 16) + l % 8 at column
+    // 16 kk + 8 ((l / 8) % 2)
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, smem_u32(kt + (8 * (j + (lane >> 4)) + (lane & 7)) * LD +
+                            16 * kk + 8 * ((lane >> 3) & 1)));
+        mma_bf16(s[j], qf[kk], b[0], b[1]);
+        mma_bf16(s[j + 1], qf[kk], b[2], b[3]);
+      }
+    }
+    // fragment (j, e): row row0 + 8 (e / 2), key k0 + 8 j + quad_col + e % 2
+    if (mk.partial(q0, k0)) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!mk.visible(row0 + 8 * (e >> 1), k0 + 8 * j + quad_col + (e & 1)))
+            s[j][e] = kNeg;
+    }
+
+    // online softmax of the two rows this thread holds
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m[h];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // (s - mx) * c2, not fmaf(s, c2, -mx * c2): while a row has seen
+      // only masked keys (mx = NEG) the difference must be exactly 0
+      float ps = 0.0f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[j][e] = exp2f((s[j][e] - mx) * c2);
+          ps += s[j][e];
+        }
+      ps += __shfl_xor_sync(0xffffffffu, ps, 1);
+      ps += __shfl_xor_sync(0xffffffffu, ps, 2);
+      alpha[h] = exp2f((m[h] - mx) * c2);
+      l[h] = l[h] * alpha[h] + ps;
+      m[h] = mx;
+    }
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+
+    // O += P V, 16 keys a k-step. P's A fragment of k-step kk is score
+    // n-tiles 2 kk and 2 kk + 1; V's B fragments of output n-tiles j and
+    // j + 1 come from ldmatrix.trans: lane l addresses key 16 kk + 8
+    // ((l / 8) % 2) + l % 8 at column 8 (j + l / 16)
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t ph[4], pl[4];
+      ph[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      ph[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      ph[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      ph[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      if constexpr (kSplitP) {
+        pl[0] = pack_bf16_residual(s[2 * kk][0], s[2 * kk][1], ph[0]);
+        pl[1] = pack_bf16_residual(s[2 * kk][2], s[2 * kk][3], ph[1]);
+        pl[2] = pack_bf16_residual(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2]);
+        pl[3] = pack_bf16_residual(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NO; j += 2) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, smem_u32(vt + (16 * kk + 8 * ((lane >> 3) & 1) +
+                                        (lane & 7)) * LD +
+                                  8 * (j + (lane >> 4))));
+        mma_bf16(acc[j], ph, b[0], b[1]);
+        mma_bf16(acc[j + 1], ph, b[2], b[3]);
+        if constexpr (kSplitP) {
+          mma_bf16(acc[j], pl, b[0], b[1]);
+          mma_bf16(acc[j + 1], pl, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with buf before it is refilled
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= S) continue;
+    const float denom = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(
+          op + static_cast<long long>(row) * D + 8 * j + quad_col) =
+          __floats2bfloat162_rn(acc[j][2 * h] / denom,
+                                acc[j][2 * h + 1] / denom);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: IEEE FMAs
+// ---------------------------------------------------------------------------
+
+constexpr int kThreadsF = 256;  // 4 threads per q row
+
+template <int D>
+constexpr size_t smem_bytes_f32() {
   return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D +
                           kBQ * (kBK + 1));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q,   // (B, H, S, D)
-             const T* __restrict__ k,   // (B, K, Sk, D)
-             const T* __restrict__ v,   // (B, K, Sk, D)
-             T* __restrict__ o,         // (B, H, S, D)
-             int H, int K, int S, int Sk, float scale, int causal) {
+template <int D>
+__global__ void __launch_bounds__(kThreadsF)
+flash_kernel_f32(const float* __restrict__ q,   // (B, H, S, D)
+                 const float* __restrict__ k,   // (B, K, Sk, D)
+                 const float* __restrict__ v,   // (B, K, Sk, D)
+                 float* __restrict__ o,         // (B, H, S, D)
+                 int H, int K, int S, Mask mk, float scale) {
   extern __shared__ float smem[];
   constexpr int LD = D + 1;
   constexpr int LP = kBK + 1;
@@ -86,11 +410,12 @@ flash_kernel(const T* __restrict__ q,   // (B, H, S, D)
 
   const int bh = blockIdx.y;         // b * H + h
   const int kvh = (bh / H) * K + (bh % H) / (H / K);
-  const int q0 = blockIdx.x * kBQ;
-  const T* qp = q + static_cast<long long>(bh) * S * D;
-  const T* kp = k + static_cast<long long>(kvh) * Sk * D;
-  const T* vp = v + static_cast<long long>(kvh) * Sk * D;
-  T* op = o + static_cast<long long>(bh) * S * D;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int Sk = mk.Sk;
+  const float* qp = q + static_cast<long long>(bh) * S * D;
+  const float* kp = k + static_cast<long long>(kvh) * Sk * D;
+  const float* vp = v + static_cast<long long>(kvh) * Sk * D;
+  float* op = o + static_cast<long long>(bh) * S * D;
 
   const int tid = threadIdx.x;
   const int r = tid >> 2;            // q row within the tile
@@ -98,10 +423,10 @@ flash_kernel(const T* __restrict__ q,   // (B, H, S, D)
   const int row = q0 + r;
 
   // q tile; rows past S read as 0 and are never stored
-  for (int i = tid; i < kBQ * D; i += kThreads) {
+  for (int i = tid; i < kBQ * D; i += kThreadsF) {
     const int rr = i / D, dd = i % D;
     q_s[rr * LD + dd] =
-        q0 + rr < S ? to_f(qp[static_cast<long long>(q0 + rr) * D + dd]) : 0.0f;
+        q0 + rr < S ? qp[static_cast<long long>(q0 + rr) * D + dd] : 0.0f;
   }
 
   float m = kNeg, l = 0.0f;
@@ -109,18 +434,16 @@ flash_kernel(const T* __restrict__ q,   // (B, H, S, D)
 #pragma unroll
   for (int j = 0; j < D / 4; ++j) acc[j] = 0.0f;
 
-  int n_tiles = (Sk + kBK - 1) / kBK;
-  if (causal) n_tiles = min(n_tiles, (min(q0 + kBQ, S) - 1) / kBK + 1);
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
+  const Tiles tiles = tiles_of(mk, q0, S);
+  for (int i = 0; i < tiles.n; ++i) {
+    const int k0 = tiles[i] * kBK;
     __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int rr = i / D, dd = i % D;
+    for (int t = tid; t < kBK * D; t += kThreadsF) {
+      const int rr = t / D, dd = t % D;
       const bool in = k0 + rr < Sk;
       const long long g = static_cast<long long>(k0 + rr) * D + dd;
-      k_s[rr * LD + dd] = in ? to_f(kp[g]) : 0.0f;
-      v_s[rr * D + dd] = in ? to_f(vp[g]) : 0.0f;
+      k_s[rr * LD + dd] = in ? kp[g] : 0.0f;
+      v_s[rr * D + dd] = in ? vp[g] : 0.0f;
     }
     __syncthreads();
 
@@ -137,9 +460,7 @@ flash_kernel(const T* __restrict__ q,   // (B, H, S, D)
     float mx = kNeg;
 #pragma unroll
     for (int j = 0; j < kBK / 4; ++j) {
-      const int col = k0 + c4 + 4 * j;
-      float sv = s[j] * scale;
-      if (col >= Sk || (causal && col > row)) sv = kNeg;
+      const float sv = mk.visible(row, k0 + c4 + 4 * j) ? s[j] * scale : kNeg;
       s[j] = sv;
       mx = fmaxf(mx, sv);
     }
@@ -151,7 +472,7 @@ flash_kernel(const T* __restrict__ q,   // (B, H, S, D)
     for (int j = 0; j < kBK / 4; ++j) {
       const float p = expf(s[j] - m_new);
       ps += p;
-      p_s[r * LP + c4 + 4 * j] = round_p<T>(p);
+      p_s[r * LP + c4 + 4 * j] = p;
     }
     ps += __shfl_xor_sync(0xffffffffu, ps, 1);
     ps += __shfl_xor_sync(0xffffffffu, ps, 2);
@@ -174,61 +495,71 @@ flash_kernel(const T* __restrict__ q,   // (B, H, S, D)
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int j = 0; j < D / 4; ++j)
-      op[static_cast<long long>(row) * D + c4 + 4 * j] =
-          from_f<T>(acc[j] / denom);
+      op[static_cast<long long>(row) * D + c4 + 4 * j] = acc[j] / denom;
   }
 }
 
-template <typename T, int D>
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int K, int S, int Sk, float scale,
-                   int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+                   int B, int H, int K, int S, Mask mk, float scale, int bf16,
+                   int round_p, cudaStream_t stream) {
+  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  if (!bf16) {
+    constexpr size_t smem = smem_bytes_f32<D>();
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_kernel_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    flash_kernel_f32<D><<<grid, kThreadsF, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), H, K, S, mk,
+        scale);
+    return cudaGetLastError();
+  }
+  constexpr size_t smem = smem_bytes_tc<D>();
+  auto kernel = round_p ? flash_kernel_tc<D, false> : flash_kernel_tc<D, true>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, K, S, Sk, scale,
-      causal);
+  kernel<<<grid, kThreadsTC, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      H, K, S, mk, scale);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int B, int H, int K, int S, int Sk, int D, float scale,
-                     int causal, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, H, K, S, Sk, scale, causal, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, H, K, S, Sk, scale, causal, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, H, K, S, Sk, scale, causal, s);
-    case 96: return launch<T, 96>(q, k, v, o, B, H, K, S, Sk, scale, causal, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, H, K, S, Sk, scale, causal, s);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// bf16 != 0: q, k, v, o are bfloat16, else float32. D must be 16, 32, 64,
-// 96 or 128, and H a multiple of K.
+// bf16 != 0: q, k, v, o are bfloat16 (16-byte aligned), else float32. D
+// must be 16, 32, 64, 96 or 128, and H a multiple of K. window <= 0 means
+// no window (and sink is then ignored); window and sink apply only with
+// causal != 0. round_p != 0 rounds p to v's dtype before the PV product.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int H,
                                       int K, int S, int Sk, int D,
                                       float scale, int bf16, int causal,
+                                      int window, int sink, int round_p,
                                       void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return 0;
-  if (K <= 0 || H % K != 0 || Sk <= 0)
+  if (K <= 0 || H % K != 0 || Sk <= 0 || sink < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, B, H, K, S, Sk, D, scale,
-                                     causal, s)
-           : dispatch<float>(q, k, v, o, B, H, K, S, Sk, D, scale, causal, s);
-  return static_cast<int>(err);
+  const Mask mk{Sk, causal, window, sink};
+  switch (D) {
+    case 16: return launch<16>(q, k, v, o, B, H, K, S, mk, scale, bf16, round_p, s);
+    case 32: return launch<32>(q, k, v, o, B, H, K, S, mk, scale, bf16, round_p, s);
+    case 64: return launch<64>(q, k, v, o, B, H, K, S, mk, scale, bf16, round_p, s);
+    case 96: return launch<96>(q, k, v, o, B, H, K, S, mk, scale, bf16, round_p, s);
+    case 128: return launch<128>(q, k, v, o, B, H, K, S, mk, scale, bf16, round_p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

@@ -4,7 +4,8 @@ of ``kernels/csrc/*.cu`` and what the wrappers run for tensors on the CPU.
 - ``retention_ref`` repeats, op for op in float32, what the reference's
   packed oracle (``repro/kernels/ref.py::retention_ref``) computes.
 - ``attention_ref`` is the flash-attention forward with the kernel's kv
-  blocking, masking and bf16 rounding of ``p``.
+  blocking, causal/window/sink mask and either treatment of ``p`` (rounded
+  to v's dtype, or float32).
 - ``ssm_scan_ref`` is the sequential selective scan, returning the final
   state as well.
 """
@@ -75,17 +76,27 @@ BLOCK_K = 64    # kv tile of kernels/csrc/flash_attention.cu
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  causal: bool = True) -> torch.Tensor:
+                  causal: bool = True, *, window=None, sink: int = 0,
+                  round_p: bool = True) -> torch.Tensor:
     """q (B,H,S,D), k/v (B,K,Sk,D) with H % K == 0 -> (B,H,S,D) in q's dtype.
 
     The online softmax of ``repro/kernels/flash_attention.py::_flash_kernel``
     over kv tiles of ``BLOCK_K`` columns: scores in float32 scaled by
-    1/sqrt(D), entries above the diagonal (causal) set to ``NEG``, running
-    max m, sum l and accumulator in float32, ``p`` rounded to v's dtype
-    before the PV product, l clamped to >= 1e-30. Query head h reads kv head
-    h // (H/K) (GQA). A kv tile the kernel skips (wholly above the diagonal)
-    is all ``NEG`` here and leaves m, l and the accumulator bit for bit
-    unchanged, so processing it is the same as skipping it."""
+    1/sqrt(D), masked entries set to ``NEG``, running max m, sum l and
+    accumulator in float32, l summing the unrounded p and clamped to >=
+    1e-30. Query head h reads kv head h // (H/K) (GQA).
+
+    Mask (``causal``): key c is visible to row r when c <= r and (``window``
+    is None or r - c < window or c < ``sink``), the mask of the model's
+    ``repro/models/attention.py::causal_attention`` with the queries at
+    positions 0..S-1. ``round_p``: p is rounded to v's dtype before the PV
+    product (the TPU kernel), else kept in float32 (the model).
+
+    A kv tile the kernel skips (wholly masked for every row of its q tile)
+    is processed here: for a row that has seen a real key it leaves m, l and
+    the accumulator bit for bit unchanged, and for one that has not, what it
+    adds is wiped by alpha = exp(NEG - m) = 0 at the row's first real key,
+    so processing it is the same as skipping it."""
     B, H, S, D = q.shape
     K, Sk = k.shape[1], k.shape[2]
     G = H // K
@@ -100,16 +111,38 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for j0 in range(0, Sk, BLOCK_K):
         s = (qf @ kf[:, :, j0:j0 + BLOCK_K].transpose(-1, -2)) * scale
         if causal:
-            cols = torch.arange(j0, j0 + s.shape[-1], device=q.device)
-            s = torch.where(rows >= cols[None, :], s, NEG)
+            cols = torch.arange(j0, j0 + s.shape[-1], device=q.device)[None]
+            visible = rows >= cols
+            if window is not None:
+                visible = visible & ((rows - cols < window) | (cols < sink))
+            s = torch.where(visible, s, NEG)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + (
-            p.to(v.dtype).float() @ vg[:, :, j0:j0 + BLOCK_K].float())
+        if round_p:
+            p = p.to(v.dtype).float()
+        acc = acc * alpha[..., None] + p @ vg[:, :, j0:j0 + BLOCK_K].float()
         m = m_new
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+
+
+ULP_FLOOR = 2.0 ** -10
+
+
+def bf16_ulp_gaps(got: torch.Tensor, want: torch.Tensor,
+                  floor: float = ULP_FLOOR):
+    """(largest gap in bf16 ulps, share of elements that differ) between
+    two tensors of bf16 values: each gap in ulps of max(|got|, |want|,
+    ``floor`` * max|want|). The floor: float32 rounding in an attention
+    accumulator is relative to the output's scale, so an element whose
+    weighted sum cancels to near zero can move by many of its own ulps."""
+    got, want = got.double(), want.double()
+    mag = torch.maximum(torch.maximum(got.abs(), want.abs()),
+                        floor * want.abs().max())
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+    gap = (got - want).abs()
+    return (gap / ulp).max().item(), (gap > 0).double().mean().item()
 
 
 # ---------------------------------------------------------------------------

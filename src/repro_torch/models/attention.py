@@ -1,17 +1,15 @@
-"""Attention: GQA/MQA/MHA with optional qk-norm and rope; causal prefill
-through the flash-attention kernel, sliding-window (+ sink) prefill as a
-blocked online softmax, and the KV-cache decode step.
+"""Attention: GQA/MQA/MHA with optional qk-norm and rope; causal and
+sliding-window (+ sink) prefill through the flash-attention kernel, and the
+KV-cache decode step.
 
 Layouts (those of ``repro/models/attention.py``):
   q            (B, S, K, G, hd)   K = kv heads, G = q heads per kv head
   k, v         (B, S, K, hd)
   weights wq   (d, H, hd)  wk/wv (d, K, hd)  wo (H, hd, d)
 
-Prefill with ``window is None`` (hymba's global-attention layers) calls
-``kernels.flash_attention``: the CUDA kernel on the card, its plain version
-on the CPU. The windowed/sink attention of the SWA layers stays the plain
-blocked computation of ``_block_attend`` (ROADMAP.md: windowed attention in
-the kernel is later work).
+Every prefill layer, global (``window is None``) and sliding-window, calls
+``kernels.flash_attention`` with p kept in float32 (``round_p=False``): the
+CUDA kernel on the card, its plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -70,72 +68,34 @@ def _qkv(p, x, cfg, positions):
     return q.reshape(B, S, K, G, cfg.head_dim), k, v
 
 
-def _block_attend(q_blk, pq, k, v, pk, window, chunk, sink=0):
-    """Online softmax over kv chunks for one query block.
-
-    q_blk (B,c,K,G,hd); k/v (B,S,K,hd); pq (c,), pk (S,). fp32
-    accumulators. ``sink``: number of leading positions that bypass the
-    sliding window (meta tokens)."""
-    B, c, K, G, hd = q_blk.shape
-    hv = v.shape[-1]
-    scale = _scale(hd)
-    qf = q_blk.float().permute(0, 2, 3, 1, 4)                 # (B,K,G,c,hd)
-    m = torch.full((B, K, G, c), NEG, dtype=torch.float32, device=q_blk.device)
-    l = torch.zeros((B, K, G, c), dtype=torch.float32, device=q_blk.device)
-    acc = torch.zeros((B, K, G, c, hv), dtype=torch.float32,
-                      device=q_blk.device)
-    for j0 in range(0, k.shape[1], chunk):
-        k_c = k[:, j0:j0 + chunk].float().permute(0, 2, 3, 1)[:, :, None]
-        v_c = v[:, j0:j0 + chunk].float().permute(0, 2, 1, 3)[:, :, None]
-        pk_c = pk[j0:j0 + chunk]
-        s = (qf @ k_c) * scale                                 # (B,K,G,c,ch)
-        mask = pq[:, None] >= pk_c[None, :]
-        if window is not None:
-            in_win = pq[:, None] - pk_c[None, :] < window
-            if sink:
-                in_win = in_win | (pk_c[None, :] < sink)
-            mask = mask & in_win
-        s = torch.where(mask, s, NEG)
-        m_new = torch.maximum(m, s.amax(-1))
-        p_ = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p_.sum(-1)
-        acc = acc * alpha[..., None] + p_ @ v_c
-        m = m_new
-    out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q_blk.dtype)
-    return out.permute(0, 3, 1, 2, 4).reshape(B, c, K * G, hv)
-
-
 def causal_attention(q, k, v, positions, window=None, chunk=2048, sink=0):
-    """Blocked causal (optionally sliding-window) attention.
+    """Causal (optionally sliding-window + sink) attention through the
+    flash-attention kernel, with p kept at float32 precision
+    (``round_p=False``), as the reference's blocked computation keeps it.
 
-    q (B,S,K,G,hd), k/v (B,Skv,K,hd) -> (B,S,H,hd). ``positions`` (S,) are
-    the absolute positions of the queries; keys sit at positions (Skv,)."""
-    S, Skv = q.shape[1], k.shape[1]
-    pk = torch.arange(Skv, device=q.device)
-    chunk = min(chunk, S)
-    if S % chunk != 0:
-        chunk = S  # single block
-    kv_chunk = chunk if Skv % chunk == 0 else Skv
-    return torch.cat([
-        _block_attend(q[:, i:i + chunk], positions[i:i + chunk], k, v, pk,
-                      window, kv_chunk, sink)
-        for i in range(0, S, chunk)], dim=1)
+    q (B,S,K,G,hd), k/v (B,S,K,hd) -> (B,S,H,hd) in q's dtype. The queries
+    sit at ``positions`` = arange(S), the prefill from position 0 (the
+    kernel takes a query's row as its position); keys at arange(S).
+    ``chunk``, the reference's blocking, changes only its summation order
+    and is not used."""
+    B, S, K, G, hd = q.shape
+    if positions.shape != (S,) or k.shape[1] != S:
+        raise ValueError(f"causal_attention takes S queries at arange(S) on "
+                         f"S keys: positions {tuple(positions.shape)}, q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    o = flash_attention(
+        q.reshape(B, S, K * G, hd).transpose(1, 2).contiguous(),
+        k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
+        causal=True, window=window, sink=sink, round_p=False)
+    return o.transpose(1, 2)                                   # (B,S,H,hd)
 
 
 def attn_block(p, x, cfg, positions, window=None, sink=0):
     """Attention block for prefill, queries at ``positions`` = arange(S).
     Returns (out, (k, v))."""
     q, k, v = _qkv(p, x, cfg, positions)
-    if window is None:
-        B, S, K, G, hd = q.shape
-        o = flash_attention(
-            q.reshape(B, S, K * G, hd).transpose(1, 2).contiguous(),
-            k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
-            causal=True).transpose(1, 2)                       # (B,S,H,hd)
-    else:
-        o = causal_attention(q, k, v, positions, window=window,
-                             chunk=cfg.attn_chunk, sink=sink)
+    o = causal_attention(q, k, v, positions, window=window,
+                         chunk=cfg.attn_chunk, sink=sink)
     return _out(o.to(x.dtype), p["wo"]), (k, v)
 
 

@@ -1,5 +1,7 @@
 """Card-only checks of the PyTorch port: each CUDA kernel (retention,
-selective scan, flash attention) against its plain version on the card. They skip where no CUDA device is present;
+selective scan, flash attention with its window, sink and both treatments
+of p) against its plain version on the card. They skip where no CUDA device
+is present;
 on a GPU machine run them with ``python -m pytest -m cuda tests/``. This
 file imports no jax, so it also runs where jax is not installed."""
 import numpy as np
@@ -117,6 +119,48 @@ def test_flash_attention_kernel_matches_plain_version(cuda, shape, dtype,
     assert got.dtype == dtype and got.shape == q.shape
     tol = TOL_ATTN[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+# (B, H, K, S, D, window, sink): GQA, ragged S, a window with a sink that no
+# tile boundary meets, a window >= S, hymba-1.5b's serving prefill (window
+# 1,024 and 128 meta tokens: the mask equals the causal one at S = 1,128),
+# and a longer prompt where the window cuts, so that tiles are skipped
+ATTN_MASK_CASES = [(1, 6, 2, 77, 32, None, 0), (2, 4, 1, 200, 64, None, 0),
+                   (1, 4, 2, 300, 64, 100, 20), (2, 2, 2, 517, 128, 128, 70),
+                   (1, 4, 4, 256, 16, 1000, 16), (1, 5, 5, 190, 96, 64, 0),
+                   (4, 25, 5, 1128, 64, 1024, 128),
+                   (1, 25, 5, 2176, 64, 1024, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_MASK_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("round_p", [True, False], ids=["p-rounded", "p-f32"])
+def test_flash_attention_kernel_window_sink_and_p_modes(cuda, case, dtype,
+                                                        round_p):
+    """Both treatments of p, with window and sink: float32 and bf16 with p
+    rounded at the reference's gates, bf16 with p in float32 within one bf16
+    ulp per element and at most 1 % of the elements differing."""
+    B, H, K, S, D, window, sink = case
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, h, S, D)).astype(
+        np.float32)).to(cuda, dtype) for h in (H, K, K))
+    before = kflash.flash_attention.launches
+    got = kflash.flash_attention(q, k, v, window=window, sink=sink,
+                                 round_p=round_p)
+    want = ref.attention_ref(q, k, v, window=window, sink=sink,
+                             round_p=round_p)
+    torch.cuda.synchronize()
+    assert kflash.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.bfloat16 and not round_p:
+        ulps, share = ref.bf16_ulp_gaps(got, want)
+        assert ulps <= 1.0 and share <= 0.01, (ulps, share)
+    else:
+        tol = TOL_ATTN[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
 
 
 # (B, S, di, n): the reference's shapes, a di that no block divides, and

@@ -1,23 +1,48 @@
 """The flash-attention plain version of the PyTorch port (what the wrapper
 runs on the CPU and what the CUDA kernel is held to on the card) against the
-JAX reference: its Pallas kernel in interpret mode and its oracle
-``repro.kernels.ref.attention_ref``.
+JAX reference.
 
-Tolerances are the reference's own gate for its kernel
-(``tests/test_kernels.py``): 2e-5 for float32 and 2e-2 for bfloat16, atol
-and rtol alike. Measured worst case on the CPU at the reference's shapes:
-7.2e-7 for float32 and 7.8e-3 for bfloat16 (max abs err;
-``python tests/test_torch_flash_attention.py`` prints them).
+With p rounded to v's dtype (``round_p=True``, the default) it is held to
+the reference's Pallas kernel in interpret mode and its oracle
+``repro.kernels.ref.attention_ref``, at the reference's own gate for its
+kernel (``tests/test_kernels.py``): 2e-5 for float32 and 2e-2 for bfloat16,
+atol and rtol alike. Measured worst case on the CPU at the reference's
+shapes: 7.2e-7 for float32 and 7.8e-3 for bfloat16 (max abs err).
+
+With p kept in float32 (``round_p=False``, what the port's model calls, with
+its window and sink) it is held to the JAX model's blocked attention
+``repro.models.attention.causal_attention``:
+
+- float32: ``|port - jax| <= 2e-6 * (|jax| + max|jax|)`` elementwise
+  (elementwise relative error alone is meaningless where the weighted sum of
+  v cancels to near zero); measured worst 3.0e-7 of max|jax|;
+- bfloat16: every element within one bf16 ulp of the larger of the two
+  values, magnitudes below 2^-10 * max|jax| counted as 2^-10 * max|jax|
+  (float32 rounding in the accumulator is relative to the output's scale,
+  so an element that cancels to near zero can move by several of its own
+  ulps: measured up to 11), and at most 1 % of the elements differing at
+  all; measured worst share 0.04 %, and 1 ulp.
+
+``python tests/test_torch_flash_attention.py`` prints the measured gaps.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduce_config as jax_reduce_config
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.ref import attention_ref as jax_attention_ref
+from repro.models import LM as JaxLM
+from repro.models import attention as jax_attn
+from repro_torch import convert
+from repro_torch.configs import get_config, reduce_config
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ref
+from repro_torch.models import attention as attn
 
 TOL = {"f32": 2e-5, "bf16": 2e-2}
 JNP = {"f32": jnp.float32, "bf16": jnp.bfloat16}
@@ -85,6 +110,192 @@ def test_plain_version_gqa_and_ragged(shape, dtype, causal):
     assert _err(got, want) <= TOL[dtype]
 
 
+# ---------------------------------------------------------------------------
+# p in float32 with window and sink: the JAX model's attention
+# ---------------------------------------------------------------------------
+
+RTOL_F32 = 2e-6
+MAX_SHARE_BF16 = 0.01        # elements allowed to differ at all
+
+
+def bf16_ulp_gaps(got, want):
+    """``ref.bf16_ulp_gaps`` of two numpy arrays of bf16 values."""
+    return ref.bf16_ulp_gaps(torch.tensor(np.asarray(got, np.float32)),
+                             torch.tensor(np.asarray(want, np.float32)))
+
+
+def test_bf16_ulp_gaps_counts_in_ulps_of_the_floored_magnitude():
+    want = torch.tensor([1.0, 0.5, 1e-6, 0.0]).bfloat16()
+    one_ulp = torch.tensor([1.0 + 2 ** -7, 0.5, 1e-6, 0.0]).bfloat16()
+    assert ref.bf16_ulp_gaps(one_ulp, want) == (1.0, 0.25)
+    # 1e-6 -> 2e-6 is ~130 of its own ulps, 0.13 ulp of the floor 2^-10 *
+    # max|want| (whose ulp is 2^-17)
+    tiny = torch.tensor([1.0, 0.5, 2e-6, 0.0]).bfloat16()
+    ulps, share = ref.bf16_ulp_gaps(tiny, want)
+    assert 0.1 < ulps < 0.2 and share == 0.25
+    assert ref.bf16_ulp_gaps(want, want) == (0.0, 0.0)
+
+
+def assert_bf16_close(got, want):
+    ulps, share = bf16_ulp_gaps(got, want)
+    assert ulps <= 1.0 and share <= MAX_SHARE_BF16, (ulps, share)
+
+
+def assert_f32_close(got, want):
+    want = np.asarray(want, np.float64)
+    gap = np.abs(np.asarray(got, np.float64) - want)
+    assert (gap <= RTOL_F32 * (np.abs(want) + np.abs(want).max())).all(), \
+        gap.max() / np.abs(want).max()
+
+
+def _model_inputs(B, S, K, G, hd, seed, scale=1.0):
+    """q (B,S,K,G,hd), k/v (B,S,K,hd), unit normal times ``scale``."""
+    rng = np.random.default_rng(seed)
+    return tuple((scale * rng.normal(size=shape)).astype(np.float32)
+                 for shape in ((B, S, K, G, hd), (B, S, K, hd),
+                               (B, S, K, hd)))
+
+
+def _jax_model_attention(q, k, v, dtype, window, sink):
+    S = q.shape[1]
+    o = jax_attn.causal_attention(
+        *(jnp.asarray(a, JNP[dtype]) for a in (q, k, v)), jnp.arange(S),
+        window=window, sink=sink)
+    return np.asarray(o.astype(jnp.float32))
+
+
+def _to_heads(q, k, v, dtype):
+    """The model layout (B,S,K,G,hd) / (B,S,K,hd) -> the kernel's
+    (B,H,S,D) / (B,K,S,D) torch tensors."""
+    B, S, K, G, hd = q.shape
+    return (torch.from_numpy(q).to(TORCH[dtype]).reshape(B, S, K * G, hd)
+            .transpose(1, 2).contiguous(),
+            *(torch.from_numpy(a).to(TORCH[dtype]).transpose(1, 2)
+              .contiguous() for a in (k, v)))
+
+
+# (B, S, K, G, hd, window, sink): GQA; a ragged S; window < S with a sink
+# that no tile boundary meets; window >= S; hymba's window 1,024 with 128
+# meta tokens at reduced width (S = 128 meta + 1,000 text tokens, 1 kv head
+# of 2 q heads, hd 16)
+MODEL_CASES = [(2, 128, 2, 3, 32, None, 0), (1, 130, 1, 4, 64, None, 0),
+               (1, 300, 2, 2, 32, 100, 20), (1, 200, 2, 2, 16, 1000, 16),
+               (1, 1128, 1, 2, 16, 1024, 128)]
+
+
+@pytest.mark.parametrize("case", MODEL_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_float32_p_matches_the_jax_model_attention(case, dtype):
+    B, S, K, G, hd, window, sink = case
+    q, k, v = _model_inputs(B, S, K, G, hd, 4)
+    got = ref.attention_ref(*_to_heads(q, k, v, dtype), causal=True,
+                            window=window, sink=sink, round_p=False)
+    got = got.transpose(1, 2).float().numpy()
+    want = _jax_model_attention(q, k, v, dtype, window, sink)
+    (assert_f32_close if dtype == "f32" else assert_bf16_close)(got, want)
+
+
+@pytest.mark.parametrize("case", MODEL_CASES[2:], ids=str)
+def test_port_causal_attention_matches_the_jax_model(case):
+    """The port's ``causal_attention`` (the layout wrapper the model calls)
+    against the JAX function of the same name, bf16, at 3x unit scale."""
+    B, S, K, G, hd, window, sink = case
+    q, k, v = _model_inputs(B, S, K, G, hd, 5, scale=3.0)
+    got = attn.causal_attention(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+        torch.arange(S), window=window, sink=sink)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, K * G, hd)
+    assert_bf16_close(got.float().numpy(),
+                      _jax_model_attention(q, k, v, "bf16", window, sink))
+
+
+def _hymba_heads_layer(S, seed=6):
+    """(cfg, params, x) of a global layer with hymba-1.5b's attention heads
+    (25 q on 5 kv, hd 64) and d_model = 25 * 64, bf16: wq, wk, wv normal
+    over sqrt(d_model), so that q, k and v are about unit normal, and wo
+    the identity, so that the block hands the attention out unchanged."""
+    cfg = reduce_config(get_config("hymba-1.5b")).replace(
+        dtype="bfloat16", num_heads=25, num_kv_heads=5, head_dim=64,
+        d_model=1600)
+    d, H, K, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                   cfg.head_dim)
+    rng = np.random.default_rng(seed)
+
+    def w(*shape):
+        return torch.from_numpy((rng.normal(size=shape) / np.sqrt(d))
+                                .astype(np.float32)).bfloat16()
+    p = {"wq": w(d, H, hd), "wk": w(d, K, hd), "wv": w(d, K, hd),
+         "wo": torch.eye(d, dtype=torch.bfloat16).reshape(H, hd, d)}
+    x = torch.from_numpy(rng.normal(size=(1, S, d)).astype(
+        np.float32)).bfloat16()
+    return cfg, p, x
+
+
+def test_global_layer_keeps_p_in_float32_as_the_jax_model_does():
+    """The repaired fault: at bf16 the port's global-attention layers went
+    through the kernel with p rounded to bf16, the TPU kernel's choice,
+    while the JAX model (``causal_attention``) keeps p in float32. Here
+    ``attn_block`` of a global layer (window None), with ``wo`` the
+    identity, is held to the JAX ``causal_attention`` on the port's own q,
+    k and v. Before the repair 36.6 % of the elements differed, by up to 65
+    ulps as ``bf16_ulp_gaps`` counts them (hymba's heads, S = 256, bf16);
+    now at most 1 % may differ, by at most one ulp (measured: 0.02 %, 1)."""
+    S = 256
+    cfg, p, x = _hymba_heads_layer(S)
+    positions = torch.arange(S)
+    out, _ = attn.attn_block(p, x, cfg, positions)
+    q, k, v = attn._qkv(p, x, cfg, positions)
+    want = _jax_model_attention(*(t.float().numpy() for t in (q, k, v)),
+                                "bf16", None, 0)
+    assert_bf16_close(out.float().numpy(), want.reshape(1, S, cfg.d_model))
+
+
+@pytest.fixture(scope="module")
+def bf16_models():
+    """The reduced hymba in bf16 (d_model 64, 4 q heads on 2 kv heads, hd
+    16, window 16, 4 meta tokens), JAX weights carried to the port by
+    ``convert``."""
+    import jax
+    jcfg = dataclasses.replace(
+        jax_reduce_config(jax_get_config("hymba-1.5b")), dtype="bfloat16")
+    cfg = reduce_config(get_config("hymba-1.5b")).replace(dtype="bfloat16")
+    jparams = jax.jit(JaxLM(jcfg).init)(jax.random.key(1))
+    params = convert.lm_params_from_numpy(
+        cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    return jcfg, jparams, cfg, params
+
+
+# attn_block at bf16, port vs JAX: max|port - jax| / max|jax| measured
+# 4.4e-4 with 0.09 % of the elements differing (global layer) and 0 (SWA
+# layer). The two frameworks may round the bf16 projections differently, so
+# the gate is one bf16 ulp of the largest value (2^-8 relative) and 1 % of
+# the elements
+RTOL_BLOCK_BF16 = 2.0 ** -8
+MAX_SHARE_BLOCK_BF16 = 0.01
+
+
+@pytest.mark.parametrize("seg,window", [("full0", None), ("swa0", 16)])
+def test_attn_block_bf16_matches_the_jax_model(bf16_models, seg, window):
+    """One global and one sliding-window layer of the reduced hymba at
+    bf16, S = 4 meta + 40 text positions (the window cuts)."""
+    jcfg, jparams, cfg, params = bf16_models
+    sink = cfg.meta_tokens if window is not None else 0
+    S = cfg.meta_tokens + 40
+    x = np.random.default_rng(7).normal(size=(2, S, cfg.d_model)).astype(
+        np.float32)
+    jp = {k: v[0] for k, v in jparams[seg]["attn"].items()}
+    jout, (jk, _) = jax_attn.attn_block(jp, jnp.asarray(x, jnp.bfloat16),
+                                        jcfg, jnp.arange(S), window=window,
+                                        sink=sink)
+    p = {k: v[0] for k, v in params[seg]["attn"].items()}
+    out, (k, _) = attn.attn_block(p, torch.from_numpy(x).bfloat16(), cfg,
+                                  torch.arange(S), window=window, sink=sink)
+    got, want = out.float().numpy(), np.asarray(jout.astype(jnp.float32))
+    gap = np.abs(got - want)
+    assert gap.max() <= RTOL_BLOCK_BF16 * np.abs(want).max()
+    assert (gap > 0).mean() <= MAX_SHARE_BLOCK_BF16
+
+
 def test_wrapper_runs_the_plain_version_on_the_cpu():
     q, k, v = (torch.from_numpy(a) for a in _inputs((2, 6, 70, 32),
                                                     (2, 3, 70, 32), 3))
@@ -109,9 +320,34 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                                torch.ones((1, 2, 8, 8)))
     with pytest.raises(ValueError):
         kflash.flash_attention(q.transpose(2, 3), kv, kv)
+    with pytest.raises(ValueError):     # a window needs causal masking
+        kflash.flash_attention(q, kv, kv, causal=False, window=4)
+    with pytest.raises(ValueError):     # ... and as many keys as queries
+        kflash.flash_attention(q, kv[:, :, :6].contiguous(),
+                               kv[:, :, :6].contiguous(), window=4)
+    with pytest.raises(ValueError):
+        kflash.flash_attention(q, kv, kv, window=0)
+    with pytest.raises(ValueError):
+        kflash.flash_attention(q, kv, kv, window=4, sink=-1)
     # neither the CPU nor a CUDA device: no plain-version fallback
     with pytest.raises(ValueError, match="cuda or cpu"):
         kflash.flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
+
+
+def _global_layer_gaps():
+    """(ulps, share) of the global-layer check above, and of the same
+    layer with p rounded to bf16 as before the repair."""
+    S = 256
+    cfg, p, x = _hymba_heads_layer(S)
+    q, k, v = attn._qkv(p, x, cfg, torch.arange(S))
+    want = _jax_model_attention(*(t.float().numpy() for t in (q, k, v)),
+                                "bf16", None, 0)
+    B, S, K, G, hd = q.shape
+    heads = (q.reshape(B, S, K * G, hd).transpose(1, 2).contiguous(),
+             k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
+    return {round_p: bf16_ulp_gaps(
+        ref.attention_ref(*heads, round_p=round_p).transpose(1, 2)
+        .float().numpy(), want) for round_p in (False, True)}
 
 
 if __name__ == "__main__":
@@ -128,4 +364,49 @@ if __name__ == "__main__":
                     _err(got, jax_flash(q, k, v, causal=causal,
                                         interpret=True)),
                     _err(got, jax_attention_ref(q, k, v, causal=causal)))
-    print("plain version vs Pallas kernel and oracle, max abs err:", worst)
+    print("round_p=True vs Pallas kernel and oracle, max abs err:", worst)
+    for case in MODEL_CASES:
+        B, S, K, G, hd, window, sink = case
+        q, k, v = _model_inputs(B, S, K, G, hd, 4)
+        for dtype in ("f32", "bf16"):
+            got = ref.attention_ref(*_to_heads(q, k, v, dtype), window=window,
+                                    sink=sink, round_p=False)
+            got = got.transpose(1, 2).float().numpy()
+            want = _jax_model_attention(q, k, v, dtype, window, sink)
+            if dtype == "f32":
+                print(f"round_p=False {case} f32 vs JAX model: max abs "
+                      f"{np.abs(got - want).max() / np.abs(want).max():.2e} "
+                      f"of max|jax|")
+            else:
+                own = ref.bf16_ulp_gaps(torch.tensor(got), torch.tensor(want),
+                                        floor=0.0)[0]
+                print(f"round_p=False {case} bf16 vs JAX model: (ulps, "
+                      f"share differing) {bf16_ulp_gaps(got, want)}, "
+                      f"{own:.0f} ulps of the element's own magnitude")
+    print("global layer vs JAX causal_attention, (ulps, share) by round_p:",
+          _global_layer_gaps())
+    import jax
+    jcfg = dataclasses.replace(
+        jax_reduce_config(jax_get_config("hymba-1.5b")), dtype="bfloat16")
+    cfg = reduce_config(get_config("hymba-1.5b")).replace(dtype="bfloat16")
+    jparams = jax.jit(JaxLM(jcfg).init)(jax.random.key(1))
+    params = convert.lm_params_from_numpy(
+        cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    for seg, window in (("full0", None), ("swa0", 16)):
+        sink = cfg.meta_tokens if window is not None else 0
+        S = cfg.meta_tokens + 40
+        x = np.random.default_rng(7).normal(size=(2, S, cfg.d_model)).astype(
+            np.float32)
+        jout, _ = jax_attn.attn_block(
+            {k: v[0] for k, v in jparams[seg]["attn"].items()},
+            jnp.asarray(x, jnp.bfloat16), jcfg, jnp.arange(S), window=window,
+            sink=sink)
+        out, _ = attn.attn_block(
+            {k: v[0] for k, v in params[seg]["attn"].items()},
+            torch.from_numpy(x).bfloat16(), cfg, torch.arange(S),
+            window=window, sink=sink)
+        got, want = out.float().numpy(), np.asarray(jout.astype(jnp.float32))
+        gap = np.abs(got - want)
+        print(f"attn_block {seg} bf16 vs JAX: max gap "
+              f"{gap.max() / np.abs(want).max():.2e} of max|jax|, share "
+              f"differing {(gap > 0).mean():.4f}")

@@ -107,15 +107,16 @@ def test_cpu_path_does_not_count_kernel_launches():
 
 
 def test_serve_path_calls_the_kernel_wrappers(monkeypatch):
-    """Prefill of the reduced hymba: every global-attention layer goes
-    through the flash-attention wrapper and every layer's SSM heads through
-    the scan wrapper (on the CPU they run the plain versions)."""
+    """Prefill of the reduced hymba: every attention layer, global and
+    sliding-window, goes through the flash-attention wrapper with p kept in
+    float32, and every layer's SSM heads through the scan wrapper (on the
+    CPU they run the plain versions)."""
     from repro_torch.models import attention, ssm
     calls = []
 
     def spy(name, fn):
         def wrapped(*args, **kwargs):
-            calls.append(name)
+            calls.append((name, kwargs.get("window"), kwargs.get("round_p")))
             return fn(*args, **kwargs)
         return wrapped
     monkeypatch.setattr(attention, "flash_attention",
@@ -125,8 +126,12 @@ def test_serve_path_calls_the_kernel_wrappers(monkeypatch):
     lm = LM(cfg, device="cpu")
     lm.prefill(lm.init(torch.Generator().manual_seed(0)),
                {"tokens": np.zeros((2, 12), np.int32)}, max_seq=24)
-    assert calls.count("flash_attention") == len(cfg.full_attn_every)
-    assert calls.count("ssm_scan") == cfg.num_layers
+    attn = [c for c in calls if c[0] == "flash_attention"]
+    assert len(attn) == cfg.num_layers
+    assert sum(c[1] is None for c in attn) == len(cfg.full_attn_every)
+    assert all(c[1] == cfg.window for c in attn if c[1] is not None)
+    assert all(c[2] is False for c in attn)
+    assert sum(c[0] == "ssm_scan" for c in calls) == cfg.num_layers
 
 
 def test_device_tensors_never_reach_the_plain_versions(monkeypatch):
