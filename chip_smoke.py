@@ -8,12 +8,13 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
 
 1. device   name, count, and ``nvidia-smi`` name and power limit;
 2. build    every kernel from ``kernels/csrc/*.cu`` (retention, ssm_scan,
-            flash_attention), one ``nvcc`` each, all started together, and
-            print each ``-Xptxas -v`` report (registers, spills);
+            flash_attention), one ``nvcc`` each, all started together,
+            and print each ``-Xptxas -v`` report (registers, spills);
 3. kernel   against its plain PyTorch version on the card at B = 14 (the
-            packed nominal rows: 7 bitcells x level shifter), 130 (ragged)
-            and 2^20 (rows perturbed from ``--seed``), rtol 1e-5; rows that
-            start crossed must agree exactly;
+            packed nominal rows: 7 bitcells x level shifter), 127 and 129
+            (either side of the 128-row block), 130 (ragged) and 2^20 (rows
+            perturbed from ``--seed``), rtol 1e-5; rows that start crossed
+            must agree exactly;
 4. main     ``explore(device="cuda")`` on the paper grid: Table 2 at 7/7,
             through the kernel (launch count > 0), metric columns equal to
             the CPU build of the same table within ``RTOL_CPU``;
@@ -50,7 +51,7 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             rounded and in float32 (the model's), causal and with hymba's
             window and sink;
 12. profile one prefill and one warm decode step under ``torch.profiler``,
-            and the attention kernel's share of the prefill.
+            and the attention and scan kernels' shares of the prefill.
 
 It prints one ``{"kernels": [...]}`` line, then, last, the
 ``{"ok": true, "device": {...}}`` line.
@@ -71,14 +72,27 @@ RTOL_KERNEL = 1e-5      # kernel vs plain version (the Pallas kernel's gate)
 RTOL_CPU = 2e-6         # table on the card vs the same table on the CPU
 PEAK_FP32_OPS = 67e12   # H100 SXM fp32 outside the tensor cores [op/s]
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 [B/s]
-# fp32 operations per row per RK4 step, counted from retention.cu: four
-# derivative evaluations of 26 arithmetic ops (3 of them divisions) and 4
-# transcendental calls each (2 expf, 2 log1pf), plus 21 ops for dt, the
-# stage inputs, the update, the clip and the crossing test. Each division
-# and transcendental call counts as one operation, so the bound is a least
-# time. The crossing step adds 9 ops and 3 transcendentals once per row.
+# H100 SXM special-function unit: 16 results per SM per clock (the CUDA C++
+# Programming Guide's arithmetic-instruction throughput table, compute
+# capability 9.0), on 132 SMs at the 1.98 GHz boost clock that
+# PEAK_FP32_OPS also assumes (132 x 128 lanes x 2 x 1.98e9 = 66.9e12)
+PEAK_SFU_OPS = 132 * 16 * 1.98e9
+# fp32 operations of an exponential computed on the FMA pipe instead of the
+# SFU: a range reduction and a degree-6 polynomial for 2^x, 12 instructions,
+# each counted as one operation (so the operations' time stays a least time)
+EXP_FMA_OPS = 12
+# fp32 operations per row per RK4 step of the function (counted as the
+# plain version writes it): four derivative evaluations of 26 arithmetic
+# ops (3 of them divisions) and 4 transcendental calls each (2 exp, 2
+# log1p), plus 21 ops for dt, the stage inputs, the update, the clip and the
+# crossing test. Each division and transcendental call counts as one
+# operation, so the bound is a least time. The crossing step adds 9 ops and
+# 3 transcendentals once per row. Exponentials: 2 a derivative evaluation
+# and 1 at the crossing (log and log1p not counted, so this count too gives
+# a least time).
 OPS_PER_STEP = 4 * (26 + 4) + 21
 OPS_PER_CROSSING = 9 + 3
+EXP_PER_STEP, EXP_PER_CROSSING = 4 * 2, 1
 
 KERNELS = ("retention", "ssm_scan", "flash_attention")
 PEAK_BF16_TC = 989e12   # H100 SXM bf16 dense on the tensor cores [FLOP/s]
@@ -114,9 +128,13 @@ ATTN_MASK_CASES = [(1, 4, 2, 300, 64, 100, 20), (2, 6, 2, 517, 128, 128, 70),
                    (4, 25, 5, 1128, 64, 1024, 128),
                    (1, 25, 5, 2176, 64, 1024, 128)]
 # (B, S, di, n) for the scan checks: the reference's shapes, a di no block
-# divides, and hymba's full width (di = 2 x 1600, n = 16, S = 128 + 1,000)
+# divides, hymba's full width (di = 2 x 1600, n = 16, S = 128 + 1,000), n =
+# 4 and 32 (the other instantiations), S = 1, B = 1 at hymba's di, and S one
+# past a 32-step staging round
 SSM_SHAPES = [(1, 128, 256, 16), (2, 256, 512, 8), (1, 64, 1024, 16),
-              (2, 45, 200, 8), (4, 1128, 3200, 16)]
+              (2, 45, 200, 8), (4, 1128, 3200, 16), (2, 100, 384, 4),
+              (1, 70, 256, 32), (3, 1, 3200, 16), (1, 1128, 3200, 16),
+              (2, 33, 200, 16)]
 # Bounds of the two serve kernels, counted from their function (not from
 # what the kernels do):
 # - flash attention: the scores the mask leaves (causal: S(S+1)/2 per
@@ -127,8 +145,9 @@ SSM_SHAPES = [(1, 128, 256, 16), (2, 256, 512, 8), (1, 64, 1024, 16),
 #   once and o written once. The least time is the largest of the three.
 # - selective scan: per (b, t, channel) and state, 7 fp32 ops (dt*A, exp,
 #   a*h, dt*x*B as 2, the add, h*C and its sum, each transcendental counted
-#   as one), plus 3 per (b, t, channel) (dt*x, D*x, the add); bytes: x, dt,
-#   B, C, A, D read once, y and h_final written once.
+#   as one) and one exponential, plus 3 per (b, t, channel)
+#   (dt*x, D*x, the add); bytes: x, dt, B, C, A, D read once, y and h_final
+#   written once.
 ATTN_FLOPS_PER_SCORE_DIM = 4
 ATTN_ELEM_OPS_PER_SCORE = 5
 SSM_OPS_PER_STATE, SSM_OPS_PER_CHANNEL = 7, 3
@@ -201,15 +220,35 @@ def time_ms(fn, iters: int, warmup: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def least_time(nbytes, fp32_ops, exps):
+    """(bound ms, 'bytes' | 'operations', {term: ms}): the larger of the
+    bytes over the memory rate and the operations' least time.
+
+    ``fp32_ops`` counts each exponential as one operation. Each of the
+    ``exps`` exponentials runs on the SFU or, at ``EXP_FMA_OPS`` more
+    operations, on the FMA pipe, so the operations take the fp32 work over
+    the fp32 peak or, where the SFU alone would take longer, the work of
+    both pipes over their joint rate (the split at which both finish
+    together). ``sfu`` (every exponential on the SFU) is a per-pipe
+    reading, not part of the bound."""
+    t_fp32, t_sfu = fp32_ops / PEAK_FP32_OPS, exps / PEAK_SFU_OPS
+    t_ops = t_fp32 if t_sfu <= t_fp32 else (
+        (fp32_ops + EXP_FMA_OPS * exps)
+        / (PEAK_FP32_OPS + EXP_FMA_OPS * PEAK_SFU_OPS))
+    terms = {"bytes": nbytes / PEAK_BYTES * 1e3, "fp32": t_fp32 * 1e3,
+             "sfu": t_sfu * 1e3, "operations": t_ops * 1e3}
+    by = "bytes" if terms["bytes"] >= terms["operations"] else "operations"
+    return terms[by], by, terms
+
+
 def bound(params, ts, out):
-    """(bound ms, 'bytes' | 'operations') of one launch on these inputs."""
+    """``least_time`` of one retention launch on these inputs."""
     B, n_steps = params.shape[0], ts.shape[0] - 1
     crossed = int(((out < ts[-1]) & (params[:, 8] >= params[:, 9])).sum())
     ops = B * n_steps * OPS_PER_STEP + crossed * OPS_PER_CROSSING
+    exps = B * n_steps * EXP_PER_STEP + crossed * EXP_PER_CROSSING
     nbytes = params.numel() * 4 + ts.numel() * 4 + B * 4
-    t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return least_time(nbytes, ops, exps)
 
 
 def visible_scores(S, window=None, sink=0):
@@ -238,12 +277,10 @@ def attn_bound(B, H, K, S, D, itemsize, window=None, sink=0):
 
 
 def ssm_bound(B, S, di, n):
-    """(bound ms, 'bytes' | 'operations') of the selective scan, float32."""
+    """``least_time`` of the selective scan, float32."""
     ops = B * S * di * (SSM_OPS_PER_STATE * n + SSM_OPS_PER_CHANNEL)
     nbytes = 4 * (3 * B * S * di + 2 * B * S * n + di * n + di + B * di * n)
-    t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+    return least_time(nbytes, ops, B * S * di * n)
 
 
 def attn_inputs(shape, dtype, seed, device):
@@ -405,8 +442,8 @@ def main() -> int:
     ts = retention.time_grid(dev)
     base = nominal_rows(dev)
     errs = [compare_kernel(p, ts) for p in
-            (base, perturbed_rows(base, 130, args.seed),
-             perturbed_rows(base, 1 << 20, args.seed))]
+            (base, *(perturbed_rows(base, b, args.seed)
+                     for b in (127, 129, 130, 1 << 20)))]
     max_abs_err = max(e[0] for e in errs)
     max_rel_err = max(e[1] for e in errs)
 
@@ -476,13 +513,15 @@ def main() -> int:
                      k_iters, warmup=3)
         plain_ms = time_ms(lambda: ref.retention_ref(params, ts),
                            p_iters, warmup=1)
-        bound_ms, bound_by = bound(params, ts, out)
+        bound_ms, bound_by, terms = bound(params, ts, out)
         shapes[label] = {"B": params.shape[0], "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound_ms,
-                         "bound_by": bound_by}
+                         "bound_by": bound_by, "bound_terms_ms": terms}
         print(f"timing B={params.shape[0]}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})",
-              flush=True)
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+              f"bytes {terms['bytes']:.4f}, operations "
+              f"{terms['operations']:.4f}: fp32 alone {terms['fp32']:.4f}, "
+              f"SFU alone {terms['sfu']:.4f} ms)", flush=True)
 
     # 7. where a warm explore's time goes ----------------------------------
     profile_report("warm explore", lambda: api.explore(device="cuda"))
@@ -677,11 +716,13 @@ def main() -> int:
     xs = ssm_inputs((B, S, di, n), args.seed, dev)
     ssm_ms = time_ms(lambda: kssm.ssm_scan(*xs), 20, 3)
     ssm_plain_ms = time_ms(lambda: ref.ssm_scan_ref(*xs), 3, 1)
-    ssm_bound_ms, ssm_bound_by = ssm_bound(B, S, di, n)
+    ssm_bound_ms, ssm_bound_by, ssm_terms = ssm_bound(B, S, di, n)
     print(f"timing ssm_scan {(B, S, di, n)}: kernel {ssm_ms:.4f} ms, plain "
           f"{ssm_plain_ms:.4f} ms, bound {ssm_bound_ms:.4f} ms "
-          f"({ssm_bound_by}); no single PyTorch call computes the scan",
-          flush=True)
+          f"({ssm_bound_by}; bytes {ssm_terms['bytes']:.4f}, operations "
+          f"{ssm_terms['operations']:.4f}: fp32 alone "
+          f"{ssm_terms['fp32']:.4f}, SFU alone {ssm_terms['sfu']:.4f} ms); "
+          f"no single PyTorch call computes the scan", flush=True)
 
     # 12. where serve time goes ---------------------------------------------
     with torch.inference_mode():
@@ -691,12 +732,14 @@ def main() -> int:
             box["cache"], box["logits"] = lm.prefill(
                 params, {"tokens": prompt}, max_seq=SERVE_MAX_SEQ)
         prof = profile_report("prefill", prefill)
-        flash = [e for e in prof["kernels"] if "flash_kernel" in e.key]
-        flash_ms = sum(e.self_device_time_total for e in flash) / 1e3
-        print(f"profile: prefill attention kernel {flash_ms:.4f} ms in "
-              f"{sum(e.count for e in flash)} launches, "
-              f"{100 * flash_ms / prof['device_ms']:.2f} % of the device "
-              f"time", flush=True)
+        for label, key in (("attention", "flash_kernel"),
+                           ("scan", "ssm_scan_kernel")):
+            own = [e for e in prof["kernels"] if key in e.key]
+            own_ms = sum(e.self_device_time_total for e in own) / 1e3
+            print(f"profile: prefill {label} kernel {own_ms:.4f} ms in "
+                  f"{sum(e.count for e in own)} launches, "
+                  f"{100 * own_ms / prof['device_ms']:.2f} % of the device "
+                  f"time", flush=True)
         tok = {"tokens": box["logits"].argmax(-1)}
         lm.decode(params, box["cache"], tok)            # warm the step
         profile_report("warm decode step",
@@ -718,7 +761,7 @@ def main() -> int:
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
-        "shapes": shapes}, {
+        "bound_terms_ms": main_shape["bound_terms_ms"], "shapes": shapes}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:68",
@@ -737,7 +780,8 @@ def main() -> int:
         "launches": serve_launches["ssm_scan"], "max_abs_err": ssm_err,
         "tol": TOL_SSM, "ms": ssm_ms, "plain_ms": ssm_plain_ms,
         "bound_ms": ssm_bound_ms, "bound_by": ssm_bound_by,
-        "library_ms": None, "shape": [B, S, di, n]}]}))
+        "library_ms": None, "bound_terms_ms": ssm_terms,
+        "shape": [B, S, di, n]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

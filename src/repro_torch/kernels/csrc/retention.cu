@@ -12,25 +12,39 @@
 //
 // What bounds it: fp32 arithmetic and transcendental throughput. A row
 // moves 40 bytes in and 4 bytes out, but runs 480 sequential steps of four
-// derivative evaluations, each with two expf, two log1pf and three IEEE
-// divisions. The design keeps the card's lanes busy on that arithmetic and
-// touches memory once:
-//   - one thread per row, over a 1-D grid of ceil(B/128) blocks; the
+// derivative evaluations, each with two expf and two log1pf. With few rows
+// (explore's B = 120 is one block, one warp on each of four schedulers) the
+// time is the steps' dependent chain; with many (2^20) it is the
+// instructions issued. Both fall with the instructions of one step, so the
+// step carries no IEEE division (each is a reciprocal, Newton steps and a
+// slow-path check):
+//   - per row, once: inv_nut = 1 / (n * UT) and neg_inv_c = -1 / max(c_sn,
+//     1e-18), so (x) / nut becomes x * inv_nut and -leak / c becomes leak *
+//     neg_inv_c; (-vt_eff - n v) / nut is taken as u1 - v / UT with 1 / UT
+//     a constant, where u1 = -vt_eff / nut;
+//   - per step, once per block in shared memory: dt = ts[i+1] - ts[i],
+//     0.5 * dt and dt / 6, the float32 expressions retention_ref uses, so
+//     those three values are the plain version's bit for bit;
+//   - one thread per row, over a 1-D grid of ceil(B / 128) blocks; the
 //     ragged tail is masked, so no padding rows are computed;
-//   - v, t_ret and found live in registers for all 480 steps;
-//   - ts (481 floats, 1.9 KB) is staged once per block in shared memory;
-//     every lane reads the same word, a broadcast;
+//   - v, t_ret and found live in registers for all the steps;
 //   - params are field-major (10, B), so a warp's loads are coalesced;
 //   - the crossing's logf/expf run only on the step where the row crosses
-//     (the result is the same as computing them every step and selecting).
-// IEEE expf/log1pf/logf, no --use_fast_math, so the kernel agrees with its
-// plain version to float32 rounding.
+//     (the result is the same as computing them every step and selecting),
+//     from ts staged in shared memory.
+// The reciprocals change the rounding of each evaluation by about an ulp
+// of its operands against the plain version's divisions; the kernel is held
+// to it at rtol 1e-5 (chip_smoke.py, tests/test_torch_cuda.py), and the
+// same order of operations in float32 on the CPU at the same gate
+// (tests/test_torch_retention.py). IEEE expf/log1pf/logf, no
+// --use_fast_math.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr float kUT = 0.02585f;   // thermal voltage at 300 K [V]
+constexpr float kUT = 0.02585f;          // thermal voltage at 300 K [V]
+constexpr float kInvUT = 1.0f / kUT;     // rounded once, at compile time
 constexpr int kBlock = 128;
 
 __device__ __forceinline__ float softplus_sq(float u) {
@@ -39,17 +53,17 @@ __device__ __forceinline__ float softplus_sq(float u) {
 }
 
 struct Row {
-  float vt, n, ispec, eta, i_floor, jg, c_sn, w;
+  float vt, eta, inv_nut, ispec, i_floor, w, jg, neg_inv_c;
 };
 
 // dV/dt at V (V already clipped at 0 by the caller's fmaxf)
 __device__ __forceinline__ float dvdt(const Row& r, float v) {
   float vt_eff = r.vt - r.eta * v;
-  float nut = r.n * kUT;
-  float i_ch = r.ispec * (softplus_sq((0.0f - vt_eff) / nut)
-                          - softplus_sq((0.0f - vt_eff - r.n * v) / nut));
+  float u1 = (0.0f - vt_eff) * r.inv_nut;
+  float u2 = u1 - v * kInvUT;
+  float i_ch = r.ispec * (softplus_sq(u1) - softplus_sq(u2));
   float leak = (fmaxf(i_ch, 0.0f) + r.i_floor) * r.w + r.jg * v;
-  return -leak / fmaxf(r.c_sn, 1e-18f);
+  return leak * r.neg_inv_c;
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -57,8 +71,19 @@ retention_kernel(const float* __restrict__ params_t,  // (10, B) field-major
                  const float* __restrict__ ts,        // (n_steps + 1,)
                  float* __restrict__ out,             // (B,)
                  long long B, int n_steps) {
-  extern __shared__ float ts_s[];
+  // ts, then dt, dt / 2 and dt / 6 of each step
+  extern __shared__ float smem[];
+  float* ts_s = smem;
+  float* dt_s = ts_s + n_steps + 1;
+  float* half_dt_s = dt_s + n_steps;
+  float* sixth_dt_s = half_dt_s + n_steps;
   for (int j = threadIdx.x; j <= n_steps; j += blockDim.x) ts_s[j] = ts[j];
+  for (int j = threadIdx.x; j < n_steps; j += blockDim.x) {
+    const float dt = ts[j + 1] - ts[j];
+    dt_s[j] = dt;
+    half_dt_s[j] = 0.5f * dt;
+    sixth_dt_s[j] = dt / 6.0f;
+  }
   __syncthreads();
 
   long long row = static_cast<long long>(blockIdx.x) * kBlock + threadIdx.x;
@@ -66,33 +91,34 @@ retention_kernel(const float* __restrict__ params_t,  // (10, B) field-major
 
   Row r;
   r.vt = params_t[0 * B + row];
-  r.n = params_t[1 * B + row];
+  const float n = params_t[1 * B + row];
   r.ispec = params_t[2 * B + row];
   r.eta = params_t[3 * B + row];
   r.i_floor = params_t[4 * B + row];
   r.jg = params_t[5 * B + row];
-  r.c_sn = params_t[6 * B + row];
+  const float c_sn = params_t[6 * B + row];
   r.w = params_t[7 * B + row];
   float v = params_t[8 * B + row];
   const float v_min = params_t[9 * B + row];
+  r.inv_nut = 1.0f / (n * kUT);
+  r.neg_inv_c = -1.0f / fmaxf(c_sn, 1e-18f);
 
   float t_ret = ts_s[n_steps];
   bool found = v < v_min;
   for (int i = 0; i < n_steps; ++i) {
-    float t0 = ts_s[i];
-    float t1 = ts_s[i + 1];
-    float dt = t1 - t0;
+    const float dt = dt_s[i];
+    const float half_dt = half_dt_s[i];
     float k1 = dvdt(r, fmaxf(v, 0.0f));
-    float k2 = dvdt(r, fmaxf(v + 0.5f * dt * k1, 0.0f));
-    float k3 = dvdt(r, fmaxf(v + 0.5f * dt * k2, 0.0f));
+    float k2 = dvdt(r, fmaxf(v + half_dt * k1, 0.0f));
+    float k3 = dvdt(r, fmaxf(v + half_dt * k2, 0.0f));
     float k4 = dvdt(r, fmaxf(v + dt * k3, 0.0f));
-    float v_new = v + dt / 6.0f * (k1 + 2.0f * k2 + 2.0f * k3 + k4);
+    float v_new = v + sixth_dt_s[i] * (k1 + 2.0f * k2 + 2.0f * k3 + k4);
     v_new = fminf(fmaxf(v_new, 0.0f), 2.0f);
     if (!found && v_new < v_min) {
       float frac = (v - v_min) / fmaxf(v - v_new, 1e-9f);
       frac = fminf(fmaxf(frac, 0.0f), 1.0f);
-      float l0 = logf(t0);
-      t_ret = expf(l0 + frac * (logf(t1) - l0));
+      float l0 = logf(ts_s[i]);
+      t_ret = expf(l0 + frac * (logf(ts_s[i + 1]) - l0));
       found = true;
     }
     v = v_new;
@@ -108,7 +134,15 @@ extern "C" int retention_launch(const float* params_t, const float* ts,
                                 void* stream) {
   if (B <= 0) return 0;
   unsigned int blocks = static_cast<unsigned int>((B + kBlock - 1) / kBlock);
-  size_t smem = static_cast<size_t>(n_steps + 1) * sizeof(float);
+  size_t smem = static_cast<size_t>(4 * n_steps + 1) * sizeof(float);
+  // a grid of more than ~3,000 points needs more than the 48 KB a launch
+  // gets without opting in
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        retention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   retention_kernel<<<blocks, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
       params_t, ts, out, B, n_steps);
   return static_cast<int>(cudaGetLastError());

@@ -8,37 +8,194 @@
 // n), which the model keeps as the decode cache. The plain PyTorch version
 // is repro_torch/kernels/ref.py::ssm_scan_ref.
 //
-// What bounds it: bytes. The function reads x and dt and writes y once,
-// 12 bytes per (batch, step, channel) (175 MB at hymba's prefill shape
-// B = 4, S = 1,128, di = 3,200), against 7 fp32 operations per state and
-// step (one of them an IEEE expf), so the least time is the memory's. But
-// each channel's S steps are a dependent chain, and B * di = 12,800
-// threads fill the card only thinly, so this first version is bound by the
-// latency of that chain, not by either peak.
+// What bounds it: the bytes. The function reads x and dt and writes y once,
+// 12 bytes per (batch, step, channel) (175 MB, 0.052 ms at hymba's prefill
+// shape B = 4, S = 1,128, di = 3,200, n = 16). It also computes one
+// exponential per (batch, step, channel, state), 231 M of them: 0.055 ms
+// on the SMs' special-function units (16 a clock per SM) alone, but an
+// exponential can also be a polynomial on the FMA pipe, and the two pipes
+// together take less than the bytes. Each channel's S steps are a
+// dependent chain, so the card fills only with many channels in flight at
+// once. On the card the kernel issues ~8.4 instructions a state at ~40 %
+// of the SMs' issue rate; neither occupancy, the bytes nor the SFU holds
+// it there (moving exponentials to the FMA pipe made it slower), and which
+// stall does is not measured (PERF.md).
 // The design:
-//   - one thread per (batch row, channel), blocks of 128 channels over a
-//     (ceil(di / 128), B) grid; channels beyond di are masked, so di need
-//     not be a multiple of anything (hymba's di = 3200 is 25 blocks);
-//   - the n states and the row of A live in registers for the whole scan
-//     (n is a template parameter, so the state arrays are fully unrolled);
-//   - per chunk of 32 timesteps the block stages B_t and C_t (shared by all
-//     its channels) and each thread's own x, dt column in shared memory, so
-//     the 32 global loads of a column are in flight together instead of
-//     one dependent load per step;
-//   - y is written at every step, h_final once at the end.
+//   - the n states of a channel are split over a group of kGroup = 2 lanes
+//     (adjacent lanes of one warp), each holding n / 2 states and its slice
+//     of A in registers for the whole scan; y_t is the group's sum, one
+//     __shfl_xor_sync step, and the group's first lane adds D * x_t and
+//     stores, so a warp's y stores cover 16 adjacent channels. At hymba's
+//     shape that is 25,600 threads in 400 blocks of 32 channels, 6 warps on
+//     each of the 132 SMs (one thread per channel, the first port, gave 100
+//     blocks: 32 SMs idle). 4 and 8 lanes cost more shared-memory loads and
+//     shuffles per state than they gain in warps (PERF.md);
+//   - per round of kChunk = 32 timesteps the block stages x and dt of its
+//     channels and the rows of B and C in shared memory with cp.async, double
+//     buffered: round k + 1's loads are in flight while round k is computed;
+//   - the steps go in batches of kBatch = 8, written as all loads, then all
+//     exponentials (none depends on h), then the recurrence, then the
+//     shuffles and stores: only the recurrence h = e h + dt x B is a chain
+//     from step to step. (A plain unrolled loop is issued by the compiler as
+//     one dependent chain a step, LDS -> MUFU -> FFMA -> store.)
+//   - channels beyond di are zero-filled and masked (so di need not be a
+//     multiple of anything), and a round beyond S is cut short;
+//   - exp(dt * A) is 2^(dt * (A * log2(e))), A * log2(e) taken once per
+//     (channel, state), by the SFU's ex2.approx.ftz: one instruction,
+//     within 2 ulp, results below 2^-126 flushed to zero. This is a
+//     deviation from IEEE expf: flushing a factor that small moves h_j by
+//     less than 2^-126 |h_j|, and the gap to the plain version stays far
+//     inside its 1e-4 gate. exp2f and expf were slower (PERF.md).
+// Splitting S into chunks with a carry pass was not taken: correcting y for
+// the carried state costs n more exponentials per (step, channel): twice
+// the exponentials, whose SFU time alone already exceeds the bytes'.
 // The TPU kernel tiles di by a divisor block and carries h across a
 // sequential grid axis in VMEM; here the time loop is inside the thread.
-// IEEE expf, no --use_fast_math.
+// No --use_fast_math.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBlock = 128;   // channels per block
-constexpr int kChunk = 32;    // timesteps staged per round
+constexpr int kGroup = 2;           // lanes per channel (power of 2)
+constexpr int kThreads = 64;        // threads per block
+constexpr int kChunk = 32;          // timesteps staged per round
+constexpr int kBatch = 8;           // timesteps a batch of loads and exps
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 4 bytes global -> shared, asynchronously; in = false writes a zero
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x, so exp(dt * A) for x = dt * A * log2(e)
+__device__ __forceinline__ float exp_of(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// NL consecutive floats of shared memory into registers, 16 bytes a load
+// where NL allows it
+template <int NL>
+__device__ __forceinline__ void load_row(float (&r)[NL], const float* p) {
+  if constexpr (NL % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < NL; j += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + j);
+      r[j] = v.x, r[j + 1] = v.y, r[j + 2] = v.z, r[j + 3] = v.w;
+    }
+  } else if constexpr (NL % 2 == 0) {
+#pragma unroll
+    for (int j = 0; j < NL; j += 2) {
+      const float2 v = *reinterpret_cast<const float2*>(p + j);
+      r[j] = v.x, r[j + 1] = v.y;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < NL; ++j) r[j] = p[j];
+  }
+}
+
+// one round's inputs: x and dt of the block's CH channels, B and C rows
+template <int N, int CH>
+struct __align__(16) Stage {
+  float x[kChunk][CH];
+  float dt[kChunk][CH];
+  float b[kChunk][N];
+  float c[kChunk][N];
+};
+
+// issue the cp.async copies of the T = min(kChunk, S - t0) steps from t0
+template <int N, int CH>
+__device__ __forceinline__ void stage_round(
+    Stage<N, CH>& s, const float* __restrict__ x, const float* __restrict__ dt,
+    const float* __restrict__ Bc, const float* __restrict__ Cc, long long row0,
+    int t0, int S, int d0, int di) {
+  const int T = min(kChunk, S - t0);
+  for (int e = threadIdx.x; e < T * CH; e += kThreads) {
+    const int t = e / CH, c = e % CH;
+    const bool in = d0 + c < di;
+    const long long off = in ? (row0 + t0 + t) * di + d0 + c : 0;
+    cp_async4(&s.x[t][c], x + off, in);
+    cp_async4(&s.dt[t][c], dt + off, in);
+  }
+  const long long boff = (row0 + t0) * N;
+  for (int e = threadIdx.x; e < T * N; e += kThreads) {
+    cp_async4(&s.b[0][0] + e, Bc + boff + e, true);
+    cp_async4(&s.c[0][0] + e, Cc + boff + e, true);
+  }
+}
+
+// U steps from t of one lane: every load, then every exponential, then the
+// recurrence and the lane's share of y_t, sum_j h_j C_j; then the butterfly
+// over the group, and the group's first lane stores y_t (y_c points at the
+// lane's channel in step 0 of the round).
+template <int U, int G, int NL, int N, int CH>
+__device__ __forceinline__ void scan_steps(const Stage<N, CH>& s, int t,
+                                           int c, int g, const float (&a)[NL],
+                                           float (&h)[NL], float d_coef,
+                                           bool store, float* y_c, int di) {
+  float xv[U], dtv[U], bv[U][NL], cv[U][NL], e[U][NL], acc[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    xv[u] = s.x[t + u][c];
+    dtv[u] = s.dt[t + u][c];
+    load_row<NL>(bv[u], &s.b[t + u][g * NL]);
+    load_row<NL>(cv[u], &s.c[t + u][g * NL]);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int j = 0; j < NL; ++j) e[u][j] = exp_of(dtv[u] * a[j]);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const float dtx = dtv[u] * xv[u];
+    acc[u] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NL; ++j) {
+      h[j] = e[u][j] * h[j] + dtx * bv[u][j];
+      acc[u] += h[j] * cv[u][j];
+    }
+  }
+  // every lane runs every step: the shuffles need the whole warp
+#pragma unroll
+  for (int m = 1; m < G; m <<= 1)
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], m);
+  if (store) {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      y_c[static_cast<long long>(t + u) * di] = acc[u] + d_coef * xv[u];
+  }
+}
 
 template <int N>
-__global__ void __launch_bounds__(kBlock)
+struct Split {
+  static constexpr int G = kGroup;                    // lanes of a channel
+  static constexpr int NL = N / G;                    // states per lane
+  static constexpr int CH = kThreads / G;             // channels per block
+};
+
+template <int N>
+__global__ void __launch_bounds__(kThreads)
 ssm_scan_kernel(const float* __restrict__ x,    // (B, S, di)
                 const float* __restrict__ dt,   // (B, S, di)
                 const float* __restrict__ A,    // (di, N)
@@ -48,58 +205,56 @@ ssm_scan_kernel(const float* __restrict__ x,    // (B, S, di)
                 float* __restrict__ y,          // (B, S, di)
                 float* __restrict__ h_final,    // (B, di, N)
                 int S, int di) {
-  __shared__ float b_s[kChunk][N];
-  __shared__ float c_s[kChunk][N];
-  __shared__ float x_s[kChunk][kBlock];
-  __shared__ float dt_s[kChunk][kBlock];
-
+  constexpr int G = Split<N>::G, NL = Split<N>::NL, CH = Split<N>::CH;
+  __shared__ Stage<N, CH> stage[2];
+  const int c = threadIdx.x / G;               // channel within the block
+  const int g = threadIdx.x % G;               // lane within the group
   const int b = blockIdx.y;
-  const int d = blockIdx.x * kBlock + threadIdx.x;
+  const int d0 = blockIdx.x * CH;
+  const int d = d0 + c;
   const bool active = d < di;
   const long long row0 = static_cast<long long>(b) * S;  // row (b, t = 0)
 
-  float a[N], h[N];
+  float a[NL], h[NL];
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    a[j] = active ? A[static_cast<long long>(d) * N + j] : 0.0f;
+  for (int j = 0; j < NL; ++j) {
+    a[j] = active ? A[static_cast<long long>(d) * N + g * NL + j] * kLog2e
+                  : 0.0f;
     h[j] = 0.0f;
   }
   const float d_coef = active ? D[d] : 0.0f;
 
-  for (int t0 = 0; t0 < S; t0 += kChunk) {
+  const int rounds = (S + kChunk - 1) / kChunk;
+  stage_round<N, CH>(stage[0], x, dt, Bc, Cc, row0, 0, S, d0, di);
+  cp_async_commit();
+  for (int r = 0; r < rounds; ++r) {
+    const int t0 = r * kChunk;
+    if (r + 1 < rounds) {
+      // the buffer of round r + 1 was last read in round r - 1, before the
+      // __syncthreads that ended it
+      stage_round<N, CH>(stage[(r + 1) & 1], x, dt, Bc, Cc, row0,
+                         t0 + kChunk, S, d0, di);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // round r's copies, from every thread, have landed
+    const Stage<N, CH>& s = stage[r & 1];
     const int T = min(kChunk, S - t0);
-    __syncthreads();  // the previous chunk's readers are done
-    for (int i = threadIdx.x; i < T * N; i += kBlock) {
-      b_s[i / N][i % N] = Bc[(row0 + t0) * N + i];
-      c_s[i / N][i % N] = Cc[(row0 + t0) * N + i];
-    }
-    if (active) {
-#pragma unroll 8
-      for (int t = 0; t < T; ++t) {
-        const long long off = (row0 + t0 + t) * di + d;
-        x_s[t][threadIdx.x] = x[off];
-        dt_s[t][threadIdx.x] = dt[off];
-      }
-    }
-    __syncthreads();
-    if (!active) continue;
-    for (int t = 0; t < T; ++t) {
-      const float x_t = x_s[t][threadIdx.x];
-      const float dt_t = dt_s[t][threadIdx.x];
-      const float dtx = dt_t * x_t;
-      float acc = 0.0f;
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        h[j] = expf(dt_t * a[j]) * h[j] + dtx * b_s[t][j];
-        acc += h[j] * c_s[t][j];
-      }
-      y[(row0 + t0 + t) * di + d] = acc + d_coef * x_t;
-    }
+    float* y_c = y + (row0 + t0) * di + d;
+    const bool store = g == 0 && active;
+    int t = 0;
+    for (; t + kBatch <= T; t += kBatch)
+      scan_steps<kBatch, G>(s, t, c, g, a, h, d_coef, store, y_c, di);
+    for (; t < T; ++t)
+      scan_steps<1, G>(s, t, c, g, a, h, d_coef, store, y_c, di);
+    __syncthreads();   // every read of stage[r & 1] is done
   }
   if (active) {
 #pragma unroll
-    for (int j = 0; j < N; ++j)
-      h_final[(static_cast<long long>(b) * di + d) * N + j] = h[j];
+    for (int j = 0; j < NL; ++j)
+      h_final[(static_cast<long long>(b) * di + d) * N + g * NL + j] = h[j];
   }
 }
 
@@ -107,9 +262,10 @@ template <int N>
 cudaError_t launch(const float* x, const float* dt, const float* A,
                    const float* Bc, const float* Cc, const float* D, float* y,
                    float* h_final, int B, int S, int di, cudaStream_t stream) {
-  dim3 grid((di + kBlock - 1) / kBlock, B);
-  ssm_scan_kernel<N><<<grid, kBlock, 0, stream>>>(x, dt, A, Bc, Cc, D, y,
-                                                   h_final, S, di);
+  constexpr int CH = Split<N>::CH;
+  dim3 grid((di + CH - 1) / CH, B);
+  ssm_scan_kernel<N><<<grid, kThreads, 0, stream>>>(x, dt, A, Bc, Cc, D, y,
+                                                     h_final, S, di);
   return cudaGetLastError();
 }
 

@@ -12,9 +12,11 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import N_FIELDS, UT, retention_ref  # noqa: F401
 
-# ts is staged in dynamic shared memory, which a launch gets up to 48 KB of
-# without opting in
-_MAX_GRID_POINTS = 48 * 1024 // 4
+# ts and each step's dt, dt / 2 and dt / 6 are staged in dynamic shared
+# memory, 16 bytes a step, so the grid's points must fit under a block's
+# 227 KB. At this limit a block takes 192 KB, one 128-thread block an SM;
+# the paper grid's 481 points take 7.5 KB
+_MAX_GRID_POINTS = 12_288
 
 
 def _check(params: torch.Tensor, ts: torch.Tensor) -> None:

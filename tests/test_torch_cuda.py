@@ -61,7 +61,10 @@ def _stiff():
     return np.asarray(rows, np.float32)
 
 
-ROWS = {"nominal-14": _nominal, "perturbed-130": lambda: _perturbed(130),
+# 127 and 129 rows: either side of the kernel's 128-row block
+ROWS = {"nominal-14": _nominal, "perturbed-127": lambda: _perturbed(127),
+        "perturbed-129": lambda: _perturbed(129),
+        "perturbed-130": lambda: _perturbed(130),
         "perturbed-4097": lambda: _perturbed(4097), "stiff-12": _stiff}
 
 
@@ -78,6 +81,18 @@ def test_kernel_matches_plain_version_on_the_card(cuda, rows):
     torch.testing.assert_close(got, want, rtol=RTOL_KERNEL, atol=0)
     start = params[:, 8] < params[:, 9]
     assert torch.equal(got[start], want[start])
+
+
+@pytest.mark.cuda
+def test_kernel_takes_a_grid_beyond_48_kb_of_shared_memory(cuda):
+    """A 4,097-point grid: ts and each step's dt, dt / 2 and dt / 6 take
+    64 KB of shared memory, which the launch opts in to."""
+    params = torch.from_numpy(_perturbed(130, 1)).to(cuda)
+    ts = torch.logspace(-9, 7, 4097, device=cuda)
+    got = kretention.retention_batch(params, ts)
+    want = ref.retention_ref(params, ts)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=RTOL_KERNEL, atol=0)
 
 
 @pytest.mark.cuda
@@ -163,10 +178,14 @@ def test_flash_attention_kernel_window_sink_and_p_modes(cuda, case, dtype,
                                    atol=tol)
 
 
-# (B, S, di, n): the reference's shapes, a di that no block divides, and
-# hymba-1.5b's full width (di = 2 * 1600, n = 16, S = 128 + 1,000)
+# (B, S, di, n): the reference's shapes, a di that no block divides,
+# hymba-1.5b's full width (di = 2 * 1600, n = 16, S = 128 + 1,000), n = 4
+# and 32 (the other instantiations), S = 1, B = 1 at hymba's di, and S one
+# past a 32-step staging round
 SSM_SHAPES = [(1, 128, 256, 16), (2, 256, 512, 8), (1, 64, 1024, 16),
-              (2, 45, 200, 8), (4, 1128, 3200, 16)]
+              (2, 45, 200, 8), (4, 1128, 3200, 16), (2, 100, 384, 4),
+              (1, 70, 256, 32), (3, 1, 3200, 16), (1, 1128, 3200, 16),
+              (2, 33, 200, 16)]
 
 
 @pytest.mark.cuda

@@ -11,6 +11,7 @@ from repro.core import devices as jdevices
 from repro.core import retention as jretention
 from repro.kernels.ref import retention_ref as jax_retention_ref
 from repro.kernels.retention_kernel import retention_pallas
+from repro_torch import api
 from repro_torch.core import bitcells, corners, retention
 from repro_torch.kernels import ref
 from repro_torch.kernels import retention as kretention
@@ -96,6 +97,88 @@ def test_plain_kernel_version_matches_jax_oracle_and_pallas(rows, ts_np):
     np.testing.assert_array_equal(got[start], ts_np[-1])
 
 
+def _paper_grid_rows():
+    """(120, 10) rows of the paper grid (``design_space()``), packed as
+    ``explore`` hands them to the kernel."""
+    space = api.design_space()
+    cells = bitcells.take_bitcell(bitcells.stack_bitcells(), torch.tensor(
+        [bitcells.MEM_TYPE[c.mem_type] for c in space]))
+    return retention.pack_retention_params(
+        cells, torch.tensor([float(c.level_shift) for c in space])).numpy()
+
+
+def _kernel_order(params: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
+    """retention.cu's order of operations, in float32 on the CPU: the
+    divisions by n * UT and by max(c_sn, 1e-18) as products with per-row
+    reciprocals, (-vt_eff - n v) / (n UT) as u1 - v * (1 / UT), and each
+    step's dt, dt / 2 and dt / 6 taken once from ts. The crossing and the
+    start-crossed rows are the plain version's."""
+    vt, n, ispec, eta, i_floor, jg, c_sn, w, v, v_min = params.unbind(1)
+    inv_nut = torch.reciprocal(n * ref.UT)
+    neg_inv_c = -torch.reciprocal(torch.clamp_min(c_sn, 1e-18))
+    inv_ut = torch.reciprocal(torch.tensor(ref.UT, dtype=torch.float32))
+
+    def f(v):
+        v = torch.clamp_min(v, 0.0)
+        vt_eff = vt - eta * v
+        u1 = (0.0 - vt_eff) * inv_nut
+        u2 = u1 - v * inv_ut
+        i_ch = ispec * (ref._F(u1) - ref._F(u2))
+        return ((torch.clamp_min(i_ch, 0.0) + i_floor) * w + jg * v) \
+            * neg_inv_c
+
+    dts = ts[1:] - ts[:-1]
+    half_dts, sixth_dts = 0.5 * dts, dts / 6.0
+    t_ret = ts[-1].expand_as(v)
+    found = v < v_min
+    for i in range(dts.shape[0]):
+        k1 = f(v)
+        k2 = f(v + half_dts[i] * k1)
+        k3 = f(v + half_dts[i] * k2)
+        k4 = f(v + dts[i] * k3)
+        v_new = torch.clamp(v + sixth_dts[i] * (k1 + 2 * k2 + 2 * k3 + k4),
+                            0.0, 2.0)
+        crossed = (v_new < v_min) & ~found
+        frac = torch.clamp((v - v_min) / torch.clamp_min(v - v_new, 1e-9),
+                           0.0, 1.0)
+        t0, t1 = ts[i], ts[i + 1]
+        t_cross = torch.exp(torch.log(t0) + frac *
+                            (torch.log(t1) - torch.log(t0)))
+        t_ret = torch.where(crossed, t_cross, t_ret)
+        found = found | crossed
+        v = v_new
+    return t_ret
+
+
+MIRROR_ROWS = {"paper-grid-120": _paper_grid_rows,
+               "perturbed-1000": lambda: _perturbed_rows(1000, 5),
+               "stiff-12": _stiff_rows}
+
+
+@pytest.mark.parametrize("rows", sorted(MIRROR_ROWS))
+def test_kernel_order_of_operations_matches_plain_version_and_jax(rows,
+                                                                 ts_np):
+    """The CUDA kernel's reformulation (reciprocals hoisted out of the RK4
+    chain, dt / 6 from shared memory) holds the kernel gate against the
+    plain version and the JAX oracle before it reaches the card; rows that
+    start crossed come out as ts[-1] exactly."""
+    params = MIRROR_ROWS[rows]()
+    got = _kernel_order(torch.from_numpy(params),
+                        torch.from_numpy(ts_np)).numpy()
+    plain = ref.retention_ref(torch.from_numpy(params),
+                              torch.from_numpy(ts_np)).numpy()
+    oracle = np.asarray(jax_retention_ref(jnp.asarray(params),
+                                          jnp.asarray(ts_np)))
+    np.testing.assert_allclose(got, plain, rtol=RTOL_KERNEL, atol=0)
+    np.testing.assert_allclose(got, oracle, rtol=RTOL_KERNEL, atol=0)
+    start = params[:, 8] < params[:, 9]
+    # the paper grid has no HVT cells; the perturbed rows are drawn from
+    # all 14 nominal ones, three of which start crossed
+    assert start.any() == (rows == "perturbed-1000")
+    np.testing.assert_array_equal(got[start], plain[start])
+    np.testing.assert_array_equal(got[start], ts_np[-1])
+
+
 def test_wrapper_on_cpu_is_the_plain_version(ts_np):
     params = torch.from_numpy(_perturbed_rows(33, 1))
     ts = torch.from_numpy(ts_np)
@@ -153,6 +236,15 @@ if __name__ == "__main__":
         want = np.asarray(jax_retention_ref(jnp.asarray(p), jnp.asarray(ts)))
         print(f"plain kernel version vs JAX oracle, {name}: max rel "
               f"{np.max(np.abs(got.numpy() - want) / want):.3e}")
+    for name, make in sorted(MIRROR_ROWS.items()):
+        p = torch.from_numpy(make())
+        got = _kernel_order(p, torch.from_numpy(ts))
+        plain = ref.retention_ref(p, torch.from_numpy(ts))
+        want = np.asarray(jax_retention_ref(jnp.asarray(p.numpy()),
+                                            jnp.asarray(ts)))
+        print(f"kernel order of operations, {name}: max rel vs plain "
+              f"{((got - plain).abs() / plain).max().item():.3e}, vs JAX "
+              f"oracle {np.max(np.abs(got.numpy() - want) / want):.3e}")
     for ls in (0, 1):
         got = retention.retention_time_batch(bitcells.stack_bitcells(),
                                              torch.full((7,), float(ls)))

@@ -157,6 +157,57 @@ def test_decode_matches_prefill(models):
                                atol=RTOL_SELF)
 
 
+# Decode vs prefill across depth (ROADMAP.md §3): at full width the port's
+# gap grows ~10x per doubling of depth (PERF.md). The JAX model, with
+# the same weights, shows the same growth: at this width (d_model 256, head
+# dim 64) its gap is 9e-7, 3e-6, 1.3e-5 and 4e-4 of the largest logit at 1,
+# 2, 4 and 8 layers, the port's 6e-7, 1.6e-6, 3.8e-5 and 2.8e-4 (``python
+# tests/test_torch_serve.py`` prints them), so the growth is the model's
+# float32 rounding through random weights, not a fault of the port.
+DEPTH_WIDTH = dict(d_model=256, num_heads=4, head_dim=64)
+DEPTH_GAP_RATIO = 10.0   # port gap within 10x of the JAX model's, each way
+
+
+def _depth_gaps(depth, S0=24, N=8):
+    """(JAX gap, port gap): max|logits after prefill(S0) + N decode steps -
+    logits of prefill(S0 + N)| / max|prefill logits|, float32, the reduced
+    hymba at ``DEPTH_WIDTH`` cut to ``depth`` layers (the ring of 16 slots
+    wraps), JAX weights carried to the port by ``convert``."""
+    kw = dict(DEPTH_WIDTH, num_layers=depth,
+              full_attn_every=(0,) if depth <= 2 else
+              (0, depth // 2 - 1, depth - 1))
+    jcfg = jax_reduce_config(jax_get_config("hymba-1.5b")).replace(**kw)
+    cfg = reduce_config(get_config("hymba-1.5b")).replace(**kw)
+    jlm = JaxLM(jcfg)
+    jparams = jax.jit(jlm.init)(jax.random.key(0))
+    params = convert.lm_params_from_numpy(
+        cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    lm = LM(cfg, device="cpu")
+    toks = _tokens(cfg, 2, S0 + N, 1)
+    max_seq = S0 + N + 4
+    jprefill = jax.jit(lambda p, b: jlm.prefill(p, b, max_seq=max_seq))
+    jdecode = jax.jit(jlm.decode)
+    jcache, jlogits = jprefill(jparams, {"tokens": toks[:, :S0]})
+    for t in range(S0, S0 + N):
+        jlogits, jcache = jdecode(jparams, jcache, {"tokens": toks[:, t]})
+    _, jfull = jprefill(jparams, {"tokens": toks})
+    with torch.inference_mode():
+        cache, logits = lm.prefill(params, {"tokens": toks[:, :S0]},
+                                   max_seq=max_seq)
+        for t in range(S0, S0 + N):
+            logits, cache = lm.decode(params, cache, {"tokens": toks[:, t]})
+        _, full = lm.prefill(params, {"tokens": toks}, max_seq=max_seq)
+    return _rel(jlogits, jfull), _rel(logits.numpy(), full.numpy())
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4, 8])
+def test_decode_vs_prefill_gap_grows_with_depth_as_in_the_jax_model(depth):
+    jax_gap, port_gap = _depth_gaps(depth)
+    if depth == 8:      # the width is one where the growth shows
+        assert jax_gap > 1e-5
+    assert jax_gap / DEPTH_GAP_RATIO <= port_gap <= DEPTH_GAP_RATIO * jax_gap
+
+
 def test_full_width_parameter_tree_matches_jax():
     """Every name, shape and dtype of the unreduced hymba-1.5b tree (bf16,
     32 layers) against the reference's, without allocating either."""
@@ -244,3 +295,7 @@ if __name__ == "__main__":
         logits, full = _self_gap(m)
         print(f"decode vs prefill (port only): max abs "
               f"{np.abs(logits - full).max():.3e}")
+    for depth in (1, 2, 4, 8):
+        jax_gap, port_gap = _depth_gaps(depth)
+        print(f"decode vs prefill, {depth} layers at {DEPTH_WIDTH}: JAX "
+              f"{jax_gap:.3e}, port {port_gap:.3e} of max |logit|")

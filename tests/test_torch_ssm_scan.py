@@ -96,6 +96,64 @@ def test_plain_version_ragged_against_oracle_and_model_scan(B, S, di, n):
     _close(h, h_m)
 
 
+LOG2E = 1.4426950408889634
+
+
+def _kernel_order(x, dt, A, Bc, Cc, D, group, exp2=True):
+    """ssm_scan.cu's order of operations, in float32 on the CPU: the n
+    states of a channel split over G = min(group, n) lanes, lane g holding
+    states g*n/G .. (g+1)*n/G - 1, each lane summing h_j * C_j over its
+    states in order, then the butterfly over the lanes (step m adds the
+    value of lane g ^ m), lane 0's sum plus D * x as y; exp(dt * A) as
+    exp2(dt * (A * log2(e))) when ``exp2``."""
+    Bsz, S, di = x.shape
+    n = A.shape[1]
+    G = min(group, n)
+    NL = n // G
+    a = (A * LOG2E if exp2 else A).view(di, G, NL)
+    h = torch.zeros((Bsz, di, G, NL), dtype=torch.float32)
+    ys = []
+    for t in range(S):
+        dt_t = dt[:, t, :, None, None]
+        e = torch.exp2(dt_t * a) if exp2 else torch.exp(dt_t * a)
+        dtx = (dt[:, t] * x[:, t])[..., None, None]
+        h = e * h + dtx * Bc[:, t].view(Bsz, 1, G, NL)
+        c_t = Cc[:, t].view(Bsz, 1, G, NL)
+        lane = torch.zeros((Bsz, di, G), dtype=torch.float32)
+        for j in range(NL):
+            lane = lane + h[..., j] * c_t[..., j]
+        m = 1
+        while m < G:
+            lane = lane + lane[..., torch.arange(G) ^ m]
+            m <<= 1
+        ys.append(lane[..., 0] + D * x[:, t])
+    return torch.stack(ys, dim=1), h.reshape(Bsz, di, n)
+
+
+# the reference's shapes, a di that no 32-channel block divides and n = 4
+# (fewer states than lanes of a group of 8)
+MIRROR_SHAPES = [(1, 128, 256, 16), (2, 256, 512, 8), (1, 64, 1024, 16),
+                 (2, 45, 200, 8), (3, 130, 96, 4)]
+
+
+@pytest.mark.parametrize("group", [2, 4, 8])
+@pytest.mark.parametrize("B,S,di,n", MIRROR_SHAPES)
+def test_kernel_order_of_operations_matches_plain_version_and_jax(B, S, di,
+                                                                  n, group):
+    """The CUDA kernel's lane split, butterfly sum and exp2 hold the kernel
+    gate against the plain version and the JAX oracle before they reach
+    the card (groups of 2, 4 and 8 lanes: the shipped one and the variants
+    chip_smoke.py times)."""
+    arrays = _inputs(B, S, di, n, 8)
+    y, h = _kernel_order(*(torch.from_numpy(a) for a in arrays), group)
+    y_plain, h_plain = _port(arrays)
+    _close(y.numpy(), y_plain)
+    _close(h.numpy(), h_plain)
+    y_ref, h_ref = _jax_ref(arrays)
+    _close(y.numpy(), y_ref)
+    _close(h.numpy(), h_ref)
+
+
 def test_wrapper_runs_the_plain_version_on_the_cpu():
     arrays = [torch.from_numpy(a) for a in _inputs(2, 20, 48, 16, 5)]
     before = kssm.ssm_scan.launches
@@ -136,3 +194,16 @@ if __name__ == "__main__":
                           float(np.abs(y - np.asarray(pallas)).max()))
     print(f"plain version vs Pallas kernel and oracle, max abs err: y "
           f"{worst_y:.3e}, h_final {worst_h:.3e}")
+    for exp2 in (True, False):
+        for group in (2, 4, 8):
+            gaps = []
+            for shape in MIRROR_SHAPES:
+                arrays = _inputs(*shape, 8)
+                y, h = _kernel_order(*(torch.from_numpy(a) for a in arrays),
+                                     group, exp2)
+                y_plain, h_plain = _port(arrays)
+                gaps += [float(np.abs(y.numpy() - y_plain).max()),
+                         float(np.abs(h.numpy() - h_plain).max())]
+            print(f"kernel order, {group} lanes, "
+                  f"{'exp2' if exp2 else 'exp'}: max abs err vs plain "
+                  f"{max(gaps):.3e}")
