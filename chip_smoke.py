@@ -51,10 +51,33 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             rounded and in float32 (the model's), causal and with hymba's
             window and sink;
 12. profile one prefill and one warm decode step under ``torch.profiler``,
-            and the attention and scan kernels' shares of the prefill.
+            and the attention and scan kernels' shares of the prefill;
+13. corners the retention kernel at hot, cold, low_vdd and the cold-boost
+            point (1.2 V, 233 K), at each corner's thermal voltage, against
+            its plain version at the same ``ut`` (rtol 1e-5, start-crossed
+            rows exact) on the paper grid's rows packed at the corner and
+            on rows perturbed from the 14 nominal ones (B = 127, 129,
+            2^20); its time at B = 120 and 2^20 beside nominal's; at hot
+            every gain-cell row of the paper grid retains for less time
+            than at nominal;
+14. table   ``explore(corners=<the four named corners>,
+            robust="worst_case", device="cuda")`` on the paper grid (120)
+            and the wide grid (2,808): 4 retention launches a build,
+            every column within ``RTOL_CPU`` of the CPU build, labels and
+            picks equal to the CPU's; wall time first call and warm;
+15. compose ``hetero.compose(device="cuda")`` against the goldens, read as
+            JSON: Table 2 through compose (7/7), the 3-level reference
+            task under ``preference`` and ``power_bb``
+            (``tests/golden/table2_nlevel.json``), and the vdd sweep to
+            (1.2 V, 233 K) (``tests/golden/table2_vdd.json``: flips of tasks
+            1, 2, 4 and 6), discrete fields exact and metrics within
+            ``RTOL_GOLDEN``; one retention launch a swept compose;
+            branch-and-bound ``n_scored``, scoring dispatches, wall time
+            first and warm, and one warm swept compose under
+            ``torch.profiler``.
 
-It prints one ``{"kernels": [...]}`` line, then, last, the
-``{"ok": true, "device": {...}}`` line.
+Each phase prints its seconds. It prints one ``{"kernels": [...]}`` line,
+then, last, the ``{"ok": true, "device": {...}}`` line.
 """
 from __future__ import annotations
 
@@ -95,6 +118,19 @@ OPS_PER_CROSSING = 9 + 3
 EXP_PER_STEP, EXP_PER_CROSSING = 4 * 2, 1
 
 KERNELS = ("retention", "ssm_scan", "flash_attention")
+# phase 13: the corners of the retention kernel's corner checks
+KERNEL_CORNERS = ("hot", "cold", "low_vdd", (1.2, 233.0))
+# phase 15: the vdd sweep point of tests/golden/table2_vdd.json, the
+# settings of tests/golden/table2_nlevel.json, and the gate of the golden
+# metrics (the golden's task-3 swept p_w is one float32 ulp from the
+# reference's own live value)
+VDD_SWEEP_POINT = (1.2, 233.0)
+NLEVEL_POLICIES = {
+    "preference": {},
+    "power_bb": {"objective": "power", "candidate_mode": "all_feasible",
+                 "search": "branch_and_bound"},
+}
+RTOL_GOLDEN = 1e-5
 PEAK_BF16_TC = 989e12   # H100 SXM bf16 dense on the tensor cores [FLOP/s]
 # kernel vs plain version: the reference's gates for its Pallas kernels
 TOL_ATTN = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -181,28 +217,60 @@ def perturbed_rows(base, n: int, seed: int):
     return torch.from_numpy(p.astype(np.float32)).to(base.device)
 
 
-def compare_kernel(params, ts):
-    """Kernel vs plain version on the same inputs; returns (max abs err,
-    max rel err)."""
+def compare_kernel(params, ts, ut=None, corner="nominal"):
+    """Kernel vs plain version on the same inputs, at thermal voltage ``ut``
+    (None: the nominal one); returns (max abs err, max rel err)."""
     import torch
     from repro_torch.kernels import ref, retention
-    got = retention.retention_batch(params, ts)
-    want = ref.retention_ref(params, ts)
+    ut = ref.UT if ut is None else ut
+    got = retention.retention_batch(params, ts, ut)
+    want = ref.retention_ref(params, ts, ut)
     torch.cuda.synchronize()
+    where = f"B={params.shape[0]} at {corner} (ut {ut:.6g} V)"
     if not torch.isfinite(got).all():
-        fail(f"kernel output not finite at B={params.shape[0]}")
+        fail(f"kernel output not finite at {where}")
     abs_err = (got - want).abs()
     rel_err = (abs_err / want.abs()).max().item()
     if rel_err > RTOL_KERNEL:
-        fail(f"kernel vs plain at B={params.shape[0]}: max rel err "
-             f"{rel_err:.3e} > {RTOL_KERNEL}")
+        fail(f"kernel vs plain at {where}: max rel err {rel_err:.3e} > "
+             f"{RTOL_KERNEL}")
     start_crossed = params[:, 8] < params[:, 9]
     if not torch.equal(got[start_crossed], want[start_crossed]):
-        fail(f"start-crossed rows differ at B={params.shape[0]}")
-    print(f"kernel B={params.shape[0]}: max rel err {rel_err:.3e}, max abs "
-          f"err {abs_err.max().item():.3e} s, start-crossed rows "
+        fail(f"start-crossed rows differ at {where}")
+    print(f"kernel {where}: max rel err {rel_err:.3e}, max abs err "
+          f"{abs_err.max().item():.3e} s, start-crossed rows "
           f"{int(start_crossed.sum())} exact", flush=True)
     return abs_err.max().item(), rel_err
+
+
+def phase_done(n: int, name: str, t0: float) -> None:
+    print(f"phase {n} ({name}): {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+
+def compare_tables(label, card, cpu):
+    """Every metric column of a table built on the card within RTOL_CPU of
+    the same table built on the CPU; returns the worst relative gap."""
+    import numpy as np
+    if card.metric_names != cpu.metric_names:
+        fail(f"{label}: columns differ between card and CPU")
+    worst = 0.0
+    for name in cpu.metric_names:
+        a = np.asarray(card[name], np.float64)
+        b = np.asarray(cpu[name], np.float64)
+        rel = np.abs(a - b) / np.maximum(np.abs(b), np.finfo(np.float64).tiny)
+        worst = max(worst, float(rel.max()))
+        if not np.allclose(a, b, rtol=RTOL_CPU, atol=0.0):
+            fail(f"{label} column {name}: card vs CPU max rel "
+                 f"{rel.max():.3e} > {RTOL_CPU}")
+    return worst
+
+
+def picks_of(selections):
+    """(task, level, [(family, row)]) of an explore report's selections."""
+    return [(tid, lvl, [(p.family, p.config_idx) for p in sel.picks])
+            for tid, levels in selections.items()
+            for lvl, sel in levels.items()]
 
 
 def time_ms(fn, iters: int, warmup: int) -> float:
@@ -403,8 +471,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import numpy as np
-    from repro_torch import api
+    from repro_torch import api, hetero
     from repro_torch.core import bitcells, gainsight, retention
+    from repro_torch.core import corners as corners_mod
     from repro_torch import convert
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.kernels import build, ref
@@ -419,6 +488,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. device --------------------------------------------------------------
+    t_phase = time.perf_counter()
     dev = torch.device("cuda")
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -427,8 +497,10 @@ def main() -> int:
     print(f"device: {kind} x{count}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     print(smi, flush=True)
+    phase_done(1, "device", t_phase)
 
     # 2. build ---------------------------------------------------------------
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     libs = build.build_libraries(KERNELS)     # one nvcc each, all at once
     for name, lib in zip(KERNELS, libs):
@@ -437,8 +509,10 @@ def main() -> int:
         print(lib.with_suffix(".log").read_text(), flush=True)
     print(f"build: {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s",
           flush=True)
+    phase_done(2, "build", t_phase)
 
     # 3. kernel vs plain -----------------------------------------------------
+    t_phase = time.perf_counter()
     ts = retention.time_grid(dev)
     base = nominal_rows(dev)
     errs = [compare_kernel(p, ts) for p in
@@ -446,8 +520,10 @@ def main() -> int:
                      for b in (127, 129, 130, 1 << 20)))]
     max_abs_err = max(e[0] for e in errs)
     max_rel_err = max(e[1] for e in errs)
+    phase_done(3, "kernel vs plain", t_phase)
 
     # 4. main path -----------------------------------------------------------
+    t_phase = time.perf_counter()
     kretention.retention_batch.launches = 0
     t0 = time.perf_counter()
     report = api.explore(device="cuda")
@@ -465,22 +541,16 @@ def main() -> int:
     api.explore(device="cuda")
     torch.cuda.synchronize()
     explore_warm_s = time.perf_counter() - t0
-    cpu_table = api.DesignTable.build(device="cpu")
-    worst = 0.0
-    for name in cpu_table.metric_names:
-        a = np.asarray(report.table[name], np.float64)
-        b = np.asarray(cpu_table[name], np.float64)
-        rel = np.abs(a - b) / np.maximum(np.abs(b), np.finfo(np.float64).tiny)
-        worst = max(worst, float(rel.max()))
-        if not np.allclose(a, b, rtol=RTOL_CPU, atol=0.0):
-            fail(f"column {name}: card vs CPU max rel {rel.max():.3e} > "
-                 f"{RTOL_CPU}")
+    worst = compare_tables("paper grid", report.table,
+                           api.DesignTable.build(device="cpu"))
     print(f"main: explore(device='cuda') Table 2 7/7, {launches} kernel "
           f"launch(es), {len(report.table)} configs, card vs CPU max rel "
           f"{worst:.3e}; explore {explore_s:.4f} s first, "
           f"{explore_warm_s:.4f} s warm", flush=True)
+    phase_done(4, "main path", t_phase)
 
     # 5. wide grid -----------------------------------------------------------
+    t_phase = time.perf_counter()
     wide = api.design_space(mem_types=tuple(bitcells.BITCELLS),
                             word_sizes=(8, 16, 32, 64, 128, 256),
                             num_words=tuple(2 ** k for k in range(4, 13)),
@@ -495,8 +565,10 @@ def main() -> int:
         fail(f"wide grid: {len(wide_table)} rows, non-finite columns {bad}")
     print(f"wide: {len(wide_table)} configs characterized on the card in "
           f"{wide_s:.4f} s, all finite", flush=True)
+    phase_done(5, "wide grid", t_phase)
 
     # 6. timing --------------------------------------------------------------
+    t_phase = time.perf_counter()
     cells = bitcells.take_bitcell(
         bitcells.stack_bitcells().to(dev),
         torch.tensor([bitcells.MEM_TYPE[m] for m in report.table["mem_type"]],
@@ -522,13 +594,17 @@ def main() -> int:
               f"bytes {terms['bytes']:.4f}, operations "
               f"{terms['operations']:.4f}: fp32 alone {terms['fp32']:.4f}, "
               f"SFU alone {terms['sfu']:.4f} ms)", flush=True)
+    phase_done(6, "timing", t_phase)
 
     # 7. where a warm explore's time goes ----------------------------------
+    t_phase = time.perf_counter()
     profile_report("warm explore", lambda: api.explore(device="cuda"))
     print(f"end-to-end: explore(device='cuda') {explore_s:.4f} s (first "
           f"call), {explore_warm_s:.4f} s (warm); {smi}", flush=True)
+    phase_done(7, "explore profile", t_phase)
 
     # 8. the serve kernels against their plain versions ---------------------
+    t_phase = time.perf_counter()
     attn_err, p_f32 = 0.0, {"max_ulps": 0.0, "max_share": 0.0}
     attn_cases = ([(shape, causal, None, 0) for shape in ATTN_SHAPES
                    for causal in (True, False)]
@@ -579,8 +655,10 @@ def main() -> int:
         ssm_err = max(ssm_err, *errs)
         print(f"kernel ssm_scan {shape}: max abs err y {errs[0]:.3e}, "
               f"h_final {errs[1]:.3e} (rtol = atol = {TOL_SSM})", flush=True)
+    phase_done(8, "serve kernels", t_phase)
 
     # 9. serve hymba-1.5b at full width -------------------------------------
+    t_phase = time.perf_counter()
     cfg = get_config("hymba-1.5b")
     t0 = time.perf_counter()
     lm = LM(cfg, device=dev)
@@ -657,8 +735,10 @@ def main() -> int:
             if gated and (gap > RTOL_DECODE_PREFILL * scale or agree < 1):
                 fail(f"decode vs prefill at full width, {depth} layers "
                      f"float32: {gap / scale:.3e} > {RTOL_DECODE_PREFILL}")
+    phase_done(9, "serve", t_phase)
 
     # 10. reduced hymba: the card against the CPU ---------------------------
+    t_phase = time.perf_counter()
     rcfg = reduce_config(cfg)
     cpu_params = LM(rcfg, device="cpu").init(
         torch.Generator().manual_seed(args.seed))
@@ -682,8 +762,10 @@ def main() -> int:
     print(f"parity: reduced hymba card vs CPU, 4 x 40-token prompts, 24 "
           f"steps: tokens identical, logits max rel {parity:.3e} (gate "
           f"{RTOL_SERVE_CPU})", flush=True)
+    phase_done(10, "parity", t_phase)
 
     # 11. timing of the serve kernels ---------------------------------------
+    t_phase = time.perf_counter()
     B, H, K, D = (SERVE_REQUESTS, cfg.num_heads, cfg.num_kv_heads,
                   cfg.head_dim)
     S = cfg.meta_tokens + SERVE_PROMPT
@@ -723,8 +805,10 @@ def main() -> int:
           f"{ssm_terms['operations']:.4f}: fp32 alone "
           f"{ssm_terms['fp32']:.4f}, SFU alone {ssm_terms['sfu']:.4f} ms); "
           f"no single PyTorch call computes the scan", flush=True)
+    phase_done(11, "serve kernel timing", t_phase)
 
     # 12. where serve time goes ---------------------------------------------
+    t_phase = time.perf_counter()
     with torch.inference_mode():
         box = {}
 
@@ -744,6 +828,215 @@ def main() -> int:
         lm.decode(params, box["cache"], tok)            # warm the step
         profile_report("warm decode step",
                        lambda: lm.decode(params, box["cache"], tok))
+    phase_done(12, "serve profile", t_phase)
+
+    # 13. the retention kernel at the other operating corners -------------
+    t_phase = time.perf_counter()
+    main_ls = torch.tensor(report.table["level_shift"], dtype=torch.float32,
+                           device=dev)
+    gain_cell = torch.tensor(report.table["mem_type"] != "sram6t",
+                             device=dev)
+    nominal_main = kretention.retention_batch(main_rows, ts)
+    wide_cells = bitcells.take_bitcell(
+        bitcells.stack_bitcells().to(dev),
+        torch.tensor([bitcells.MEM_TYPE[m] for m in wide_table["mem_type"]],
+                     device=dev))
+    wide_ls = torch.tensor(wide_table["level_shift"], dtype=torch.float32,
+                           device=dev)
+    wide_nominal = retention.pack_retention_params(wide_cells, wide_ls)
+    ms_wide_nominal = time_ms(
+        lambda: kretention.retention_batch(wide_nominal, ts), 100, warmup=3)
+    wide_bound_ms, wide_bound_by, _ = bound(
+        wide_nominal, ts, kretention.retention_batch(wide_nominal, ts))
+    shapes["wide"] = {"B": wide_nominal.shape[0], "ms": ms_wide_nominal,
+                      "bound_ms": wide_bound_ms, "bound_by": wide_bound_by}
+    print(f"timing B={wide_nominal.shape[0]} (the wide grid): kernel "
+          f"{ms_wide_nominal:.4f} ms, bound {wide_bound_ms:.3e} ms "
+          f"({wide_bound_by})", flush=True)
+    corner_kernel, corner_errs = {}, []
+    for op in KERNEL_CORNERS:
+        point = corners_mod.as_operating_point(op)
+        tp = corners_mod.TechParams.from_op(point)
+        rows = retention.pack_retention_params(cells, main_ls, tp)
+        base_c = torch.cat([retention.pack_retention_params(
+            bitcells.stack_bitcells().to(dev),
+            torch.full((7,), float(ls), device=dev), tp) for ls in (0, 1)])
+        big = perturbed_rows(base_c, 1 << 20, args.seed)
+        c_errs = [compare_kernel(r, ts, tp.ut, point.corner) for r in
+                  (rows, perturbed_rows(base_c, 127, args.seed),
+                   perturbed_rows(base_c, 129, args.seed), big)]
+        out = kretention.retention_batch(rows, ts, tp.ut)
+        if point.corner == "hot" and not bool(
+                (out[gain_cell] < nominal_main[gain_cell]).all()):
+            fail("hot-corner retention is not below nominal for every "
+                 "gain-cell row of the paper grid: ut did not reach the "
+                 "kernel")
+        ms_main = time_ms(lambda: kretention.retention_batch(rows, ts,
+                                                             tp.ut),
+                          200, warmup=3)
+        wide_rows = retention.pack_retention_params(wide_cells, wide_ls, tp)
+        c_errs.append(compare_kernel(wide_rows, ts, tp.ut, point.corner))
+        ms_wide = time_ms(lambda: kretention.retention_batch(wide_rows, ts,
+                                                             tp.ut),
+                          100, warmup=3)
+        ms_big = time_ms(lambda: kretention.retention_batch(big, ts, tp.ut),
+                         20, warmup=2)
+        corner_errs += c_errs
+        corner_kernel[point.corner] = {
+            "ut": tp.ut, "ms_B120": ms_main, "ms_B2808": ms_wide,
+            "ms_B2^20": ms_big, "max_rel_err": max(e[1] for e in c_errs)}
+        print(f"timing at {point.corner} (ut {tp.ut:.6g} V): kernel "
+              f"{ms_main:.4f} ms at B={rows.shape[0]}, {ms_wide:.4f} ms at "
+              f"B={wide_rows.shape[0]}, {ms_big:.4f} ms at B=2^20 (nominal "
+              f"{shapes['main']['ms']:.4f}, {ms_wide_nominal:.4f} and "
+              f"{shapes['2^20']['ms']:.4f} ms)", flush=True)
+    max_abs_err = max(max_abs_err, *(e[0] for e in corner_errs))
+    max_rel_err = max(max_rel_err, *(e[1] for e in corner_errs))
+    phase_done(13, "retention kernel at corners", t_phase)
+
+    # 14. corner tables and robust explore -----------------------------------
+    t_phase = time.perf_counter()
+    named = tuple(corners_mod.CORNERS)
+    corner_tables = {}
+    for name, space in (("paper", None), ("wide", wide)):
+        walls = []
+        for _ in ("first", "warm"):
+            kretention.retention_batch.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rob = api.explore(space, corners=named, robust="worst_case",
+                              device="cuda")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            n_launch = kretention.retention_batch.launches
+            if n_launch != len(named):
+                fail(f"{name} grid at corners {named}: {n_launch} retention "
+                     f"launches, expected {len(named)}")
+        cpu_rob = api.explore(space, corners=named, robust="worst_case",
+                              device="cpu")
+        worst = compare_tables(f"{name} grid at corners", rob.table,
+                               cpu_rob.table)
+        if rob.labels() != cpu_rob.labels() or \
+                picks_of(rob.selections) != picks_of(cpu_rob.selections):
+            fail(f"{name} grid: robust explore labels or picks differ "
+                 f"between card and CPU")
+        corner_tables[name] = {"configs": len(rob.table),
+                               "launches": n_launch, "first_s": walls[0],
+                               "warm_s": walls[1], "max_rel_vs_cpu": worst}
+        print(f"table: {name} grid, {len(rob.table)} configs at "
+              f"{list(rob.table.corner_labels)}: {n_launch} retention "
+              f"launches a build, card vs CPU max rel {worst:.3e}, robust "
+              f"labels and picks equal to the CPU's; explore(corners, "
+              f"robust) {walls[0]:.4f} s first, {walls[1]:.4f} s warm",
+              flush=True)
+    phase_done(14, "corner tables", t_phase)
+
+    # 15. compose against the goldens ---------------------------------------
+    t_phase = time.perf_counter()
+    golden = {name: json.loads((ROOT / "tests" / "golden" / name)
+                               .read_text())
+              for name in ("table2_nlevel.json", "table2_vdd.json")}
+    ptable = api.DesignTable.build(device="cuda")
+
+    def timed_compose(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = hetero.compose(*args, device="cuda", **kwargs)
+        torch.cuda.synchronize()
+        return rep, time.perf_counter() - t0
+
+    t2_walls, t2 = [], 0
+    for t in gainsight.TASKS:
+        rep, wall = timed_compose(ptable, t)
+        t2_walls.append(wall)
+        t2 += rep.labels() == gainsight.TABLE2_EXPECTED[t.task_id]
+    if t2 != len(gainsight.TASKS):
+        fail(f"Table 2 through compose on the card: {t2}/7")
+    print(f"compose: Table 2 through compose on the card {t2}/7; a compose "
+          f"{t2_walls[0]:.4f} s first, {min(t2_walls[1:]):.4f}-"
+          f"{max(t2_walls[1:]):.4f} s after", flush=True)
+    compose_stats = {"table2": f"{t2}/7", "table2_s": t2_walls}
+    for name, kw in NLEVEL_POLICIES.items():
+        want = golden["table2_nlevel.json"]["compositions"][name]
+        n_evals = hetero.composition_eval_count()
+        rep, wall = timed_compose(ptable, gainsight.nlevel_task(3),
+                                  compose_policy=hetero.ComposePolicy(**kw))
+        _, wall_warm = timed_compose(ptable, gainsight.nlevel_task(3),
+                                     compose_policy=hetero.ComposePolicy(**kw))
+        best = rep.best
+        got = {"labels": best.labels(),
+               "picks": {lvl: [p.config_idx for p in lc.picks]
+                         for lvl, lc in best.levels.items()},
+               "tiles": {lvl: list(lc.tiles)
+                         for lvl, lc in best.levels.items()},
+               "n_space": rep.n_space, "search": rep.search}
+        bad = [k for k in got if got[k] != want[k]]
+        rel = max(abs(best.metrics[k] - v) / abs(v)
+                  for k, v in want["metrics"].items())
+        if bad or rel > RTOL_GOLDEN:
+            fail(f"N-level golden {name} on the card: fields {bad} differ, "
+                 f"metrics max rel {rel:.3e} (gate {RTOL_GOLDEN})")
+        compose_stats[name] = {
+            "n_scored": rep.n_compositions, "n_space": rep.n_space,
+            "dispatches": (hetero.composition_eval_count() - n_evals) // 2,
+            "metrics_max_rel": rel, "first_s": wall, "warm_s": wall_warm}
+        print(f"compose: nlevel3 {name} on the card: labels, picks, tiles, "
+              f"n_space {rep.n_space} and search {rep.search} as the golden, "
+              f"metrics max rel {rel:.3e}; {rep.n_compositions} compositions "
+              f"scored in {compose_stats[name]['dispatches']} dispatch(es); "
+              f"{wall:.4f} s first, {wall_warm:.4f} s warm", flush=True)
+    swept_policy = hetero.ComposePolicy(vdd_sweep=(VDD_SWEEP_POINT,))
+    vdd = golden["table2_vdd.json"]
+    flipped, walls, sweep_launches = [], [], []
+    for t in gainsight.TASKS:
+        want = vdd["tasks"][str(t.task_id)]
+        base = hetero.compose(ptable, t, device="cuda")
+        for _ in ("first", "warm") if t.task_id == 1 else ("first",):
+            kretention.retention_batch.launches = 0
+            n_evals = hetero.composition_eval_count()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            swept = hetero.compose(ptable, t, compose_policy=swept_policy,
+                                   device="cuda")
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            sweep_launches.append(kretention.retention_batch.launches)
+            sweep_dispatches = hetero.composition_eval_count() - n_evals
+        picks = {lvl: [[p.family, p.config_idx,
+                        p.op.corner if p.op is not None else None,
+                        p.refresh_margin] for p in lc.picks]
+                 for lvl, lc in swept.best.levels.items()}
+        rel = max(abs(r.best.metrics["p_w"] - want["p_w"][k])
+                  / want["p_w"][k] for k, r in (("base", base),
+                                                ("swept", swept)))
+        if base.labels() != want["base_labels"] or \
+                swept.labels() != want["swept_labels"] or \
+                picks != want["picks"] or rel > RTOL_GOLDEN:
+            fail(f"vdd golden, task {t.task_id}, on the card: labels "
+                 f"{base.labels()} -> {swept.labels()}, picks {picks}, p_w "
+                 f"max rel {rel:.3e}")
+        if swept.labels() != base.labels():
+            flipped.append(t.task_id)
+    if flipped != [1, 2, 4, 6] or set(sweep_launches) != {1}:
+        fail(f"vdd sweep on the card: flips {flipped} (golden [1, 2, 4, 6]), "
+             f"retention launches per swept compose {sweep_launches}")
+    compose_stats["vdd_sweep"] = {"flipped": flipped,
+                                  "launches_per_compose": sweep_launches[0],
+                                  "dispatches": sweep_dispatches,
+                                  "first_s": walls[0], "warm_s": walls[1]}
+    print(f"compose: vdd sweep to {VDD_SWEEP_POINT} on the card flips tasks "
+          f"{flipped} as the golden, picks and p_w as the golden; "
+          f"{sweep_launches[0]} retention launch and {sweep_dispatches} "
+          f"scoring dispatch a swept compose; swept "
+          f"compose {walls[0]:.4f} s first, {walls[1]:.4f} s warm "
+          f"(tasks 2-7: {min(walls[2:]):.4f}-{max(walls[2:]):.4f} s)",
+          flush=True)
+    prof = profile_report("warm swept compose", lambda: hetero.compose(
+        ptable, gainsight.TASKS[0], compose_policy=swept_policy,
+        device="cuda"))
+    compose_stats["profile"] = {k: prof[k] for k in
+                                ("wall_s", "device_ms", "launches")}
+    phase_done(15, "compose", t_phase)
 
     main_shape = shapes["main"]
     warm = serve["warm"]
@@ -761,7 +1054,15 @@ def main() -> int:
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
-        "bound_terms_ms": main_shape["bound_terms_ms"], "shapes": shapes}, {
+        "bound_terms_ms": main_shape["bound_terms_ms"], "shapes": shapes,
+        "launches_by_path": {
+            "explore": launches,
+            **{f"explore_corners_{k}": v["launches"]
+               for k, v in corner_tables.items()},
+            "compose_vdd_sweep": compose_stats["vdd_sweep"][
+                "launches_per_compose"]},
+        "corners": corner_kernel, "corner_tables": corner_tables,
+        "compose": compose_stats}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:68",

@@ -1,11 +1,16 @@
 """repro_torch: the gain-cell memory compiler on PyTorch and CUDA.
 
 A port of the JAX package ``repro`` that imports neither ``jax`` nor
-``repro``. Two slices so far:
+``repro``. Slices so far:
 
-- the nominal compiler flow: physics (``core``) -> ``characterize_batch``
-  -> ``api.DesignTable`` -> ``api.explore`` (the paper's Table 2), with the
-  retention transient in the CUDA kernel of ``kernels/csrc/retention.cu``;
+- the compiler flow at any operating corner: physics (``core``) ->
+  ``characterize_batch`` / ``characterize_corners`` -> ``api.DesignTable``
+  -> ``api.explore`` (the paper's Table 2; ``robust="worst_case"``), with
+  the retention transient in the CUDA kernel of
+  ``kernels/csrc/retention.cu`` (one launch per corner);
+- the heterogeneous composer ``hetero.compose``: N-level compositions
+  scored on the device, exhaustive or branch-and-bound, with budgets and
+  the (vdd, refresh-margin) sweep;
 - hymba-1.5b serving (``models``, ``serve``, ``launch.serve``): prefill with
   decode caches and batched decode, with the global-attention prefill in
   ``kernels/csrc/flash_attention.cu`` and the SSM prefill scan in

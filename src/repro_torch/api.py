@@ -1,4 +1,5 @@
-"""The compiler façade of the port: design space -> DesignTable -> explore.
+"""The compiler façade of the port: design space -> DesignTable -> explore
+-> compose.
 
 Units everywhere in this module: frequencies [Hz], energies [J], areas
 [µm²], powers [W], times/lifetimes [s], capacities [bits].
@@ -15,10 +16,17 @@ Units everywhere in this module: frequencies [Hz], energies [J], areas
     selection, in one call: Table-2 labels, per-bucket picks, and Fig-11
     shmoo maps, under an explicit ``SelectionPolicy``.
 
+``compose(space, task, ...) -> CompositionReport``
+    the joint counterpart (``repro_torch.hetero``): whole N-level system
+    designs scored as batched tensor code and ranked under a
+    ``ComposePolicy``.
+
 Characterization runs on ``device`` (None = the CUDA device, where the
 retention column comes from the CUDA kernel; ``"cpu"`` runs the plain
-versions). This slice is nominal-only: ``corners=`` and ``robust=`` other
-than None raise ``NotImplementedError``.
+versions), at every operating corner of ``corners=`` (one retention launch
+per corner). ``Macro`` carries a config and its PPA; its artifact emitters
+(Verilog, Liberty, LEF, netlist, layout) are not ported yet and raise
+``NotImplementedError``.
 
     >>> from repro_torch.api import explore
     >>> explore().labels()              # paper Table 2   # doctest: +SKIP
@@ -38,6 +46,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import characterize as chz
+from repro_torch.core import corners as corners_mod
+from repro_torch.core.corners import (  # noqa: F401  (re-exported façade names)
+    CORNERS, HOT, NOMINAL, OperatingPoint, TechParams,
+)
 from repro_torch.core.macro import VEC_FIELDS, MacroConfig
 from repro_torch.core.select import (  # noqa: F401  (re-exported façade names)
     DISPLAY, PREFERENCE, TECH_FAMILIES, Bucket, BucketPick, LevelReq,
@@ -45,15 +57,22 @@ from repro_torch.core.select import (  # noqa: F401  (re-exported façade names)
     feasible_mask, pareto_mask, select_level,
 )
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.hetero.compose import (  # noqa: F401  (re-exported names)
+    ComposePolicy, CompositionReport, compose,
+)
 
 __all__ = [
     "Bucket", "LevelReq", "TaskReq", "SelectionPolicy", "MacroConfig",
-    "DesignTable", "design_space", "grid_hash", "explore", "DSEReport",
+    "Macro", "DesignTable", "design_space", "grid_hash", "explore",
+    "DSEReport", "compose", "ComposePolicy", "CompositionReport",
+    "OperatingPoint", "TechParams", "NOMINAL", "HOT", "CORNERS",
+    "characterize_call_count",
 ]
 
 # cache schema version: bump on npz-layout changes that the physics-source
 # fingerprint cannot catch
-_SCHEMA_VERSION = 1
+# 2: per-corner metric columns + corners stamped into the meta
+_SCHEMA_VERSION = 2
 
 # the modules whose source decides a characterized value, kernel included
 _PHYSICS_SOURCES = ("core/bitcells.py", "core/characterize.py",
@@ -79,11 +98,15 @@ def _hash_seed() -> "hashlib._Hash":
         f"schema={_SCHEMA_VERSION};physics={_physics_fingerprint()}".encode())
 
 
-def _nominal_only(corners, robust=None) -> None:
-    if corners is not None or robust is not None:
-        raise NotImplementedError(
-            f"corners={corners!r} / robust={robust!r}: the corner path is "
-            f"not ported yet; repro_torch runs the nominal corner only")
+# how many characterization sweeps ran (a DesignTable cache hit leaves it
+# unchanged, which is how the tests prove a hit)
+_CHARACTERIZE_CALLS = 0
+
+
+def characterize_call_count() -> int:
+    """Number of characterization sweeps (``DesignTable.from_configs``)
+    this process has run."""
+    return _CHARACTERIZE_CALLS
 
 
 DEFAULT_MEM_TYPES = ("sram6t", "gc_sisi", "gc_ossi")
@@ -115,6 +138,15 @@ def design_space(mem_types: Sequence[str] = DEFAULT_MEM_TYPES,
 
 SpaceLike = Union[None, "DesignTable", Sequence[MacroConfig]]
 
+# metrics where the *worst* corner is the smallest value; every other metric
+# (areas [µm²], energies [J], powers [W], delays [s]) worsens upward
+_HIGHER_IS_BETTER = frozenset({
+    "f_read_hz", "f_write_hz", "f_op_hz",
+    "bandwidth_bits_s", "bandwidth_total_bits_s", "retention_s",
+})
+# geometry columns are corner-invariant: worst-case passes them through
+_GEOMETRY_METRICS = frozenset({"rows", "cols", "mux", "bits"})
+
 
 class DesignTable:
     """Columnar (struct-of-arrays) view of a characterized design space.
@@ -126,14 +158,22 @@ class DesignTable:
     (filtered) tables, so they chain::
 
         table.feasible(1e9, 1e-3).pareto("area_um2", "p_leak_w").best("area_um2")
+
+    With ``corners=[...]`` (OperatingPoints or names like "hot") the table
+    is characterized at every corner: the base metric columns come from
+    ``corners[0]`` and every corner also lands as ``<metric>@<label>``
+    columns (e.g. ``retention_s@hot``); ``worst_case_metrics()`` reduces
+    them to the per-row worst corner for corner-robust DSE.
     """
 
     AXIS_NAMES: Tuple[str, ...] = VEC_FIELDS
 
     def __init__(self, axes: Mapping[str, np.ndarray],
-                 metrics: Mapping[str, np.ndarray]):
+                 metrics: Mapping[str, np.ndarray],
+                 corners: Sequence[OperatingPoint] = (NOMINAL,)):
         self._axes = {k: np.asarray(v) for k, v in axes.items()}
         self._metrics = {k: np.asarray(v) for k, v in metrics.items()}
+        self._corners = corners_mod.as_corners(corners)
         n = {len(v) for v in self._axes.values()}
         n |= {len(v) for v in self._metrics.values()}
         if len(n) > 1:
@@ -143,13 +183,25 @@ class DesignTable:
     @classmethod
     def from_configs(cls, configs: Sequence[MacroConfig], corners=None,
                      device: DeviceLike = None) -> "DesignTable":
-        """Characterize a config list (one batched sweep) into a table, on
-        ``device`` (None = the CUDA device)."""
+        """Characterize a config list into a table on ``device`` (None = the
+        CUDA device), at every operating point of ``corners`` (None =
+        nominal only; one retention launch per corner)."""
+        global _CHARACTERIZE_CALLS
         dev = resolve_device(device)
-        _nominal_only(corners)
+        ops = corners_mod.as_corners(corners)
         vecs = torch.stack([c.to_vector() for c in configs]).to(dev)
-        out = chz.characterize_batch(vecs, device=dev)
-        metrics = {k: v.cpu().numpy() for k, v in out.items()}
+        if ops == (NOMINAL,):
+            out = chz.characterize_batch(vecs, device=dev)
+            metrics = {k: v.cpu().numpy() for k, v in out.items()}
+        else:
+            out = chz.characterize_corners(vecs, ops, device=dev)
+            metrics = {}
+            for k, v in out.items():
+                grid = v.cpu().numpy()                      # (N, C)
+                metrics[k] = grid[:, 0]
+                for c, op in enumerate(ops):
+                    metrics[f"{k}@{op.corner}"] = grid[:, c]
+        _CHARACTERIZE_CALLS += 1
         axes = {
             "mem_type": np.array([c.mem_type for c in configs]),
             "word_size": np.array([c.word_size for c in configs], np.int64),
@@ -160,7 +212,7 @@ class DesignTable:
                                         bool),
             "mux": np.array([c.mux for c in configs], np.int64),
         }
-        return cls(axes, metrics)
+        return cls(axes, metrics, corners=ops)
 
     @classmethod
     def build(cls, space: SpaceLike = None,
@@ -168,15 +220,24 @@ class DesignTable:
               device: DeviceLike = None) -> "DesignTable":
         """Characterize ``space`` (default: the paper grid) on ``device``
         (None = the CUDA device), consulting an npz cache directory keyed
-        on the config-grid hash when given."""
+        on the (config grid, corners) hash when given. ``corners``:
+        operating points to characterize at (None = nominal; a pre-built
+        ``space`` table must already carry them)."""
         dev = resolve_device(device)
-        _nominal_only(corners)
         if isinstance(space, DesignTable):
+            if corners is not None \
+                    and corners_mod.as_corners(corners) != space.corners:
+                raise ValueError(
+                    f"corners={corners!r} conflicts with the pre-built "
+                    f"table's corners {list(space.corner_labels)}; rebuild "
+                    f"the table with DesignTable.build(configs, "
+                    f"corners=...)")
             return space
         configs = list(space) if space is not None else design_space()
         if cache is None:
-            return cls.from_configs(configs, device=dev)
-        cache_path = Path(cache) / f"table_{grid_hash(configs)}.npz"
+            return cls.from_configs(configs, corners=corners, device=dev)
+        cache_path = Path(cache) / \
+            f"table_{grid_hash(configs, corners=corners)}.npz"
         if cache_path.exists():
             try:
                 return cls.load(cache_path)
@@ -185,19 +246,21 @@ class DesignTable:
                 warnings.warn(f"ignoring unreadable DesignTable cache "
                               f"{cache_path}: {e}", RuntimeWarning,
                               stacklevel=2)
-        table = cls.from_configs(configs, device=dev)
+        table = cls.from_configs(configs, corners=corners, device=dev)
         table.save(cache_path)
         return table
 
     def save(self, path: Union[str, Path]) -> Path:
         """Persist axes + metrics to ``path`` (npz, stamped with the grid
-        hash and the physics-source fingerprint)."""
+        hash, the operating corners and the physics-source fingerprint)."""
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
         payload = {f"axis_{k}": v for k, v in self._axes.items()}
         payload.update({f"metric_{k}": v for k, v in self._metrics.items()})
         meta = {"schema": _SCHEMA_VERSION, "grid_hash": self.grid_hash,
-                "physics": _physics_fingerprint()}
+                "physics": _physics_fingerprint(),
+                "corners": [[float(op.vdd), float(op.temp_k), op.corner]
+                            for op in self._corners]}
         np.savez(path, __meta__=json.dumps(meta), **payload)
         return path
 
@@ -216,10 +279,12 @@ class DesignTable:
                     f"{path}: stale physics fingerprint {meta.get('physics')}"
                     f" != current {_physics_fingerprint()}; delete the cache "
                     f"or re-run DesignTable.build")
+            ops = tuple(OperatingPoint(vdd=c[0], temp_k=c[1], corner=str(c[2]))
+                        for c in meta["corners"])
             axes = {k[5:]: z[k] for k in z.files if k.startswith("axis_")}
             metrics = {k[7:]: z[k] for k in z.files
                        if k.startswith("metric_")}
-        return cls(axes, metrics)
+        return cls(axes, metrics, corners=ops)
 
     # ------------------------------------------------------------ accessors
     def __len__(self) -> int:
@@ -256,9 +321,66 @@ class DesignTable:
         return np.array([family_of(mt) for mt in self._axes["mem_type"]])
 
     @property
+    def corners(self) -> Tuple[OperatingPoint, ...]:
+        """The operating points this table was characterized at, in column
+        order (``corners[0]`` backs the base metric columns)."""
+        return self._corners
+
+    @property
+    def corner_labels(self) -> Tuple[str, ...]:
+        return tuple(op.corner for op in self._corners)
+
+    def corner_metrics(self, corner: str) -> Dict[str, np.ndarray]:
+        """Base-named metric dict at one corner label (the
+        ``<metric>@<corner>`` columns, re-keyed without the suffix)."""
+        if corner not in self.corner_labels:
+            raise KeyError(f"corner {corner!r} not in table corners "
+                           f"{self.corner_labels}; build the table with "
+                           f"corners=[...] including it")
+        if len(self._corners) == 1:
+            return dict(self._metrics)
+        suffix = f"@{corner}"
+        return {k[:-len(suffix)]: v for k, v in self._metrics.items()
+                if k.endswith(suffix)}
+
+    def worst_case_metrics(self) -> Dict[str, np.ndarray]:
+        """Per-row worst-corner reduction of every base metric: min over
+        corners for rate-like metrics (``f_*``, ``bandwidth_*``,
+        ``retention_s``), max for cost-like ones (areas, energies, powers,
+        delays); geometry and derived (``with_column``) columns pass
+        through. Ranking on this dict is ``robust="worst_case"``: a design
+        must meet the requirement at every characterized corner."""
+        if len(self._corners) == 1:
+            return dict(self._metrics)
+        out: Dict[str, np.ndarray] = {}
+        for k in (k for k in self._metrics if "@" not in k):
+            stack_keys = [f"{k}@{op.corner}" for op in self._corners]
+            if k in _GEOMETRY_METRICS or \
+                    not all(sk in self._metrics for sk in stack_keys):
+                out[k] = self._metrics[k]
+                continue
+            stack = np.stack([self._metrics[sk] for sk in stack_keys], axis=1)
+            out[k] = (stack.min(axis=1) if k in _HIGHER_IS_BETTER
+                      else stack.max(axis=1))
+        return out
+
+    def robust_metrics(self, robust: Optional[str]) -> Dict[str, np.ndarray]:
+        """The metric dict a DSE pass ranks on: ``None`` -> the base
+        (``corners[0]``) columns, ``"worst_case"`` -> the per-row worst
+        corner."""
+        if robust is None:
+            return self.metrics
+        if robust == "worst_case":
+            return self.worst_case_metrics()
+        raise ValueError(f"unknown robust mode {robust!r}; "
+                         f"valid: None, 'worst_case'")
+
+    @property
     def grid_hash(self) -> str:
-        """Cache key: config grid (axes) + physics-source fingerprint."""
+        """Cache key: config grid (axes) + operating corners +
+        physics-source fingerprint."""
         h = _hash_seed()
+        h.update(corners_mod.corners_fingerprint(self._corners).encode())
         for name in self.AXIS_NAMES:
             col = self._axes[name]
             h.update(name.encode())
@@ -285,6 +407,20 @@ class DesignTable:
         """Row ``i`` as python values, axes and metrics."""
         return {k: v[i].item() for k, v in self.columns.items()}
 
+    def macro(self, i: int) -> "Macro":
+        """Row ``i`` as a Macro (PPA from the table, no re-solve)."""
+        ppa = {k: float(v[i]) for k, v in self._metrics.items()}
+        return Macro(config=self.config(i), ppa=ppa)
+
+    def with_column(self, name: str, values: np.ndarray) -> "DesignTable":
+        """New table with a derived metric column appended."""
+        values = np.asarray(values)
+        if len(values) != len(self):
+            raise ValueError(f"column {name}: length {len(values)} != "
+                             f"{len(self)}")
+        return DesignTable(self._axes, {**self._metrics, name: values},
+                           corners=self._corners)
+
     # -------------------------------------------------------------- queries
     def filter(self, mask) -> "DesignTable":
         """Rows where ``mask`` holds. ``mask`` is a boolean array or a
@@ -293,7 +429,8 @@ class DesignTable:
             mask = mask(self)
         mask = np.asarray(mask, bool)
         return DesignTable({k: v[mask] for k, v in self._axes.items()},
-                           {k: v[mask] for k, v in self._metrics.items()})
+                           {k: v[mask] for k, v in self._metrics.items()},
+                           corners=self._corners)
 
     def feasible(self, f_hz: float, lifetime_s: float,
                  allow_refresh: bool = False) -> "DesignTable":
@@ -323,22 +460,29 @@ class DesignTable:
             cols.append(sign * np.asarray(self[name], np.float64))
         return self.filter(pareto_mask(np.stack(cols, axis=1)))
 
-    def best(self, by: str, ascending: bool = True) -> Dict[str, object]:
-        """The single best row by one column, as ``row()`` gives it."""
+    def best(self, by: str, ascending: bool = True) -> "Macro":
+        """The single best row by one column, as a Macro."""
         if not len(self):
             raise ValueError("best() on an empty table")
         col = np.asarray(self[by], np.float64)
-        return self.row(int(np.argmin(col) if ascending else np.argmax(col)))
+        return self.macro(int(np.argmin(col) if ascending
+                              else np.argmax(col)))
 
     def __repr__(self) -> str:
+        extra = "" if self._corners == (NOMINAL,) else \
+            f", corners={list(self.corner_labels)}"
         return (f"DesignTable({len(self)} configs x "
-                f"{len(self._metrics)} metrics, grid={self.grid_hash})")
+                f"{len(self._metrics)} metrics, grid={self.grid_hash}"
+                f"{extra})")
 
 
-def grid_hash(configs: Sequence[MacroConfig]) -> str:
-    """Cache key of a config grid without characterizing it (includes the
-    physics-source fingerprint, so model edits invalidate old caches)."""
+def grid_hash(configs: Sequence[MacroConfig], corners=None) -> str:
+    """Cache key of a (config grid, corners) pair without characterizing it
+    (includes the physics-source fingerprint, so model edits invalidate old
+    caches)."""
     h = _hash_seed()
+    h.update(corners_mod.corners_fingerprint(
+        corners_mod.as_corners(corners)).encode())
     for name in DesignTable.AXIS_NAMES:
         if name == "mem_type":
             col = np.array([c.mem_type for c in configs], dtype="U16")
@@ -348,6 +492,66 @@ def grid_hash(configs: Sequence[MacroConfig]) -> str:
         h.update(name.encode())
         h.update(col.tobytes())
     return h.hexdigest()[:16]
+
+
+# ---------------------------------------------------------------------------
+# Macro
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class Macro:
+    """One memory macro: config + PPA.
+
+    ``ppa`` is the full characterization as plain floats: ``f_*_hz`` [Hz],
+    ``area_*_um2`` [µm²], ``e_*_j`` [J], ``p_*_w`` [W], ``t_*_s`` /
+    ``retention_s`` [s], ``bandwidth_*_bits_s`` [bit/s]. Produced by
+    ``DesignTable.macro`` / ``best`` and ``DSEReport.pick_macro`` (PPA
+    lifted from the table). The artifact emitters are not ported yet and
+    raise ``NotImplementedError``."""
+    config: MacroConfig
+    ppa: Dict[str, float]
+
+    @property
+    def name(self) -> str:
+        c = self.config
+        return f"{c.mem_type}_{c.word_size}x{c.num_words}"
+
+    @property
+    def retention_s(self) -> float:
+        return self.ppa["retention_s"]
+
+    @property
+    def family(self) -> str:
+        return family_of(self.config.mem_type)
+
+    def _not_ported(self, what: str):
+        raise NotImplementedError(
+            f"Macro.{what}: the netlist, layout and artifact emitters are "
+            f"not ported to repro_torch yet")
+
+    def verilog(self) -> str:
+        self._not_ported("verilog")
+
+    def lib(self) -> str:
+        self._not_ported("lib")
+
+    def lef(self) -> str:
+        self._not_ported("lef")
+
+    def netlist(self):
+        self._not_ported("netlist")
+
+    def layout(self):
+        self._not_ported("layout")
+
+    def write_all(self, outdir) -> Dict[str, object]:
+        self._not_ported("write_all")
+
+    def __repr__(self) -> str:
+        return (f"Macro({self.name}, f_op={self.ppa['f_op_hz'] / 1e6:.0f}MHz, "
+                f"area={self.ppa['area_um2']:.0f}um2, "
+                f"retention={self.ppa['retention_s']:.2e}s)")
 
 
 # ---------------------------------------------------------------------------
@@ -365,6 +569,8 @@ class DSEReport:
     tasks: Tuple[TaskReq, ...]
     policy: SelectionPolicy
     selections: Dict[object, Dict[str, LevelSelection]]
+    # "worst_case" when the selections ranked per-row worst-corner metrics
+    robust: Optional[str] = None
 
     def labels(self) -> Dict[object, Dict[str, str]]:
         """Table 2: ``{task_id: {"L1": label, "L2": label}}``."""
@@ -378,6 +584,14 @@ class DSEReport:
             tid in got and all(got[tid].get(lvl) == lab
                                for lvl, lab in levels.items())
             for tid, levels in expected.items())
+
+    def pick_macro(self, task_id, level: str, bucket: int = 0) -> Macro:
+        """The selected macro for one (task, level, bucket) cell."""
+        pick = self.selections[task_id][level].picks[bucket]
+        if pick.config_idx < 0:
+            raise LookupError(f"task {task_id} {level} bucket {bucket} is "
+                              f"infeasible under {self.policy}")
+        return self.table.macro(pick.config_idx)
 
     def shmoo(self, task_id, level: str, bucket: int = 0) -> np.ndarray:
         """Fig 11 map for one (task, level) cell: feasibility of every config
@@ -412,22 +626,27 @@ def explore(space: SpaceLike = None, tasks=None,
     ``policy``  SelectionPolicy (paper default: OS-Si > Si-Si > SRAM, no
                 refresh).
     ``cache``   directory for the grid-hash-keyed DesignTable cache; a second
-                explore() on the same grid skips the characterization.
+                explore() on the same (grid, corners) skips the
+                characterization.
+    ``corners`` operating points (``OperatingPoint``s / names) the table is
+                characterized at; None = nominal only.
+    ``robust``  ``"worst_case"`` ranks/filters on the per-row worst corner
+                (a pick must be feasible at every corner); None ranks on the
+                base (``corners[0]``) columns.
     ``device``  where the characterization runs (None = the CUDA device).
     """
     dev = resolve_device(device)
-    _nominal_only(corners, robust)
     if tasks is None:
         from repro_torch.core import gainsight
         tasks = gainsight.TASKS
     task_reqs = tuple(as_task_req(t) for t in tasks)
     policy = policy or SelectionPolicy()
-    table = DesignTable.build(space, cache=cache, device=dev)
-    metrics = table.metrics
+    table = DesignTable.build(space, cache=cache, corners=corners, device=dev)
+    metrics = table.robust_metrics(robust)
     families = table.families
     selections: Dict[object, Dict[str, LevelSelection]] = {
         t.task_id: {lvl: select_level(metrics, families, req, policy)
                     for lvl, req in t.levels.items()}
         for t in task_reqs}
     return DSEReport(table=table, tasks=task_reqs, policy=policy,
-                     selections=selections)
+                     selections=selections, robust=robust)

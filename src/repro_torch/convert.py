@@ -2,14 +2,15 @@
 
 The compiler's state is its physics catalog: the device stack
 (``DEVICE_STACK``), the bitcell stack (``stack_bitcells()``) and the
-retention time grid. The language models' state is their parameter tree
+retention time grid, and what it characterizes from them, a
+``DesignTable``. The language models' state is their parameter tree
 (``LM.init``). These functions take them as numpy arrays and return the
-port's tensors on a device, so a caller can check that both packages
-compute from the same catalog and the same weights.
+port's objects, so a caller can check that both packages compute from the
+same catalog, the same table and the same weights.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Type, TypeVar
+from typing import Any, Mapping, Optional, Sequence, Type, TypeVar
 
 import numpy as np
 import torch
@@ -43,6 +44,32 @@ def time_grid_from_numpy(ts: np.ndarray,
                          device: DeviceLike = None) -> torch.Tensor:
     """The retention time grid (N+1,) float32 as a tensor on ``device``."""
     return _tensor(ts, "ts", resolve_device(device))
+
+
+def table_from_numpy(axes: Mapping[str, np.ndarray],
+                     metrics: Mapping[str, np.ndarray],
+                     corners: Optional[Sequence] = None):
+    """A port ``api.DesignTable`` from the reference table's columns:
+    ``axes`` (the seven config axes, ``table.columns`` restricted to
+    ``AXIS_NAMES``), ``metrics`` (float32 columns, ``<metric>@<corner>``
+    included) and ``corners`` (OperatingPoints, names or (vdd, temp_k[,
+    label]) tuples, in column order; None = nominal). Both packages can
+    then compose from the same table. A DesignTable's columns are host
+    arrays in both packages, so nothing goes to a device here."""
+    from repro_torch.api import DesignTable
+    from repro_torch.core.corners import NOMINAL, as_operating_point
+    if set(axes) != set(DesignTable.AXIS_NAMES):
+        raise KeyError(f"DesignTable axes {DesignTable.AXIS_NAMES}, got "
+                       f"{sorted(axes)}")
+    for name, col in metrics.items():
+        if np.asarray(col).dtype != np.float32:
+            raise TypeError(f"metric {name}: expected float32, got "
+                            f"{np.asarray(col).dtype}")
+    ops = (NOMINAL,) if corners is None else \
+        tuple(as_operating_point(c) for c in corners)
+    return DesignTable({k: np.array(v) for k, v in axes.items()},
+                       {k: np.array(v) for k, v in metrics.items()},
+                       corners=ops)
 
 
 def _lm_tensor(array, path: str, want: torch.Tensor,

@@ -5,16 +5,15 @@ The pipeline mirrors OpenGCRAM's HSPICE runs with analytic circuit models:
 decoder logical-effort chain -> WL RC -> cell read current discharging/
 charging the RBL -> column mux -> sense amp -> output DFF, with the control
 delay-chain quantization that produces the 1:1-aspect frequency cliff.
-``characterize`` is batched tensor code over config vectors (N, 7); its
-retention column comes from the retention kernel
-(``retention.retention_time_batch``).
-
-This slice runs the nominal operating corner only; any other corner raises
-``NotImplementedError``.
+``characterize`` is batched tensor code over config vectors (N, 7) at one
+operating corner ``tp`` (a TechParams of python floats); its retention
+column comes from the retention kernel (``retention.retention_time_batch``,
+one launch at the corner's thermal voltage). ``characterize_corners`` runs
+it once per corner, as the reference runs one jitted vmap per corner.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 
@@ -53,20 +52,12 @@ def _sram_cell_current(cell, tp=None):
                               tp=tp)
 
 
-def _require_nominal(tp) -> corners.TechParams:
-    tp = corners.resolve(tp)
-    if tp != corners.NOMINAL_TECH:
-        raise NotImplementedError(
-            f"repro_torch characterizes at the nominal corner only; the "
-            f"corner path is not ported yet (got {tp})")
-    return tp
-
-
 def characterize(vecs: torch.Tensor, tp=None) -> Dict[str, torch.Tensor]:
     """Full PPA + retention characterization of config vectors ``vecs``
-    (N, 7) float32, on the device they lie on. Returns a dict of (N,)
-    tensors."""
-    tp = _require_nominal(tp)
+    (N, 7) float32 at operating corner ``tp`` (TechParams / OperatingPoint
+    / name; None = nominal), on the device they lie on. Returns a dict of
+    (N,) tensors."""
+    tp = corners.resolve(tp)
     g = macro.geometry(vecs)
     cell, rows, cols = g["cell"], g["rows"], g["cols"]
     ls, m, wz = g["ls"], g["mux"], g["wz"]
@@ -177,26 +168,35 @@ def characterize(vecs: torch.Tensor, tp=None) -> Dict[str, torch.Tensor]:
     }
 
 
-def characterize_batch(vecs, device: DeviceLike = None
+def characterize_batch(vecs, device: DeviceLike = None, tp=None
                        ) -> Dict[str, torch.Tensor]:
-    """Characterize config vectors ``vecs`` (N, 7) at the nominal corner on
-    ``device`` (None = the CUDA device; ``"cpu"`` runs the plain versions).
-    Returns a dict of (N,) float32 tensors on that device."""
+    """Characterize config vectors ``vecs`` (N, 7) at operating corner
+    ``tp`` (None = nominal) on ``device`` (None = the CUDA device; ``"cpu"``
+    runs the plain versions). Returns a dict of (N,) float32 tensors on that
+    device."""
     dev = resolve_device(device)
     return characterize(torch.as_tensor(vecs, dtype=torch.float32,
-                                        device=dev))
+                                        device=dev), tp)
 
 
 def characterize_config(cfg: macro.MacroConfig, tp=None,
                         device: DeviceLike = None) -> Dict[str, float]:
-    """One config as a one-row batch; returns python floats."""
-    _require_nominal(tp)
-    out = characterize_batch(cfg.to_vector()[None], device=device)
+    """One config as a one-row batch at corner ``tp``; returns python
+    floats."""
+    out = characterize_batch(cfg.to_vector()[None], device=device, tp=tp)
     return {k: float(v[0]) for k, v in out.items()}
 
 
-def characterize_corners(vecs, ops):
-    """The (designs x corners) grid: not ported yet (see ROADMAP.md)."""
-    raise NotImplementedError(
-        "characterize_corners is not ported yet; repro_torch characterizes "
-        "at the nominal corner only")
+def characterize_corners(vecs, ops: Sequence, device: DeviceLike = None
+                         ) -> Dict[str, torch.Tensor]:
+    """Characterize config vectors ``vecs`` (N, 7) at every operating point
+    of ``ops`` (OperatingPoints / corner names / (vdd, temp_k) tuples), one
+    ``characterize`` per corner (one retention launch each) on ``device``
+    (None = the CUDA device). Returns a dict of (N, C) tensors, corner order
+    = ``ops`` order."""
+    dev = resolve_device(device)
+    vecs = torch.as_tensor(vecs, dtype=torch.float32, device=dev)
+    per_corner = [characterize(vecs, corners.resolve(
+        corners.as_operating_point(o))) for o in ops]
+    return {k: torch.stack([out[k] for out in per_corner], dim=1)
+            for k in per_corner[0]}

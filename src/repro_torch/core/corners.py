@@ -27,10 +27,11 @@ into a derived parameter object:
     ``v_sense_sram`` differential-pair swing [V] (scales with vdd)
 
 All five derived factors are exactly 1.0 (or the legacy constant) at the
-nominal point. This slice of the port characterizes at the nominal point
-only: the batched corner path (``stack_tech``, ``characterize_corners``)
-is not ported yet, and the retention kernel takes no thermal voltage, so
-``core.retention.retention_time_batch`` raises for any other corner.
+nominal point. ``characterize.characterize_corners`` characterizes one
+corner per call of ``characterize`` (the python-float TechParams closed
+over it), and the retention kernel takes each corner's ``ut`` as an
+argument of its launch. ``stack_tech`` stacks several corners' TechParams
+into float32 tensors with a leading corner axis.
 """
 from __future__ import annotations
 
@@ -38,6 +39,8 @@ import json
 import math
 from dataclasses import dataclass
 from typing import NamedTuple, Sequence, Tuple, Union
+
+import torch
 
 from repro_torch.core import tech
 
@@ -169,3 +172,21 @@ def resolve(tp: OpLike) -> TechParams:
     raise TypeError(f"expected TechParams / OperatingPoint / corner name / "
                     f"None, got {tp!r}")
 
+
+def stack_tech(ops: Sequence[OperatingPoint], device=None) -> TechParams:
+    """The TechParams of several corners (OperatingPoints, names or
+    (vdd, temp_k) tuples) stacked into one TechParams of float32 tensors
+    with a leading corner axis, on ``device`` (default: the CPU)."""
+    tps = [TechParams.from_op(as_operating_point(op)) for op in ops]
+    return TechParams(*[torch.tensor([getattr(t, f) for t in tps],
+                                     dtype=torch.float32, device=device)
+                        for f in TechParams._fields])
+
+
+def corners_fingerprint(corners: Tuple[OperatingPoint, ...]) -> str:
+    """Stable string over an ordered corner tuple for cache keys. The
+    nominal-only tuple returns "" so single-corner cache keys are unchanged
+    from the pre-corner schema."""
+    if corners == (NOMINAL,):
+        return ""
+    return ";".join(op.fingerprint() for op in corners)

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from repro_torch.core.select import Bucket, LevelReq
+from repro_torch.core.select import Bucket, LevelReq, TaskReq
 
 KB = 8 * 1024
 
@@ -59,6 +59,34 @@ TASKS: List[Task] = [
          _lvl("L2", 8192, [(0.34, 0.50e9, 6e-3), (0.33, 1.8e9, 2e-6),
                            (0.33, 3.0e9, 1e-3)])),
 ]
+
+# Reference deep hierarchy for the N-level composition engine (register file
+# -> L1 -> L2 -> scratchpad -> off-chip interface buffer): capacities and
+# (frac, f_req_hz, lifetime_s) buckets follow the same Fig-10-consistent
+# reconstruction as TASKS — small/hot/short-lived at the top, large/cold/
+# long-lived at the bottom. Not a paper table; the golden snapshot
+# tests/golden/table2_nlevel.json freezes what the engine selects for it.
+NLEVEL_REFERENCE = (
+    ("RF", 8, ((1.0, 3.0e9, 1e-6),)),
+    ("L1", 128, ((1.0, 1.2e9, 2e-6),)),
+    ("L2", 4096, ((0.6, 0.5e9, 4e-3), (0.4, 1.8e9, 3e-6))),
+    ("SPM", 2048, ((1.0, 0.3e9, 1e-2),)),
+    ("IO", 16384, ((1.0, 0.15e9, 5e-2),)),
+)
+
+
+def nlevel_task(n_levels: int = 3) -> TaskReq:
+    """The first ``n_levels`` levels of NLEVEL_REFERENCE as a ``TaskReq``
+    (1 <= n_levels <= 5): the standard deep-hierarchy input of N-level
+    composition."""
+    if not 1 <= n_levels <= len(NLEVEL_REFERENCE):
+        raise ValueError(f"n_levels must be in [1, {len(NLEVEL_REFERENCE)}], "
+                         f"got {n_levels}")
+    picked = NLEVEL_REFERENCE[:n_levels]
+    return TaskReq(f"nlevel{n_levels}", f"nlevel-{n_levels}",
+                   {name: _lvl(name, cap_kb, buckets)
+                    for name, cap_kb, buckets in picked})
+
 
 # paper Table 2 — ground truth the DSE must reproduce
 TABLE2_EXPECTED: Dict[int, Dict[str, str]] = {

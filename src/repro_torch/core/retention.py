@@ -11,8 +11,9 @@ Two paths compute it for a batch of cells (one row per config):
   ``retention_time`` (a Python loop over the 480 steps).
 * ``retention_time_batch`` — the main path: packs each row into the 10
   fields of the retention kernel and runs ``kernels.retention
-  .retention_batch`` (the CUDA kernel on the card, its plain version on the
-  CPU), then gives start-crossed rows the value ``retention_time`` gives.
+  .retention_batch`` at the corner's thermal voltage (the CUDA kernel on
+  the card, its plain version on the CPU), then gives start-crossed rows the
+  value ``retention_time`` gives.
 """
 from __future__ import annotations
 
@@ -172,22 +173,24 @@ def pack_retention_params(cells: bitcells.BitcellParams, ls,
 
 def retention_time_batch(cells: bitcells.BitcellParams, ls,
                          tp=None) -> torch.Tensor:
-    """Retention [s] of a batch of cells through the retention kernel.
+    """Retention [s] of a batch of cells at one operating corner ``tp``
+    through the retention kernel: one launch, the corner's thermal voltage
+    passed as its ``ut``.
 
-    The kernel hard-codes the nominal thermal voltage, which the packed
-    rows cannot carry, so any other corner raises instead of returning a
-    wrong value. Rows that start below their threshold (unwritable cells:
-    HVT write device without a level shifter) come out of the kernel as
-    ``ts[-1]``; they are set to the reference's value, the interpolation at
-    the first grid point, ``exp(log(ts[0]))``."""
+    Rows that start below their threshold (unwritable cells: HVT write
+    device without a level shifter, and more of them at a low supply) come
+    out of the kernel as ``ts[-1]``; they are set to the reference's value,
+    the interpolation at the first grid point, ``exp(log(ts[0]))``. A
+    TechParams of stacked tensors (``corners.stack_tech``) holds several
+    corners and is refused: the launch takes one ``ut``."""
     tp = corners.resolve(tp)
-    if tp != corners.NOMINAL_TECH:
-        raise NotImplementedError(
-            f"retention_time_batch runs at the nominal corner only (the "
-            f"retention kernel hard-codes UT = {retention_kernel.UT} V); "
-            f"got {tp}")
+    if not isinstance(tp.ut, (int, float)):
+        raise ValueError(
+            f"retention_time_batch takes one operating corner (python-float "
+            f"TechParams); got a stacked TechParams with ut={tp.ut!r}: call "
+            f"it once per corner")
     params = pack_retention_params(cells, ls, tp)
     ts = time_grid(params.device)
-    t_ret = retention_kernel.retention_batch(params, ts)
+    t_ret = retention_kernel.retention_batch(params, ts, tp.ut)
     start_crossed = params[:, 8] < params[:, 9]
     return torch.where(start_crossed, torch.exp(torch.log(ts[0])), t_ret)

@@ -79,8 +79,8 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # the C signature of each library's launch function, `<name>_launch`; every
 # library also exports `const char* <name>_error_string(int)`
 LAUNCH_ARGTYPES = {
-    # params_t, ts, out, B, n_steps, stream
-    "retention": [_P, _P, _P, _I64, _I, _P],
+    # params_t, ts, out, B, n_steps, ut, inv_ut, stream
+    "retention": [_P, _P, _P, _I64, _I, _F, _F, _P],
     # x, dt, A, Bc, Cc, D, y, h_final, B, S, di, n, stream
     "ssm_scan": [_P] * 8 + [_I] * 4 + [_P],
     # q, k, v, o, B, H, K, S, Sk, D, scale, bf16, causal, window, sink,

@@ -15,7 +15,7 @@ import math
 
 import torch
 
-UT = 0.02585
+UT = 0.02585     # thermal voltage at 300 K [V], the default of retention_ref
 # packed config rows: [vt, n, ispec, eta, i_floor, jg_coef, c_sn, w, v0, v_min]
 N_FIELDS = 10
 
@@ -26,25 +26,29 @@ def _F(u):
     return sp * sp
 
 
-def _leak(p, v):
+def _leak(p, v, ut=UT):
     vt, n, ispec, eta, i_floor, jg, c_sn, w = p[:8]
     vt_eff = vt - eta * v
-    nut = n * UT
+    nut = n * ut
     i_ch = ispec * (_F((0.0 - vt_eff) / nut) - _F((0.0 - vt_eff - n * v) / nut))
     return (torch.clamp_min(i_ch, 0.0) + i_floor) * w + jg * v
 
 
-def retention_ref(params: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
+def retention_ref(params: torch.Tensor, ts: torch.Tensor,
+                  ut: float = UT) -> torch.Tensor:
     """params (B, 10) float32, ts (N+1,) log grid -> retention times (B,) [s].
 
     RK4 over the grid, V clipped to [0, 2] each step, first crossing below
     ``v_min`` interpolated log-linearly; ``ts[-1]`` if V never crosses, and
-    also when the row starts crossed (``v0 < v_min``)."""
+    also when the row starts crossed (``v0 < v_min``). ``ut`` is the thermal
+    voltage [V] of the operating corner, one for the whole batch (the
+    reference's oracle fixes it at ``UT``, the 300 K value)."""
     p = params.unbind(1)
     v, v_min, c_sn = p[8], p[9], p[6]
 
     def f(v):
-        return -_leak(p, torch.clamp_min(v, 0.0)) / torch.clamp_min(c_sn, 1e-18)
+        return -_leak(p, torch.clamp_min(v, 0.0), ut) \
+            / torch.clamp_min(c_sn, 1e-18)
 
     t_ret = ts[-1].expand_as(v)
     found = v < v_min

@@ -1,4 +1,4 @@
-"""Retention kernel wrapper: ``retention_batch(params, ts)``.
+"""Retention kernel wrapper: ``retention_batch(params, ts, ut=UT)``.
 
 On a CUDA tensor it launches the hand-written kernel of
 ``kernels/csrc/retention.cu`` (built on first use by ``kernels.build``) and
@@ -7,6 +7,7 @@ a CPU tensor it runs the plain version, ``kernels.ref.retention_ref``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -35,15 +36,29 @@ def _check(params: torch.Tensor, ts: torch.Tensor) -> None:
         raise ValueError("params and ts must be contiguous")
 
 
-def retention_batch(params: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
+def thermal_voltage_args(ut: float):
+    """The two float scalars a launch passes for the thermal voltage:
+    ``ut`` and its reciprocal, each rounded to float32, the reciprocal by
+    a float32 division (at ``UT`` it is the kernel's former constant
+    ``1.0f / 0.02585f``, so the nominal launch keeps its bits)."""
+    ut32 = np.float32(ut)
+    if not (np.isfinite(ut32) and ut32 > 0):
+        raise ValueError(f"thermal voltage must be finite and > 0 V, got {ut}")
+    return float(ut32), float(np.float32(1.0) / ut32)
+
+
+def retention_batch(params: torch.Tensor, ts: torch.Tensor,
+                    ut: float = UT) -> torch.Tensor:
     """params (B, 10) float32 ``[vt, n, ispec, eta, i_floor, jg, c_sn, w,
-    v0, v_min]``, ts (N+1,) float32 -> (B,) retention seconds.
+    v0, v_min]``, ts (N+1,) float32, ``ut`` the thermal voltage [V] of the
+    corner (one per launch) -> (B,) retention seconds.
 
     Same contract as ``ref.retention_ref``: first crossing below ``v_min``,
     ``ts[-1]`` if none, and ``ts[-1]`` for rows with ``v0 < v_min``."""
     _check(params, ts)
+    ut32, inv_ut32 = thermal_voltage_args(ut)
     if params.device.type == "cpu":
-        return retention_ref(params, ts)
+        return retention_ref(params, ts, ut32)
     if params.device.type != "cuda":
         raise ValueError(f"retention_batch runs on cuda or cpu, got "
                          f"{params.device}")
@@ -56,7 +71,8 @@ def retention_batch(params: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(params.device):
         stream = torch.cuda.current_stream(params.device).cuda_stream
         build.launch("retention", params_t.data_ptr(), ts.data_ptr(),
-                     out.data_ptr(), B, ts.shape[0] - 1, stream)
+                     out.data_ptr(), B, ts.shape[0] - 1, ut32, inv_ut32,
+                     stream)
     retention_batch.launches += 1
     return out
 

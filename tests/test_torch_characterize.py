@@ -116,13 +116,16 @@ def test_characterize_config_matches(cfg):
 
 
 def test_other_corners_raise():
+    """Every operating corner characterizes now (tests/test_torch_corners.py
+    holds them to the reference); what is not an operating corner raises."""
     vecs = torch.stack([MacroConfig().to_vector()])
-    with pytest.raises(NotImplementedError):
-        chz.characterize(vecs, tp="hot")
-    with pytest.raises(NotImplementedError):
-        chz.characterize_config(MacroConfig(), tp="cold", device="cpu")
-    with pytest.raises(NotImplementedError):
-        chz.characterize_corners(vecs, ["nominal", "hot"])
+    with pytest.raises(KeyError, match="unknown corner"):
+        chz.characterize(vecs, tp="warm")
+    with pytest.raises(TypeError):
+        chz.characterize_config(MacroConfig(), tp=1.2, device="cpu")
+    with pytest.raises(ValueError, match="vdd > 0"):
+        chz.characterize_corners(vecs, ["nominal", (0.0, 300.0)],
+                                 device="cpu")
 
 
 if __name__ == "__main__":

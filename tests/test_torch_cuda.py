@@ -1,20 +1,28 @@
-"""Card-only checks of the PyTorch port: each CUDA kernel (retention,
-selective scan, flash attention with its window, sink and both treatments
-of p) against its plain version on the card. They skip where no CUDA device
-is present;
+"""Card-only checks of the PyTorch port: each CUDA kernel (retention at
+every operating corner, selective scan, flash attention with its window,
+sink and both treatments of p) against its plain version on the card, and
+the corner table and ``compose`` on the card against the CPU. They skip
+where no CUDA device is present;
 on a GPU machine run them with ``python -m pytest -m cuda tests/``. This
 file imports no jax, so it also runs where jax is not installed."""
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import bitcells, retention
+from repro_torch import api
+from repro_torch.core import bitcells, corners, gainsight, retention
+from repro_torch.hetero import ComposePolicy, compose
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ref
 from repro_torch.kernels import retention as kretention
 from repro_torch.kernels import ssm_scan as kssm
 
 RTOL_KERNEL = 1e-5      # the reference's gate for its Pallas kernel
+# a table on the card vs the same table on the CPU (chip_smoke.py's gate)
+RTOL_CPU = 2e-6
+# the corners of the corner slice: the named ones and the vdd sweep's
+# cold-boost point
+CORNERS = ("hot", "cold", "low_vdd", (1.2, 233.0))
 # the reference's gates for its flash-attention and selective-scan kernels
 # (tests/test_kernels.py), held here between each kernel and its plain
 # version on the card
@@ -105,6 +113,98 @@ def test_main_path_retention_goes_through_the_kernel(cuda):
     assert kretention.retention_batch.launches == before + 1
     want = retention.retention_time_batch(cells.to("cpu"), ls.cpu())
     torch.testing.assert_close(got.cpu(), want, rtol=RTOL_KERNEL, atol=0)
+
+
+def _corner_rows(op, device):
+    """The paper grid's packed rows at ``op``, and its TechParams."""
+    tp = corners.resolve(corners.as_operating_point(op))
+    space = api.design_space()
+    cells = bitcells.take_bitcell(bitcells.stack_bitcells(), torch.tensor(
+        [bitcells.MEM_TYPE[c.mem_type] for c in space])).to(device)
+    ls = torch.tensor([float(c.level_shift) for c in space], device=device)
+    return retention.pack_retention_params(cells, ls, tp), tp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", CORNERS, ids=str)
+def test_kernel_takes_the_thermal_voltage_at_each_corner(cuda, op):
+    """The paper grid's rows at the corner and 129 perturbed rows, against
+    the plain version at the corner's ut; at hot every gain-cell row
+    retains for less time than at nominal."""
+    params, tp = _corner_rows(op, cuda)
+    perturbed = torch.from_numpy(_perturbed(129, 7)).to(cuda)
+    ts = retention.time_grid(cuda)
+    for rows in (params, perturbed):
+        before = kretention.retention_batch.launches
+        got = kretention.retention_batch(rows, ts, tp.ut)
+        want = ref.retention_ref(rows, ts, tp.ut)
+        torch.cuda.synchronize()
+        assert kretention.retention_batch.launches == before + 1
+        torch.testing.assert_close(got, want, rtol=RTOL_KERNEL, atol=0)
+        start = rows[:, 8] < rows[:, 9]
+        assert torch.equal(got[start], want[start])
+    if op == "hot":
+        nominal, _ = _corner_rows("nominal", cuda)
+        gc = torch.tensor([c.mem_type != "sram6t"
+                           for c in api.design_space()], device=cuda)
+        hot = kretention.retention_batch(params, ts, tp.ut)
+        nom = kretention.retention_batch(nominal, ts)
+        assert (hot[gc] < nom[gc]).all()
+
+
+@pytest.mark.cuda
+def test_corner_table_and_robust_explore_match_the_cpu(cuda):
+    """The paper grid at the four named corners: 4 retention launches,
+    columns within RTOL_CPU of the CPU build, robust explore labels and
+    picks equal."""
+    named = tuple(corners.CORNERS)
+    before = kretention.retention_batch.launches
+    card = api.DesignTable.build(corners=named, device=cuda)
+    assert kretention.retention_batch.launches == before + len(named)
+    cpu = api.DesignTable.build(corners=named, device="cpu")
+    for k in cpu.metric_names:
+        np.testing.assert_allclose(card[k], cpu[k], rtol=RTOL_CPU, atol=0,
+                                   err_msg=k)
+    got = api.explore(card, robust="worst_case", device=cuda)
+    want = api.explore(cpu, robust="worst_case", device="cpu")
+    assert got.labels() == want.labels()
+    assert [[(p.family, p.config_idx) for p in sel.picks]
+            for lv in got.selections.values() for sel in lv.values()] == \
+        [[(p.family, p.config_idx) for p in sel.picks]
+         for lv in want.selections.values() for sel in lv.values()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [
+    dict(), dict(objective="power", candidate_mode="all_feasible",
+                 search="branch_and_bound"),
+    dict(vdd_sweep=((1.2, 233.0),))], ids=["preference", "power_bb", "vdd"])
+def test_compose_on_the_card_matches_the_cpu(cuda, policy):
+    """The N-level reference task (and, swept, the Table-2 tasks) composed
+    on the card: labels, picks, tiles, n_space and search equal to the
+    CPU's; a vdd-swept compose launches the retention kernel once."""
+    tasks = ([gainsight.nlevel_task(3)] if "vdd_sweep" not in policy
+             else gainsight.TASKS)
+    card_table = api.DesignTable.build(device=cuda)
+    cpu_table = api.DesignTable.build(device="cpu")
+    for t in tasks:
+        before = kretention.retention_batch.launches
+        got = compose(card_table, t, compose_policy=ComposePolicy(**policy),
+                      device=cuda)
+        assert kretention.retention_batch.launches == \
+            before + ("vdd_sweep" in policy)
+        want = compose(cpu_table, t, compose_policy=ComposePolicy(**policy),
+                       device="cpu")
+        assert (got.n_space, got.search, got.n_compositions) == \
+            (want.n_space, want.search, want.n_compositions)
+        for a, b in zip(got.ranked, want.ranked):
+            assert a.labels() == b.labels()
+            assert {n: ([(p.family, p.config_idx, p.op) for p in lc.picks],
+                        lc.tiles) for n, lc in a.levels.items()} == \
+                {n: ([(p.family, p.config_idx, p.op) for p in lc.picks],
+                     lc.tiles) for n, lc in b.levels.items()}
+            for k, v in b.metrics.items():
+                np.testing.assert_allclose(a.metrics[k], v, rtol=RTOL_CPU)
 
 
 # (B, H, K, S, D): the reference's shapes (tests/test_kernels.py), a ragged

@@ -13,7 +13,10 @@ import torch
 from repro_torch import api, convert
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.core import characterize as chz
+from repro_torch.core import gainsight
 from repro_torch.core.devices import DeviceParams
+from repro_torch.hetero import compose, score_grid, score_grid_corners
+from repro_torch.hetero.system import METRIC_COLS
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import retention as kretention
 from repro_torch.kernels import ssm_scan as kssm
@@ -23,6 +26,7 @@ from repro_torch.serve.engine import Engine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + sorted((ROOT / "tools").glob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
 
@@ -34,6 +38,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.models.lm, repro_torch.serve.engine\n"
         "import repro_torch.launch.serve, repro_torch.kernels.ssm_scan\n"
         "import repro_torch.kernels.flash_attention, repro_torch.configs\n"
+        "import repro_torch.hetero, repro_torch.hetero.cache\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n")
@@ -66,6 +71,17 @@ ENTRY_POINTS = {
         api.design_space()[:2]),
     "DesignTable.build": lambda: api.DesignTable.build(),
     "explore": lambda: api.explore(),
+    "explore(corners, robust)": lambda: api.explore(
+        corners=["nominal", "hot"], robust="worst_case"),
+    "characterize_corners": lambda: chz.characterize_corners(
+        torch.zeros((1, 7)), ["hot"]),
+    "hetero.compose": lambda: compose(None, gainsight.TASKS[0]),
+    "hetero.score_grid": lambda: score_grid(
+        {k: np.ones(2, np.float32) for k in METRIC_COLS},
+        np.zeros((1, 2), np.int32), [1.0, 1.0], [1.0, 1.0]),
+    "hetero.score_grid_corners": lambda: score_grid_corners(
+        [{k: np.ones(2, np.float32) for k in METRIC_COLS}],
+        np.zeros((1, 2), np.int32), [1.0, 1.0], [1.0, 1.0]),
     "convert.params_from_numpy": lambda: convert.params_from_numpy(
         DeviceParams, {f: np.zeros(1, np.float32)
                        for f in DeviceParams._fields}),

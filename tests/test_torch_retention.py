@@ -107,25 +107,27 @@ def _paper_grid_rows():
         cells, torch.tensor([float(c.level_shift) for c in space])).numpy()
 
 
-def _kernel_order(params: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
-    """retention.cu's order of operations, in float32 on the CPU: the
-    divisions by n * UT and by max(c_sn, 1e-18) as products with per-row
-    reciprocals, (-vt_eff - n v) / (n UT) as u1 - v * (1 / UT), and each
-    step's dt, dt / 2 and dt / 6 taken once from ts. The crossing and the
-    start-crossed rows are the plain version's."""
+def _kernel_order(params: torch.Tensor, ts: torch.Tensor,
+                  ut: float = ref.UT) -> torch.Tensor:
+    """retention.cu's order of operations, in float32 on the CPU: u1 =
+    -vt_eff / (n UT) and -leak / max(c_sn, 1e-18) correctly rounded, as
+    the plain version divides (the kernel's Markstein-corrected quotients
+    are IEEE division's), (-vt_eff - n v) / (n UT) taken as
+    u1 - v * (1 / UT) with 1 / UT rounded once, and each step's dt, dt / 2
+    and dt / 6 taken once from ts. The crossing and the start-crossed rows
+    are the plain version's."""
     vt, n, ispec, eta, i_floor, jg, c_sn, w, v, v_min = params.unbind(1)
-    inv_nut = torch.reciprocal(n * ref.UT)
-    neg_inv_c = -torch.reciprocal(torch.clamp_min(c_sn, 1e-18))
-    inv_ut = torch.reciprocal(torch.tensor(ref.UT, dtype=torch.float32))
+    nut = n * ut
+    c = torch.clamp_min(c_sn, 1e-18)
+    inv_ut = torch.reciprocal(torch.tensor(ut, dtype=torch.float32))
 
     def f(v):
         v = torch.clamp_min(v, 0.0)
         vt_eff = vt - eta * v
-        u1 = (0.0 - vt_eff) * inv_nut
+        u1 = (0.0 - vt_eff) / nut
         u2 = u1 - v * inv_ut
         i_ch = ispec * (ref._F(u1) - ref._F(u2))
-        return ((torch.clamp_min(i_ch, 0.0) + i_floor) * w + jg * v) \
-            * neg_inv_c
+        return -((torch.clamp_min(i_ch, 0.0) + i_floor) * w + jg * v) / c
 
     dts = ts[1:] - ts[:-1]
     half_dts, sixth_dts = 0.5 * dts, dts / 6.0
@@ -158,10 +160,11 @@ MIRROR_ROWS = {"paper-grid-120": _paper_grid_rows,
 @pytest.mark.parametrize("rows", sorted(MIRROR_ROWS))
 def test_kernel_order_of_operations_matches_plain_version_and_jax(rows,
                                                                  ts_np):
-    """The CUDA kernel's reformulation (reciprocals hoisted out of the RK4
-    chain, dt / 6 from shared memory) holds the kernel gate against the
-    plain version and the JAX oracle before it reaches the card; rows that
-    start crossed come out as ts[-1] exactly."""
+    """The CUDA kernel's order of operations (the plain version's
+    divisions, 1 / UT rounded once, dt / 6 from shared memory) holds the
+    kernel gate against the plain version and the JAX oracle before it
+    reaches the card; rows that start crossed come out as ts[-1]
+    exactly."""
     params = MIRROR_ROWS[rows]()
     got = _kernel_order(torch.from_numpy(params),
                         torch.from_numpy(ts_np)).numpy()
@@ -177,6 +180,44 @@ def test_kernel_order_of_operations_matches_plain_version_and_jax(rows,
     assert start.any() == (rows == "perturbed-1000")
     np.testing.assert_array_equal(got[start], plain[start])
     np.testing.assert_array_equal(got[start], ts_np[-1])
+
+
+def _corner_rows(op, n, seed):
+    """The paper grid's rows and ``n`` rows perturbed from the 14 packed
+    rows, all packed at operating point ``op``; and its TechParams."""
+    tp = corners.resolve(corners.as_operating_point(op))
+    space = api.design_space()
+    cells = bitcells.take_bitcell(bitcells.stack_bitcells(), torch.tensor(
+        [bitcells.MEM_TYPE[c.mem_type] for c in space]))
+    grid = retention.pack_retention_params(
+        cells, torch.tensor([float(c.level_shift) for c in space]), tp)
+    base = torch.cat([retention.pack_retention_params(
+        bitcells.stack_bitcells(), torch.full((7,), float(ls)), tp)
+        for ls in (0, 1)]).numpy().astype(np.float64)
+    rng = np.random.default_rng(seed)
+    p = base[rng.integers(0, len(base), n)]
+    for field in (2, 4, 6, 7):
+        p[:, field] *= 10.0 ** rng.uniform(-1.0, 1.0, n)
+    p[:, 0] += rng.uniform(-0.05, 0.05, n)
+    return torch.cat([grid, torch.from_numpy(p.astype(np.float32))]), tp
+
+
+@pytest.mark.parametrize("op", ["hot", "cold", "low_vdd", (1.2, 233.0)],
+                         ids=str)
+def test_kernel_order_matches_plain_version_at_corners(op, ts_np):
+    """At each corner's thermal voltage, on the paper grid's rows and 1,000
+    perturbed rows packed at the corner: the kernel's order of operations
+    within the kernel gate of the plain version (it differs only in
+    u1 - v / UT, which no threshold lets reach the result), start-crossed
+    rows exact."""
+    params, tp = _corner_rows(op, 1000, 9)
+    ts = torch.from_numpy(ts_np)
+    got = _kernel_order(params, ts, tp.ut)
+    plain = ref.retention_ref(params, ts, tp.ut)
+    torch.testing.assert_close(got, plain, rtol=RTOL_KERNEL, atol=0)
+    start = params[:, 8] < params[:, 9]
+    assert start.any()
+    assert torch.equal(got[start], plain[start])
 
 
 def test_wrapper_on_cpu_is_the_plain_version(ts_np):
@@ -222,9 +263,15 @@ def test_retention_time_batch_matches_reference_solver(ls):
 @pytest.mark.parametrize("corner", ["hot", "cold", corners.LOW_VDD,
                                     corners.TechParams.from_op(corners.HOT)])
 def test_retention_time_batch_refuses_other_corners(corner):
-    with pytest.raises(NotImplementedError, match="nominal"):
-        retention.retention_time_batch(bitcells.stack_bitcells(),
-                                       torch.zeros(7), tp=corner)
+    """One launch takes one thermal voltage: ``corner`` alone runs, while a
+    TechParams stacked over the nominal point and ``corner`` is refused."""
+    cells, ls = bitcells.stack_bitcells(), torch.zeros(7)
+    assert torch.isfinite(retention.retention_time_batch(cells, ls,
+                                                         tp=corner)).all()
+    op = corners.HOT if isinstance(corner, corners.TechParams) else corner
+    with pytest.raises(ValueError, match="one operating corner"):
+        retention.retention_time_batch(
+            cells, ls, tp=corners.stack_tech([corners.NOMINAL, op]))
 
 
 if __name__ == "__main__":
@@ -245,6 +292,13 @@ if __name__ == "__main__":
         print(f"kernel order of operations, {name}: max rel vs plain "
               f"{((got - plain).abs() / plain).max().item():.3e}, vs JAX "
               f"oracle {np.max(np.abs(got.numpy() - want) / want):.3e}")
+    for op in ("hot", "cold", "low_vdd", (1.2, 233.0)):
+        p, tp = _corner_rows(op, 1000, 9)
+        got = _kernel_order(p, torch.from_numpy(ts), tp.ut)
+        plain = ref.retention_ref(p, torch.from_numpy(ts), tp.ut)
+        print(f"kernel order of operations at {op}, paper grid + 1,000 "
+              f"perturbed rows: max rel vs plain "
+              f"{((got - plain).abs() / plain).max().item():.3e}")
     for ls in (0, 1):
         got = retention.retention_time_batch(bitcells.stack_bitcells(),
                                              torch.full((7,), float(ls)))
