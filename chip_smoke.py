@@ -74,7 +74,29 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             ``RTOL_GOLDEN``; one retention launch a swept compose;
             branch-and-bound ``n_scored``, scoring dispatches, wall time
             first and warm, and one warm swept compose under
-            ``torch.profiler``.
+            ``torch.profiler``;
+16. simulate ``api.simulate(device="cuda")`` (``compose(refine=
+            "simulate")``) on the paper grid for the 7 Table-2 tasks with
+            the default ``SimPolicy``: 7/7, ``refined == "simulate"``,
+            compositions and re-rank order equal to a ``device="cpu"`` run,
+            ``sim_*`` metrics within ``RTOL_SIM``; the 3-level task under
+            ``ComposePolicy(objective="power")`` and
+            ``SimPolicy(objective="energy")``, order equal to the CPU's; the
+            cold-boost replay ((1.2 V, 233 K) block, adaptive refresh, 30 K
+            drift): less refresh energy at the cold block, card within
+            ``RTOL_SIM`` of the CPU; ``simulate_traces`` at J = 65,536
+            compositions (from ``--seed``, sentinels included) x 4 slots x 3
+            phases, card within ``RTOL_SIM`` of the CPU; a cached repeat
+            runs no replay and no retention launch; wall time first and
+            warm, retention launches a call, and one warm simulate under
+            ``torch.profiler``;
+17. facade ``Compiler().compile(gc_ossi 64x128)``: one retention launch, PPA
+            within ``RTOL_CPU`` of the CPU's; ``Macro.write_all``: ``.sp``
+            and ``.lef`` byte-equal to the CPU's, ``.v`` and ``.lib``
+            byte-equal given the CPU's PPA, DRC and LVS clean;
+            ``Compiler().gradient_size`` within ``RTOL_GRAD`` of the CPU's;
+            its wall time on the card and the CPU, and one warm sizing on
+            the card under ``torch.profiler``.
 
 Each phase prints its seconds. It prints one ``{"kernels": [...]}`` line,
 then, last, the ``{"ok": true, "device": {...}}`` line.
@@ -131,6 +153,15 @@ NLEVEL_POLICIES = {
                  "search": "branch_and_bound"},
 }
 RTOL_GOLDEN = 1e-5
+# phase 16: the replayed sim_* metrics on the card against the CPU (float32
+# on both; the tables' own card-vs-CPU gap is <= RTOL_CPU, and the drift's
+# exponential rounds apart on the two devices)
+RTOL_SIM = 1e-5
+SIM_J, SIM_S = 65536, 4
+# phase 17: the 200-step sizing on the card against the CPU (float32 exp
+# and log round apart on the two devices)
+RTOL_GRAD = 1e-4
+FACADE_MACRO = {"mem_type": "gc_ossi", "word_size": 64, "num_words": 128}
 PEAK_BF16_TC = 989e12   # H100 SXM bf16 dense on the tensor cores [FLOP/s]
 # kernel vs plain version: the reference's gates for its Pallas kernels
 TOL_ATTN = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -264,6 +295,30 @@ def compare_tables(label, card, cpu):
             fail(f"{label} column {name}: card vs CPU max rel "
                  f"{rel.max():.3e} > {RTOL_CPU}")
     return worst
+
+
+def max_rel(got, want) -> float:
+    """Largest |got - want| / |want| over the finite, nonzero entries; inf
+    and 0 must sit in the same places."""
+    import numpy as np
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    fin = np.isfinite(want) & (want != 0)
+    if not np.array_equal(np.isfinite(got), np.isfinite(want)) or \
+            not np.array_equal(got[~fin], want[~fin]):
+        return float("inf")
+    if not fin.any():
+        return 0.0
+    return float(np.max(np.abs(got[fin] - want[fin]) / np.abs(want[fin])))
+
+
+def sim_gap(got, want) -> float:
+    """Worst relative gap over every sim_* metric, combined and per phase."""
+    from repro_torch.sim import SIM_METRICS
+    gaps = [max_rel(got[m], want[m]) for m in SIM_METRICS]
+    gaps += [max_rel(got["phases"][p][m], want["phases"][p][m])
+             for p in want["phases"] for m in SIM_METRICS]
+    return max(gaps)
 
 
 def picks_of(selections):
@@ -458,6 +513,290 @@ def profile_report(label, fn):
               f"{e.key[:90]}")
     return {"wall_s": wall_s, "device_ms": device_us / 1e3,
             "launches": launches, "kernels": kernels}
+
+
+def simulate_phase(ptable, seed: int):
+    """Phase 16: the trace-replay re-rank on the card against the CPU (see
+    the module docstring). Returns (stats, retention launches of a warm
+    ``api.simulate``)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import api, hetero, sim
+    from repro_torch.core import corners as corners_mod
+    from repro_torch.core import gainsight
+    from repro_torch.core.select import Bucket, LevelReq, TaskReq
+    from repro_torch.hetero import expand as expand_mod
+    from repro_torch.kernels import retention as kretention
+    from repro_torch.sim.rerank import composition_idx, sim_cols
+
+    def sim_keys(rep):
+        """Composition rows in re-rank order, and the smallest relative gap
+        between adjacent simulated energies."""
+        e = np.array([c.metrics["sim_e_total_j"] for c in rep.ranked])
+        e = e[np.isfinite(e)]
+        gap = float(np.min(np.abs(np.diff(e)) / np.abs(e[:-1]))) \
+            if len(e) > 1 else float("inf")
+        return composition_idx(rep).tolist(), gap
+
+    def rep_gap(card, cpu):
+        return max(max_rel([a.metrics[f"sim_{m}"] for a in card.ranked],
+                           [b.metrics[f"sim_{m}"] for b in cpu.ranked])
+                   for m in sim.SIM_METRICS)
+
+    sim_stats = {"table2": {}, "launches_per_call": []}
+    walls, t2, worst, key_gap = [], 0, 0.0, float("inf")
+    for t in gainsight.TASKS:
+        kretention.retention_batch.launches = 0
+        n_replays = sim.sim_eval_count()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = api.simulate(task=t, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        sim_stats["launches_per_call"].append(
+            kretention.retention_batch.launches)
+        if sim.sim_eval_count() != n_replays + 1:
+            fail(f"simulate task {t.task_id}: not one replay")
+        cpu_rep = api.simulate(task=t, device="cpu")
+        rows, gap = sim_keys(rep)
+        cpu_rows, _ = sim_keys(cpu_rep)
+        key_gap = min(key_gap, gap)
+        rel = rep_gap(rep, cpu_rep)
+        worst = max(worst, rel)
+        ok = rep.labels() == gainsight.TABLE2_EXPECTED[t.task_id]
+        t2 += ok
+        if not ok or rep.refined != "simulate" or rows != cpu_rows \
+                or rel > RTOL_SIM:
+            fail(f"simulate task {t.task_id} on the card: labels "
+                 f"{rep.labels()}, refined {rep.refined}, order equal to "
+                 f"the CPU's {rows == cpu_rows} (smallest key gap "
+                 f"{gap:.3e}), sim metrics max rel {rel:.3e} (gate "
+                 f"{RTOL_SIM})")
+    if set(sim_stats["launches_per_call"]) != {1}:
+        fail(f"simulate: retention launches per call "
+             f"{sim_stats['launches_per_call']}, expected 1 (its table)")
+    kretention.retention_batch.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    api.simulate(task=gainsight.TASKS[0], device="cuda")
+    torch.cuda.synchronize()
+    sim_warm_s = time.perf_counter() - t0
+    sim_launches = kretention.retention_batch.launches
+    sim_stats["table2"] = {"matches": f"{t2}/7", "first_s": walls[0],
+                           "after_s": walls[1:], "warm_s": sim_warm_s,
+                           "sim_max_rel_vs_cpu": worst,
+                           "smallest_key_gap": key_gap}
+    print(f"simulate: api.simulate(device='cuda') Table 2 {t2}/7, refined, "
+          f"orders equal to the CPU's (smallest adjacent key gap "
+          f"{key_gap:.3e}), sim metrics max rel {worst:.3e}; "
+          f"{sim_launches} retention launch a call; {walls[0]:.4f} s "
+          f"first, {sim_warm_s:.4f} s warm (tasks 2-7: "
+          f"{min(walls[1:]):.4f}-{max(walls[1:]):.4f} s)", flush=True)
+
+    # the 3-level task, where the simulated energy replaces the analytic power
+    cpu_table = api.DesignTable.build(device="cpu")
+    power = {"compose_policy": hetero.ComposePolicy(objective="power"),
+             "sim_policy": sim.SimPolicy(objective="energy")}
+    rep = api.simulate(ptable, gainsight.nlevel_task(3), device="cuda",
+                       **power)
+    cpu_rep = api.simulate(cpu_table, gainsight.nlevel_task(3),
+                           device="cpu", **power)
+    analytic = hetero.compose(ptable, gainsight.nlevel_task(3), device="cuda",
+                              compose_policy=power["compose_policy"])
+    rows, gap = sim_keys(rep)
+    rel = rep_gap(rep, cpu_rep)
+    if rows != sim_keys(cpu_rep)[0] or rel > RTOL_SIM:
+        fail(f"3-level power/energy simulate on the card: order equal to "
+             f"the CPU's {rows == sim_keys(cpu_rep)[0]} (smallest key gap "
+             f"{gap:.3e}), sim metrics max rel {rel:.3e}")
+    redecides = rows != composition_idx(analytic).tolist()
+    sim_stats["nlevel_power"] = {"order_equal_cpu": True,
+                                 "redecides": redecides,
+                                 "smallest_key_gap": gap,
+                                 "sim_max_rel_vs_cpu": rel}
+    print(f"simulate: 3-level task, power/energy, {len(rows)} compositions: "
+          f"order equal to the CPU's (smallest adjacent key gap {gap:.3e}), "
+          f"re-decides the analytic order: {redecides}; sim metrics max rel "
+          f"{rel:.3e}", flush=True)
+
+    # the cold-boost case: the same GC macro at the base point and at the
+    # (1.2 V, 233 K) block under the adaptive controller and a heating die
+    def cold_boost(table, device):
+        pts = ((None, None),
+               (corners_mod.as_operating_point(VDD_SWEEP_POINT), None))
+        metrics, fams = expand_mod.expand_metrics(table, table.metrics, pts,
+                                                  device=device)
+        n = len(table)
+        gc = int(np.where((np.asarray(fams[:n]) != "sram6t")
+                          & (np.asarray(metrics["retention_s"][:n])
+                             < 1e-3))[0][0])
+        cols = {k: np.asarray(metrics[k]) for k in
+                ("bits", "e_read_j", "e_write_j", "f_op_hz", "p_leak_w",
+                 "retention_s")}
+        cols["word_bits"] = np.tile(np.asarray(table["word_size"],
+                                               np.float64), 2)
+        return cols, np.array([[gc], [n + gc]], np.int32)
+
+    boost_task = TaskReq("cold", "cold", {"L1": LevelReq(
+        "L1", 1 << 20, (Bucket(1.0, 1e8, 1e-3),))})
+    boost_trace = [sim.phase_trace(boost_task, "decode", 1e-3, 16)]
+    boost_policy = sim.SimPolicy(refresh=True, adaptive_refresh=True,
+                                 temp_drift_k=30.0)
+    card_cols, idx = cold_boost(ptable, "cuda")
+    cpu_cols, cpu_idx = cold_boost(cpu_table, "cpu")
+    boost = sim.simulate_traces(card_cols, idx, boost_trace,
+                                policy=boost_policy, device="cuda")
+    boost_cpu = sim.simulate_traces(cpu_cols, cpu_idx, boost_trace,
+                                    policy=boost_policy, device="cpu")
+    rel = sim_gap(boost, boost_cpu)
+    e_ref = boost["e_refresh_j"]
+    if not np.array_equal(idx, cpu_idx) or not e_ref[1] < e_ref[0] \
+            or rel > RTOL_SIM:
+        fail(f"cold boost on the card: e_refresh {e_ref} (cold block must "
+             f"be below base), card vs CPU max rel {rel:.3e}")
+    sim_stats["cold_boost"] = {"e_refresh_j": e_ref.tolist(),
+                               "max_rel_vs_cpu": rel}
+    print(f"simulate: cold boost, e_refresh {e_ref[0]:.4e} J at the base "
+          f"block, {e_ref[1]:.4e} J at (1.2 V, 233 K); card vs CPU max rel "
+          f"{rel:.3e}", flush=True)
+
+    # the replay at scale: J random compositions of the paper grid
+    rng = np.random.default_rng(seed)
+    big_idx = rng.integers(0, len(ptable), (SIM_J, SIM_S)).astype(np.int32)
+    big_idx[rng.random((SIM_J, SIM_S)) < 0.01] = -1
+    big_task = TaskReq("big", "big", {
+        "L1": LevelReq("L1", 1 << 20, (Bucket(0.6, 1.2e9, 2e-6),
+                                       Bucket(0.4, 5e8, 1e-4))),
+        "L2": LevelReq("L2", 64 << 20, (Bucket(0.5, 1e9, 1e-3),
+                                        Bucket(0.5, 2e9, 3e-6)))})
+    big_traces = sim.task_traces(big_task,
+                                 ("prefill", "decode", "train_step"))
+    cols = sim_cols(ptable)
+    big_walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        big = sim.simulate_traces(cols, big_idx, big_traces,
+                                  policy=boost_policy, device="cuda")
+        torch.cuda.synchronize()
+        big_walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    big_cpu = sim.simulate_traces(cols, big_idx, big_traces,
+                                  policy=boost_policy, device="cpu")
+    big_cpu_s = time.perf_counter() - t0
+    rel = sim_gap(big, big_cpu)
+    n_bad = int(np.any(big_idx < 0, axis=1).sum())
+    if rel > RTOL_SIM or not np.isinf(big["e_total_j"]).sum() == n_bad:
+        fail(f"simulate_traces J={SIM_J} on the card: max rel {rel:.3e} "
+             f"(gate {RTOL_SIM}), {n_bad} sentinel rows")
+    sim_stats["grid"] = {"J": SIM_J, "S": SIM_S, "phases": 3,
+                         "first_s": big_walls[0], "warm_s": big_walls[1],
+                         "cpu_s": big_cpu_s, "max_rel_vs_cpu": rel,
+                         "sentinel_rows": n_bad}
+    print(f"simulate: simulate_traces J={SIM_J} x S={SIM_S} x 3 phases "
+          f"({n_bad} sentinel rows), card vs CPU max rel {rel:.3e}; card "
+          f"{big_walls[0]:.4f} s first, {big_walls[1]:.4f} s warm, CPU "
+          f"{big_cpu_s:.4f} s", flush=True)
+
+    # a cached repeat: no replay, no characterization, no retention launch
+    with tempfile.TemporaryDirectory() as cache_dir:
+        api.simulate(task=gainsight.TASKS[1], cache=cache_dir, device="cuda")
+        kretention.retention_batch.launches = 0
+        counts = (sim.sim_eval_count(), api.characterize_call_count())
+        hit = api.simulate(task=gainsight.TASKS[1], cache=cache_dir,
+                           device="cuda")
+        if (sim.sim_eval_count(), api.characterize_call_count()) != counts \
+                or kretention.retention_batch.launches != 0 \
+                or hit.refined != "simulate":
+            fail("a cached simulate re-ran the replay, the "
+                 "characterization or the retention kernel")
+    print("simulate: a cached repeat ran no replay, no characterization and "
+          "no retention launch", flush=True)
+    for key, label, fn in (
+            ("profile", "warm simulate (task 1, table built)",
+             lambda: api.simulate(ptable, gainsight.TASKS[0],
+                                  device="cuda")),
+            ("grid_profile", f"warm simulate_traces J={SIM_J}",
+             lambda: sim.simulate_traces(cols, big_idx, big_traces,
+                                         policy=boost_policy,
+                                         device="cuda"))):
+        prof = profile_report(label, fn)
+        sim_stats[key] = {k: prof[k] for k in
+                          ("wall_s", "device_ms", "launches")}
+    return sim_stats, sim_launches
+
+
+def facade_phase():
+    """Phase 17: ``Compiler.compile``, ``Macro.write_all`` and
+    ``Compiler.gradient_size`` on the card against the CPU. Returns (stats,
+    retention launches of one ``compile``)."""
+    import tempfile
+
+    import torch
+    from repro_torch import api
+    from repro_torch.kernels import retention as kretention
+    kretention.retention_batch.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    macro = api.Compiler(device="cuda").compile(**FACADE_MACRO)
+    compile_s = time.perf_counter() - t0
+    compile_launches = kretention.retention_batch.launches
+    cpu_macro = api.Compiler(device="cpu").compile(**FACADE_MACRO)
+    ppa_rel = max(abs(macro.ppa[k] - v) / max(abs(v), 1e-300)
+                  for k, v in cpu_macro.ppa.items())
+    if compile_launches != 1 or ppa_rel > RTOL_CPU:
+        fail(f"Compiler().compile on the card: {compile_launches} retention "
+             f"launches (expected 1), PPA max rel {ppa_rel:.3e} vs the CPU")
+    with tempfile.TemporaryDirectory() as out:
+        out = Path(out)
+        rep = macro.write_all(out / "card")
+        api.Macro(config=macro.config, ppa=cpu_macro.ppa).write_all(
+            out / "card_cpu_ppa")
+        cpu_macro.write_all(out / "cpu")
+        name = macro.name
+        same = {ext: (out / "card" / f"{name}.{ext}").read_bytes()
+                == (out / "cpu" / f"{name}.{ext}").read_bytes()
+                for ext in ("sp", "lef")}
+        same.update({ext: (out / "card_cpu_ppa" / f"{name}.{ext}")
+                     .read_bytes() == (out / "cpu" / f"{name}.{ext}")
+                     .read_bytes() for ext in ("v", "lib")})
+    if not all(same.values()) or not rep["drc_clean"] or \
+            not rep["lvs_clean"]:
+        fail(f"Macro.write_all on the card: byte-equal {same}, DRC "
+             f"{rep['drc_errors'][:3]}, LVS {rep['lvs_errors'][:3]}")
+    cfg = api.MacroConfig(**FACADE_MACRO)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sized = api.Compiler(device="cuda").gradient_size(cfg)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_sized = api.Compiler(device="cpu").gradient_size(cfg)
+    grad_cpu_s = time.perf_counter() - t0
+    grad_rel = max(abs(sized[k] - v) / abs(v) for k, v in cpu_sized.items())
+    if grad_rel > RTOL_GRAD or not sized["speedup"] > 1.0:
+        fail(f"gradient_size on the card: max rel {grad_rel:.3e} vs the CPU "
+             f"(gate {RTOL_GRAD}), speedup {sized['speedup']:.3f}")
+    prof = profile_report("warm gradient_size", lambda: api.Compiler(
+        device="cuda").gradient_size(cfg))
+    facade = {"compile_launches": compile_launches, "compile_s": compile_s,
+              "ppa_max_rel_vs_cpu": ppa_rel, "byte_equal": same,
+              "drc_clean": True, "lvs_clean": True,
+              "gradient_size_s": grad_s, "gradient_size_cpu_s": grad_cpu_s,
+              "gradient_profile": {k: prof[k] for k in
+                                   ("wall_s", "device_ms", "launches")},
+              "gradient_max_rel_vs_cpu": grad_rel,
+              "speedup": sized["speedup"]}
+    print(f"facade: Compiler().compile({macro.name}) on the card: "
+          f"{compile_launches} retention launch, {compile_s:.4f} s, PPA max "
+          f"rel {ppa_rel:.3e} vs the CPU; write_all .sp .lef byte-equal to "
+          f"the CPU's, .v .lib byte-equal given its PPA, DRC and LVS clean; "
+          f"gradient_size {grad_s:.4f} s first (the CPU {grad_cpu_s:.4f} s), "
+          f"speedup {sized['speedup']:.4f}, max rel {grad_rel:.3e} vs the "
+          f"CPU", flush=True)
+    return facade, compile_launches
 
 
 def main() -> int:
@@ -1038,6 +1377,16 @@ def main() -> int:
                                 ("wall_s", "device_ms", "launches")}
     phase_done(15, "compose", t_phase)
 
+    # 16. simulate: the trace-replay re-rank ----------------------------------
+    t_phase = time.perf_counter()
+    sim_stats, sim_launches = simulate_phase(ptable, args.seed)
+    phase_done(16, "simulate", t_phase)
+
+    # 17. the façade: Compiler.compile, Macro.write_all, gradient_size ------
+    t_phase = time.perf_counter()
+    facade, compile_launches = facade_phase()
+    phase_done(17, "facade", t_phase)
+
     main_shape = shapes["main"]
     warm = serve["warm"]
     print(f"end-to-end: serve {cfg.name} {SERVE_REQUESTS} x {SERVE_PROMPT} "
@@ -1060,9 +1409,12 @@ def main() -> int:
             **{f"explore_corners_{k}": v["launches"]
                for k, v in corner_tables.items()},
             "compose_vdd_sweep": compose_stats["vdd_sweep"][
-                "launches_per_compose"]},
+                "launches_per_compose"],
+            "simulate": sim_launches,
+            "compiler_compile": compile_launches},
         "corners": corner_kernel, "corner_tables": corner_tables,
-        "compose": compose_stats}, {
+        "compose": compose_stats, "simulate": sim_stats,
+        "facade": facade}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:68",

@@ -11,6 +11,11 @@ A port of the JAX package ``repro`` that imports neither ``jax`` nor
 - the heterogeneous composer ``hetero.compose``: N-level compositions
   scored on the device, exhaustive or branch-and-bound, with budgets and
   the (vdd, refresh-margin) sweep;
+- the trace-replay re-rank ``sim`` (``compose(refine="simulate")``,
+  ``api.simulate``), replayed as tensor code on the device;
+- the rest of the compiler façade: ``api.Compiler``, the ``Macro``
+  emitters (netlist, floorplan with DRC/LVS, Verilog, Liberty, LEF) and
+  ``gradient_size_macro`` by ``torch.autograd``;
 - hymba-1.5b serving (``models``, ``serve``, ``launch.serve``): prefill with
   decode caches and batched decode, with the global-attention prefill in
   ``kernels/csrc/flash_attention.cu`` and the SSM prefill scan in

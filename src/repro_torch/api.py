@@ -1,5 +1,5 @@
-"""The compiler façade of the port: design space -> DesignTable -> explore
--> compose.
+"""The compiler façade of the port: MacroConfig -> Macro, design space ->
+DesignTable -> explore -> compose -> simulate.
 
 Units everywhere in this module: frequencies [Hz], energies [J], areas
 [µm²], powers [W], times/lifetimes [s], capacities [bits].
@@ -21,18 +21,29 @@ Units everywhere in this module: frequencies [Hz], energies [J], areas
     designs scored as batched tensor code and ranked under a
     ``ComposePolicy``.
 
-Characterization runs on ``device`` (None = the CUDA device, where the
-retention column comes from the CUDA kernel; ``"cpu"`` runs the plain
-versions), at every operating corner of ``corners=`` (one retention launch
-per corner). ``Macro`` carries a config and its PPA; its artifact emitters
-(Verilog, Liberty, LEF, netlist, layout) are not ported yet and raise
-``NotImplementedError``.
+``simulate(space, task, ...) -> CompositionReport``
+    ``compose(refine="simulate")``: the analytic top-K re-ranked by trace
+    replay (``repro_torch.sim``).
 
-    >>> from repro_torch.api import explore
+``Compiler``
+    the entry object: ``compile`` one macro (PPA), ``table``, ``explore``,
+    ``compose``, ``simulate`` and ``gradient_size`` over its bitcell menu.
+
+Characterization, scoring and replay run on ``device`` (None = the CUDA
+device, where the retention column comes from the CUDA kernel; ``"cpu"``
+runs the plain versions), at every operating corner of ``corners=`` (one
+retention launch per corner). ``Macro`` carries a config and its PPA and
+emits the compiler's files (SPICE netlist, floorplan with DRC/LVS, Verilog,
+Liberty, LEF), byte for byte the reference's for the same PPA.
+
+    >>> from repro_torch.api import Compiler, explore
+    >>> macro = Compiler().compile(mem_type="gc_sisi", word_size=32,
+    ...                            num_words=64)      # doctest: +SKIP
     >>> explore().labels()              # paper Table 2   # doctest: +SKIP
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import hashlib
 import json
@@ -45,8 +56,13 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import artifacts as artifacts_mod
+from repro_torch.core import bitcells, periphery, tech
 from repro_torch.core import characterize as chz
 from repro_torch.core import corners as corners_mod
+from repro_torch.core import layout as layout_mod
+from repro_torch.core import macro as macro_mod
+from repro_torch.core import netlist as netlist_mod
 from repro_torch.core.corners import (  # noqa: F401  (re-exported façade names)
     CORNERS, HOT, NOMINAL, OperatingPoint, TechParams,
 )
@@ -60,13 +76,15 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.hetero.compose import (  # noqa: F401  (re-exported names)
     ComposePolicy, CompositionReport, compose,
 )
+from repro_torch.sim.engine import SimPolicy  # noqa: F401  (re-exported)
 
 __all__ = [
     "Bucket", "LevelReq", "TaskReq", "SelectionPolicy", "MacroConfig",
-    "Macro", "DesignTable", "design_space", "grid_hash", "explore",
-    "DSEReport", "compose", "ComposePolicy", "CompositionReport",
+    "Macro", "Compiler", "DesignTable", "design_space", "grid_hash",
+    "explore", "DSEReport", "compose", "ComposePolicy", "CompositionReport",
+    "simulate", "SimPolicy",
     "OperatingPoint", "TechParams", "NOMINAL", "HOT", "CORNERS",
-    "characterize_call_count",
+    "gradient_size_macro", "characterize_call_count",
 ]
 
 # cache schema version: bump on npz-layout changes that the physics-source
@@ -501,14 +519,14 @@ def grid_hash(configs: Sequence[MacroConfig], corners=None) -> str:
 
 @dataclass(frozen=True)
 class Macro:
-    """One memory macro: config + PPA.
+    """One compiled memory macro: config + PPA + artifact emission.
 
     ``ppa`` is the full characterization as plain floats: ``f_*_hz`` [Hz],
     ``area_*_um2`` [µm²], ``e_*_j`` [J], ``p_*_w`` [W], ``t_*_s`` /
     ``retention_s`` [s], ``bandwidth_*_bits_s`` [bit/s]. Produced by
-    ``DesignTable.macro`` / ``best`` and ``DSEReport.pick_macro`` (PPA
-    lifted from the table). The artifact emitters are not ported yet and
-    raise ``NotImplementedError``."""
+    ``Compiler.compile`` (fresh characterization) or ``DesignTable.macro`` /
+    ``best`` and ``DSEReport.pick_macro`` (PPA lifted from the table). The
+    emitters are host code over ``config`` and ``ppa``."""
     config: MacroConfig
     ppa: Dict[str, float]
 
@@ -525,33 +543,155 @@ class Macro:
     def family(self) -> str:
         return family_of(self.config.mem_type)
 
-    def _not_ported(self, what: str):
-        raise NotImplementedError(
-            f"Macro.{what}: the netlist, layout and artifact emitters are "
-            f"not ported to repro_torch yet")
-
     def verilog(self) -> str:
-        self._not_ported("verilog")
+        return artifacts_mod.emit_verilog(self.config, res=self.ppa)
 
     def lib(self) -> str:
-        self._not_ported("lib")
+        return artifacts_mod.emit_lib(self.config, res=self.ppa)
 
     def lef(self) -> str:
-        self._not_ported("lef")
+        return artifacts_mod.emit_lef(self.config)
 
     def netlist(self):
-        self._not_ported("netlist")
+        """(Netlist, spice_text) for the macro."""
+        return netlist_mod.build_netlist(self.config)
 
     def layout(self):
-        self._not_ported("layout")
+        """Abstract floorplan (layout.Floorplan)."""
+        return layout_mod.build_floorplan(self.config)
 
     def write_all(self, outdir) -> Dict[str, object]:
-        self._not_ported("write_all")
+        """Full flow: netlist + floorplan + DRC/LVS + .sp/.v/.lib/.lef/.json
+        into ``outdir``; returns the report dict."""
+        return artifacts_mod.generate_all(self.config, outdir, res=self.ppa)
 
     def __repr__(self) -> str:
         return (f"Macro({self.name}, f_op={self.ppa['f_op_hz'] / 1e6:.0f}MHz, "
                 f"area={self.ppa['area_um2']:.0f}um2, "
                 f"retention={self.ppa['retention_s']:.2e}s)")
+
+
+@dataclass(frozen=True)
+class Compiler:
+    """Entry point of the memory compiler.
+
+    ``tech`` names the device/bitcell library (one 22nm-class stack ships
+    with the repo); ``mem_types`` is the default bitcell menu for
+    ``design_space``/``table``/``explore``/``compose``/``simulate``;
+    ``device`` is where every call of this instance characterizes, scores
+    and replays (None = the CUDA device; ``"cpu"`` runs the plain
+    versions). ``sanitize=True`` (the reference's runtime NaN/index
+    sanitizer) and ``telemetry=True`` (its span recording) are not ported
+    yet and raise ``NotImplementedError``; the defaults, off, leave outputs
+    as they are.
+    """
+    tech: str = "gf22"
+    mem_types: Tuple[str, ...] = DEFAULT_MEM_TYPES
+    sanitize: bool = False
+    telemetry: bool = False
+    device: DeviceLike = None
+
+    def __post_init__(self):
+        unknown = [m for m in self.mem_types if m not in bitcells.BITCELLS]
+        if unknown:
+            raise KeyError(f"unknown mem_types {unknown}; available: "
+                           f"{sorted(bitcells.BITCELLS)}")
+        for flag in ("sanitize", "telemetry"):
+            if getattr(self, flag):
+                raise NotImplementedError(
+                    f"Compiler({flag}=True) is not ported to repro_torch yet")
+
+    # ------------------------------------------------------------- compile
+    def compile(self, config: Optional[MacroConfig] = None,
+                **overrides) -> Macro:
+        """Characterize one macro (one retention launch on the card). Pass
+        a MacroConfig, or its fields::
+
+            Compiler().compile(mem_type="gc_ossi", word_size=64, num_words=128)
+
+        ``op=`` (an OperatingPoint or corner name) characterizes at that
+        corner instead of nominal."""
+        op = overrides.pop("op", None)
+        if config is None:
+            config = MacroConfig(**overrides)
+        elif overrides:
+            config = dataclasses.replace(config, **overrides)
+        if config.mem_type not in bitcells.BITCELLS:
+            raise KeyError(f"unknown mem_type {config.mem_type!r}")
+        return Macro(config=config, ppa=chz.characterize_config(
+            config, tp=op, device=self.device))
+
+    # ----------------------------------------------------------- exploration
+    def design_space(self, **kw) -> List[MacroConfig]:
+        kw.setdefault("mem_types", self.mem_types)
+        return design_space(**kw)
+
+    def table(self, space: SpaceLike = None,
+              cache: Union[None, str, Path] = None,
+              corners=None) -> DesignTable:
+        if space is None:
+            space = self.design_space()
+        return DesignTable.build(space, cache=cache, corners=corners,
+                                 device=self.device)
+
+    def explore(self, tasks=None, space: SpaceLike = None,
+                policy: Optional[SelectionPolicy] = None,
+                cache: Union[None, str, Path] = None,
+                corners=None, robust: Optional[str] = None) -> "DSEReport":
+        """Independent per-level DSE; see module-level ``explore``."""
+        if space is None:
+            space = self.design_space()
+        return explore(space=space, tasks=tasks, policy=policy, cache=cache,
+                       corners=corners, robust=robust, device=self.device)
+
+    def compose(self, task, space: SpaceLike = None,
+                policy: Optional[SelectionPolicy] = None,
+                compose_policy=None, cache: Union[None, str, Path] = None,
+                sharded: bool = False, refine: Optional[str] = None,
+                sim_policy=None, corners=None,
+                robust: Optional[str] = None, levels=None):
+        """Joint heterogeneous composition for one task -> CompositionReport
+        (see ``hetero.compose``); ``refine="simulate"`` re-ranks the
+        analytic top-K by trace replay (see ``Compiler.simulate``)."""
+        if space is None:
+            space = self.design_space()
+        return compose(space=space, task=task, policy=policy,
+                       compose_policy=compose_policy, cache=cache,
+                       sharded=sharded, refine=refine, sim_policy=sim_policy,
+                       corners=corners, robust=robust, levels=levels,
+                       device=self.device)
+
+    def simulate(self, task, space: SpaceLike = None,
+                 policy: Optional[SelectionPolicy] = None,
+                 compose_policy=None, sim_policy=None,
+                 cache: Union[None, str, Path] = None,
+                 sharded: bool = False, corners=None,
+                 robust: Optional[str] = None):
+        """Simulate-then-rerank DSE for one task -> CompositionReport.
+
+        Prunes the composition grid analytically (``compose``) to the
+        ``ComposePolicy.top_k`` leaders, replays the task's time-binned
+        phase traces against them — per-bank refresh/access collisions,
+        dynamic access energy, retention-expiry rewrites, occupancy
+        (``repro_torch.sim``) — and re-ranks by simulated energy/latency.
+        The returned report has ``refined == "simulate"`` and each
+        composition's ``metrics`` carries the ``sim_*`` keys
+        (``sim_e_total_j`` [J], ``sim_t_sim_s`` [s], ``sim_stall_frac``,
+        ``sim_collisions``, ...). ``cache`` also stores the simulated report
+        as ``sim_<key>.npz`` beside the hetero cache, so a repeat call
+        re-runs neither the characterization, the analytic scoring, nor the
+        trace replay."""
+        return self.compose(task, space=space, policy=policy,
+                            compose_policy=compose_policy, cache=cache,
+                            sharded=sharded, refine="simulate",
+                            sim_policy=sim_policy, corners=corners,
+                            robust=robust)
+
+    def gradient_size(self, config: MacroConfig, **kw) -> Dict[str, float]:
+        """Beyond-paper continuous device sizing (see
+        ``gradient_size_macro``), on this instance's device."""
+        kw.setdefault("device", self.device)
+        return gradient_size_macro(config, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -650,3 +790,106 @@ def explore(space: SpaceLike = None, tasks=None,
         for t in task_reqs}
     return DSEReport(table=table, tasks=task_reqs, policy=policy,
                      selections=selections, robust=robust)
+
+
+def simulate(space: SpaceLike = None, task=None,
+             policy: Optional[SelectionPolicy] = None,
+             compose_policy=None, sim_policy=None,
+             cache: Union[None, str, Path] = None,
+             sharded: bool = False, corners=None,
+             robust: Optional[str] = None,
+             device: DeviceLike = None) -> CompositionReport:
+    """Simulate-then-rerank DSE: ``compose(refine="simulate")`` on
+    ``device`` (None = the CUDA device).
+
+    Analytic top-K prune, then trace replay (``repro_torch.sim``) re-ranks
+    the leaders by simulated energy/latency — see ``Compiler.simulate`` for
+    the full contract. Module-level twin of the method, mirroring
+    ``explore``/``compose``.
+    """
+    return compose(space=space, task=task, policy=policy,
+                   compose_policy=compose_policy, cache=cache,
+                   sharded=sharded, refine="simulate", sim_policy=sim_policy,
+                   corners=corners, robust=robust, device=device)
+
+
+# ---------------------------------------------------------------------------
+# gradient sizing (beyond paper)
+# ---------------------------------------------------------------------------
+
+
+def _sizing_objective(cfg: MacroConfig, area_weight: float,
+                      dev: torch.device):
+    """``(objective, logw0)`` of the continuous sizing: ``objective(logw)``
+    maps the (2,) float32 log widths [log µm] (read, write) to ``(loss,
+    (t_cell [s], area [µm²]))``, differentiable in ``logw``; ``logw0`` is the
+    bitcell's own sizing.
+
+    The widths are ``w0 · exp(logw - logw0)``, which is ``exp(logw)``
+    with the start point exact: at ``logw0`` every resized term (``c_sn``'s
+    and ``cell_w``'s width deltas) is exactly 0, whatever a device's
+    float32 ``exp(log(w0))`` rounds to. That decides the SRAM cell, whose
+    storage cap is that delta alone."""
+    base_cell = bitcells.BITCELLS[cfg.mem_type].to(dev)
+    vec = cfg.to_vector()[None].to(dev)
+    area0, _ = macro_mod.macro_area(macro_mod.geometry(vec))
+    w0 = torch.stack([base_cell.w_read, base_cell.w_write])
+    logw0 = torch.log(w0)
+
+    def objective(logw):
+        w_read, w_write = (w0 * torch.exp(logw - logw0)).unbind(0)
+        dw = w_read - base_cell.w_read + w_write - base_cell.w_write
+        # rebuild the geometry with resized devices
+        cell = base_cell._replace(
+            w_read=w_read, w_write=w_write,
+            c_sn=base_cell.c_sn + (w_read - base_cell.w_read) * 1e-15,
+            cell_w=base_cell.cell_w * (1 + 0.6 * dw))
+        g = {**macro_mod.geometry(vec), "cell": cell}
+        area, _ = macro_mod.macro_area(g)
+        i_rd = chz._read_current(cell, g["ls"])
+        c_bl, r_bl = periphery.bitline_rc(g["rows"], cell.cell_h, cell.w_read)
+        t_bl = c_bl * tech.V_SENSE / torch.clamp_min(i_rd, 1e-9)
+        i_w = chz._write_current(cell, g["ls"])
+        t_sn = (cell.c_sn * bitcells.sn_high_level(cell, g["ls"])
+                / torch.clamp_min(i_w, 1e-9))
+        t = t_bl + t_sn + 0.7 * r_bl * c_bl
+        # log-space objective: well-scaled gradients regardless of absolute ps
+        return (torch.log(t) + area_weight * (area / area0 - 1.0))[0], \
+            (t[0], area[0])
+
+    return objective, logw0
+
+
+def gradient_size_macro(cfg: MacroConfig, steps: int = 200,
+                        lr: float = 0.03, area_weight: float = 0.2,
+                        device: DeviceLike = None) -> Dict[str, float]:
+    """Beyond-paper: continuous sizing by ``torch.autograd`` through the
+    differentiable delay model, in float32 on ``device`` (None = the CUDA
+    device). Optimizes (log) read-device and write-device widths of the
+    bitcell to minimize  t_read * (1 + w*area_overhead).
+
+    OpenGCRAM explores discrete configs only; a differentiable compiler can
+    descend the continuous sizing space directly.
+
+    Returns a dict: ``w_read_um``/``w_write_um`` [µm],
+    ``t_cell_before_s``/``t_cell_after_s`` [s],
+    ``area_before_um2``/``area_after_um2`` [µm²], and ``speedup`` (ratio).
+    """
+    dev = resolve_device(device)
+    objective, logw0 = _sizing_objective(cfg, area_weight, dev)
+    lo, hi = torch.log(torch.tensor([0.06, 0.60], device=dev)).unbind(0)
+    logw = logw0
+    for _ in range(steps):
+        lw = logw.detach().requires_grad_(True)
+        (grad,) = torch.autograd.grad(objective(lw)[0], lw)
+        logw = torch.clamp(logw - lr * grad, lo, hi)
+    with torch.no_grad():
+        t0, a0 = objective(logw0)[1]
+        t1, a1 = objective(logw)[1]
+        w = torch.exp(logw)
+    return {
+        "w_read_um": float(w[0]), "w_write_um": float(w[1]),
+        "t_cell_before_s": float(t0), "t_cell_after_s": float(t1),
+        "area_before_um2": float(a0), "area_after_um2": float(a1),
+        "speedup": float(t0 / t1),
+    }

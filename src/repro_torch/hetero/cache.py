@@ -13,9 +13,11 @@ everything that determines the outcome:
 A cache hit reconstructs the ``CompositionReport`` from the stored row
 indices + system metrics without re-running either the characterization or
 the batched composition scoring (both proved by the call counters
-``api.characterize_call_count`` / ``hetero.composition_eval_count``). The
-simulated re-rank reports of the reference (``sim_<key>.npz``) wait for
-the port of ``sim``.
+``api.characterize_call_count`` / ``hetero.composition_eval_count``).
+
+``compose(refine="simulate", cache=dir)`` also stores its simulated re-rank
+as ``sim_<key>.npz`` (the order and the ``sim_*`` metrics, combined and per
+phase): a hit re-runs no trace replay (``sim.sim_eval_count``).
 """
 from __future__ import annotations
 
@@ -156,3 +158,82 @@ def load_report(cache_dir: Union[str, Path], table, task: TaskReq,
                              search=str(meta["search"]),
                              n_space=int(meta["n_space"]),
                              robust=robust)
+
+
+# ---------------------------------------------------------------------------
+# simulated re-rank reports (repro_torch.sim)
+# ---------------------------------------------------------------------------
+
+_SIM_SCHEMA = 1
+
+
+def sim_report_key(base_key: str, sim_policy, trace_fps) -> str:
+    """16-hex cache key of one simulated re-rank: the analytic report key
+    (``report_key``) extended with every ``SimPolicy`` field and the content
+    fingerprints of the replayed traces — a different task, either policy,
+    or trace shape all miss."""
+    payload = json.dumps({
+        "schema": _SIM_SCHEMA,
+        "base": base_key,
+        "sim": dataclasses.asdict(sim_policy),
+        "traces": list(trace_fps),
+    }, sort_keys=True)
+    return hashlib.sha256(payload.encode()).hexdigest()[:16]
+
+
+def _sim_path(cache_dir: Union[str, Path], key: str) -> Path:
+    return Path(cache_dir) / f"sim_{key}.npz"
+
+
+def save_sim_report(cache_dir: Union[str, Path], key: str,
+                    order: np.ndarray, metrics, per_phase) -> Path:
+    """Persist one simulated re-rank: the best-first permutation of the
+    analytic ranked list + per-composition simulated metrics (combined and
+    per phase), aligned to the ANALYTIC order so a hit can re-apply them to
+    the reconstructed analytic report."""
+    path = _sim_path(cache_dir, key)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    payload = {"order": np.asarray(order, np.int64)}
+    for m, v in metrics.items():
+        payload[f"metric_{m}"] = np.asarray(v, np.float64)
+    for phase, ms in per_phase.items():
+        for m, v in ms.items():
+            payload[f"phase_{phase}_{m}"] = np.asarray(v, np.float64)
+    meta = {"schema": _SIM_SCHEMA, "key": key,
+            "phases": list(per_phase)}
+    np.savez(path, __meta__=json.dumps(meta), **payload)
+    return path
+
+
+def load_sim_report(cache_dir: Union[str, Path], key: str,
+                    n_ranked: int) -> Optional[dict]:
+    """Load one simulated re-rank for this exact key, or None on miss /
+    unreadable / shape-mismatched file. Returns ``{"order", "metrics",
+    "phases"}`` with numpy payloads."""
+    path = _sim_path(cache_dir, key)
+    if not path.exists():
+        return None
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(str(z["__meta__"]))
+            if meta.get("schema") != _SIM_SCHEMA:
+                raise ValueError(f"cache schema {meta.get('schema')} != "
+                                 f"{_SIM_SCHEMA}")
+            order = z["order"]
+            metrics = {k[7:]: z[k] for k in z.files
+                       if k.startswith("metric_")}
+            phases: dict = {}
+            for phase in meta.get("phases", ()):
+                phases[phase] = {k[len(f"phase_{phase}_"):]: z[k]
+                                 for k in z.files
+                                 if k.startswith(f"phase_{phase}_")}
+    except Exception as e:
+        warnings.warn(f"ignoring unreadable sim cache {path}: {e}",
+                      RuntimeWarning, stacklevel=2)
+        return None
+    if order.shape[0] != n_ranked:
+        warnings.warn(f"ignoring sim cache {path}: ranked count "
+                      f"{order.shape[0]} != report's {n_ranked}",
+                      RuntimeWarning, stacklevel=2)
+        return None
+    return {"order": order, "metrics": metrics, "phases": phases}

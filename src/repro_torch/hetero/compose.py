@@ -16,8 +16,9 @@ decomposes, and per-family representatives are chosen with the same
 power-then-area order as ``select_bucket_idx``); the other
 objectives — and the optional system area/power budgets — are where joint
 evaluation earns its keep, trading technologies across levels against a
-shared constraint. The re-rank by trace replay (``refine="simulate"``)
-and sharded scoring are not ported yet and raise ``NotImplementedError``.
+shared constraint. ``refine="simulate"`` re-ranks the analytic top-K by
+trace replay (``repro_torch.sim``) on the same device. Sharded scoring is
+not ported yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -232,7 +233,7 @@ class CompositionReport:
     # slots at depth overflow int64)
     search: str = "exhaustive"
     n_space: int = 0
-    # "simulate" once the trace-replay re-rank is ported; always None here
+    # "simulate" when the trace-replay re-rank ordered ``ranked``
     refined: Optional[str] = None
     # "worst_case" when candidates/scoring priced the per-row worst corner
     robust: Optional[str] = None
@@ -451,8 +452,12 @@ def compose(space=None, task=None, policy: Optional[SelectionPolicy] = None,
                 characterization nor the batched scoring.
     ``sharded`` split the composition grid across devices: not ported yet,
                 raises ``NotImplementedError``.
-    ``refine``  ``"simulate"`` (re-rank by trace replay): not ported yet,
-                raises ``NotImplementedError``; ``sim_policy`` goes with it.
+    ``refine``  ``"simulate"`` prunes analytically to the policy's ``top_k``
+                and re-ranks those leaders by trace-replayed energy/latency
+                (``repro_torch.sim``) on ``device``; the simulated report
+                caches beside the analytic one. ``sim_policy`` is a
+                ``sim.SimPolicy`` (phases, bins, refresh scheduling,
+                re-rank objective).
     ``corners`` operating points (``api.OperatingPoint``s / names) the
                 table is characterized at; None = nominal only.
     ``robust``  ``"worst_case"`` prices candidate feasibility and the system
@@ -469,10 +474,6 @@ def compose(space=None, task=None, policy: Optional[SelectionPolicy] = None,
     if refine not in (None, "simulate"):
         raise ValueError(f"unknown refine mode {refine!r}; "
                          f"valid: None, 'simulate'")
-    if refine == "simulate" or sim_policy is not None:
-        raise NotImplementedError(
-            "compose(refine='simulate'): the trace-replay re-rank (sim) is "
-            "not ported to repro_torch yet")
     if sharded:
         raise NotImplementedError(
             "compose(sharded=True) is not ported to repro_torch yet")
@@ -497,12 +498,20 @@ def compose(space=None, task=None, policy: Optional[SelectionPolicy] = None,
             "the sweep is searching over")
     table = DesignTable.build(space, cache=cache, corners=corners,
                               device=dev)
+
+    def _refine(report: CompositionReport) -> CompositionReport:
+        if refine != "simulate":
+            return report
+        from repro_torch.sim.rerank import simulate_report  # runtime: no cycle
+        return simulate_report(report, sim_policy=sim_policy, cache=cache,
+                               device=dev)
+
     if cache is not None:
         from repro_torch.hetero import cache as cache_mod
         hit = cache_mod.load_report(cache, table, task, policy, cp,
                                     robust=robust)
         if hit is not None:
-            return hit
+            return _refine(hit)
 
     metrics = table.robust_metrics(robust)
     fam_col = table.families
@@ -569,4 +578,4 @@ def compose(space=None, task=None, policy: Optional[SelectionPolicy] = None,
                                n_space=int(n_space))
     if cache is not None:
         cache_mod.save_report(cache, report, idx[top])
-    return report
+    return _refine(report)

@@ -1,7 +1,9 @@
 """Card-only checks of the PyTorch port: each CUDA kernel (retention at
 every operating corner, selective scan, flash attention with its window,
 sink and both treatments of p) against its plain version on the card, and
-the corner table and ``compose`` on the card against the CPU. They skip
+the corner table, ``compose``, the trace-replay re-rank (``simulate``) and
+the compiler façade (``Compiler.compile``, ``Macro.write_all``,
+``gradient_size``) on the card against the CPU. They skip
 where no CUDA device is present;
 on a GPU machine run them with ``python -m pytest -m cuda tests/``. This
 file imports no jax, so it also runs where jax is not installed."""
@@ -12,6 +14,9 @@ import torch
 from repro_torch import api
 from repro_torch.core import bitcells, corners, gainsight, retention
 from repro_torch.hetero import ComposePolicy, compose
+from repro_torch import sim
+from repro_torch.core.select import Bucket, LevelReq, TaskReq
+from repro_torch.sim.rerank import composition_idx, sim_cols
 from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ref
 from repro_torch.kernels import retention as kretention
@@ -20,6 +25,10 @@ from repro_torch.kernels import ssm_scan as kssm
 RTOL_KERNEL = 1e-5      # the reference's gate for its Pallas kernel
 # a table on the card vs the same table on the CPU (chip_smoke.py's gate)
 RTOL_CPU = 2e-6
+# the replayed sim_* metrics on the card against the CPU (chip_smoke.py's
+# gate), and the 200-step sizing on the card against the CPU
+RTOL_SIM = 1e-5
+RTOL_GRAD = 1e-4
 # the corners of the corner slice: the named ones and the vdd sweep's
 # cold-boost point
 CORNERS = ("hot", "cold", "low_vdd", (1.2, 233.0))
@@ -205,6 +214,118 @@ def test_compose_on_the_card_matches_the_cpu(cuda, policy):
                      lc.tiles) for n, lc in b.levels.items()}
             for k, v in b.metrics.items():
                 np.testing.assert_allclose(a.metrics[k], v, rtol=RTOL_CPU)
+
+
+def _sim_rel(got, want):
+    """Worst relative gap over the finite sim_* metrics (infs in the same
+    places)."""
+    worst = 0.0
+    for m in sim.SIM_METRICS:
+        a, b = np.asarray(got[m]), np.asarray(want[m])
+        np.testing.assert_array_equal(np.isfinite(a), np.isfinite(b))
+        fin = np.isfinite(b) & (b != 0)
+        np.testing.assert_array_equal(a[~fin], b[~fin])
+        if fin.any():
+            worst = max(worst, float(np.max(np.abs(a[fin] - b[fin])
+                                            / np.abs(b[fin]))))
+    return worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("objective", ["preference", "power"])
+def test_simulate_on_the_card_matches_the_cpu(cuda, objective):
+    """``compose(refine="simulate")`` on the card: the Table-2 tasks (7/7)
+    or the 3-level task under power, re-rank order equal to the CPU's on
+    the same table, sim metrics within RTOL_SIM."""
+    table = api.DesignTable.build(device=cuda)
+    tasks = gainsight.TASKS if objective == "preference" \
+        else [gainsight.nlevel_task(3)]
+    kw = dict(compose_policy=ComposePolicy(objective=objective),
+              sim_policy=sim.SimPolicy(objective="energy"), refine="simulate")
+    for t in tasks:
+        n = sim.sim_eval_count()
+        got = compose(table, t, device=cuda, **kw)
+        assert sim.sim_eval_count() == n + 1
+        want = compose(table, t, device="cpu", **kw)
+        if objective == "preference":
+            assert got.labels() == gainsight.TABLE2_EXPECTED[t.task_id]
+        np.testing.assert_array_equal(composition_idx(got),
+                                      composition_idx(want))
+        rel = _sim_rel(
+            {m: [c.metrics[f"sim_{m}"] for c in got.ranked]
+             for m in sim.SIM_METRICS},
+            {m: [c.metrics[f"sim_{m}"] for c in want.ranked]
+             for m in sim.SIM_METRICS})
+        assert rel <= RTOL_SIM
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", [
+    dict(), dict(adaptive_refresh=True, temp_drift_k=30.0),
+    dict(refresh=False)], ids=["default", "adaptive-drift", "expiry"])
+def test_simulate_traces_on_the_card_matches_the_cpu(cuda, policy):
+    """4,096 random compositions x 4 slots x 3 phases with sentinels."""
+    table = api.DesignTable.build(device="cpu")
+    rng = np.random.default_rng(5)
+    idx = rng.integers(0, len(table), (4096, 4)).astype(np.int32)
+    idx[rng.random(idx.shape) < 0.01] = -1
+    task = TaskReq("x", "x", {
+        "L1": LevelReq("L1", 1 << 20, (Bucket(0.6, 1.2e9, 2e-6),
+                                       Bucket(0.4, 5e8, 1e-4))),
+        "L2": LevelReq("L2", 64 << 20, (Bucket(0.5, 1e9, 1e-3),
+                                        Bucket(0.5, 2e9, 3e-6)))})
+    traces = sim.task_traces(task, ("prefill", "decode", "train_step"))
+    kw = dict(policy=sim.SimPolicy(**policy))
+    got = sim.simulate_traces(sim_cols(table), idx, traces, device=cuda, **kw)
+    want = sim.simulate_traces(sim_cols(table), idx, traces, device="cpu",
+                               **kw)
+    assert _sim_rel(got, want) <= RTOL_SIM
+    for phase in want["phases"]:
+        assert _sim_rel(got["phases"][phase], want["phases"][phase]) \
+            <= RTOL_SIM
+
+
+@pytest.mark.cuda
+def test_cached_simulate_runs_no_replay_and_no_kernel(cuda, tmp_path):
+    task = gainsight.TASKS[2]
+    before = kretention.retention_batch.launches
+    first = api.simulate(task=task, cache=tmp_path, device=cuda)
+    assert kretention.retention_batch.launches == before + 1
+    counts = (sim.sim_eval_count(), api.characterize_call_count(),
+              kretention.retention_batch.launches)
+    again = api.simulate(task=task, cache=tmp_path, device=cuda)
+    assert (sim.sim_eval_count(), api.characterize_call_count(),
+            kretention.retention_batch.launches) == counts
+    assert [c.metrics for c in again.ranked] == \
+        [c.metrics for c in first.ranked]
+
+
+@pytest.mark.cuda
+def test_compiler_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """One retention launch a compile, PPA within RTOL_CPU of the CPU's,
+    the emitted files byte-equal (the .v and .lib given the same PPA), DRC
+    and LVS clean, and the sizing within RTOL_GRAD."""
+    kw = dict(mem_type="gc_ossi", word_size=64, num_words=128)
+    before = kretention.retention_batch.launches
+    card = api.Compiler().compile(**kw)
+    assert kretention.retention_batch.launches == before + 1
+    cpu = api.Compiler(device="cpu").compile(**kw)
+    for k, v in cpu.ppa.items():
+        np.testing.assert_allclose(card.ppa[k], v, rtol=RTOL_CPU, err_msg=k)
+    rep = card.write_all(tmp_path / "card")
+    api.Macro(config=card.config, ppa=cpu.ppa).write_all(tmp_path / "same")
+    cpu.write_all(tmp_path / "cpu")
+    assert rep["drc_clean"] and rep["lvs_clean"]
+    for ext, src in (("sp", "card"), ("lef", "card"), ("v", "same"),
+                     ("lib", "same")):
+        name = f"{card.name}.{ext}"
+        assert (tmp_path / src / name).read_bytes() == \
+            (tmp_path / "cpu" / name).read_bytes(), ext
+    cfg = api.MacroConfig(**kw)
+    got = api.Compiler().gradient_size(cfg)
+    want = api.Compiler(device="cpu").gradient_size(cfg)
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v, rtol=RTOL_GRAD, err_msg=k)
 
 
 # (B, H, K, S, D): the reference's shapes (tests/test_kernels.py), a ragged

@@ -102,18 +102,18 @@ def test_stale_cache_is_rejected_and_rebuilt(tmp_path):
 
 
 def test_corners_and_robust_are_not_ported_yet():
-    """Corners and robust selection are ported (tests/test_torch_corners.py);
-    what of their flow is not yet raises: composition refined by trace
-    replay, sharded scoring, and the macro's artifact emitters."""
+    """Corners and robust selection are ported (tests/test_torch_corners.py;
+    a robust composition refined by replay and a corner table's emitters
+    are held in tests/test_torch_sim.py and tests/test_torch_facade.py).
+    What of their flow is not yet raises: sharded scoring and the
+    Compiler's sanitizer and telemetry switches."""
     space = api.design_space(word_sizes=(16,), num_words=(32,))
     table = api.DesignTable.build(space, corners=["nominal", "hot"],
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="simulate"):
-        api.compose(table, gainsight.TASKS[0], robust="worst_case",
-                    refine="simulate", device="cpu")
     with pytest.raises(NotImplementedError, match="sharded"):
         api.compose(table, gainsight.TASKS[0], sharded=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        table.best("area_um2").verilog()
+    for flag in ("sanitize", "telemetry"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            api.Compiler(**{flag: True})
     with pytest.raises(ValueError, match="robust mode"):
         api.explore(table, robust="typical", device="cpu")

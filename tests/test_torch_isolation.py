@@ -23,6 +23,8 @@ from repro_torch.kernels import ssm_scan as kssm
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import LM
 from repro_torch.serve.engine import Engine
+from repro_torch.sim import simulate_traces, task_traces
+from repro_torch.sim.engine import SIM_COLS
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -39,6 +41,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.launch.serve, repro_torch.kernels.ssm_scan\n"
         "import repro_torch.kernels.flash_attention, repro_torch.configs\n"
         "import repro_torch.hetero, repro_torch.hetero.cache\n"
+        "import repro_torch.sim, repro_torch.core.artifacts\n"
+        "import repro_torch.core.dse\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n")
@@ -76,6 +80,18 @@ ENTRY_POINTS = {
     "characterize_corners": lambda: chz.characterize_corners(
         torch.zeros((1, 7)), ["hot"]),
     "hetero.compose": lambda: compose(None, gainsight.TASKS[0]),
+    "hetero.compose(refine=simulate)": lambda: compose(
+        None, gainsight.TASKS[0], refine="simulate"),
+    "api.simulate": lambda: api.simulate(task=gainsight.TASKS[0]),
+    "sim.simulate_traces": lambda: simulate_traces(
+        {k: np.ones(1) for k in SIM_COLS}, np.zeros((1, 2), np.int32),
+        task_traces(gainsight.TASKS[0])),
+    "Compiler.compile": lambda: api.Compiler().compile(),
+    "Compiler.table": lambda: api.Compiler().table(),
+    "Compiler.gradient_size": lambda: api.Compiler().gradient_size(
+        api.MacroConfig()),
+    "gradient_size_macro": lambda: api.gradient_size_macro(
+        api.MacroConfig(), steps=1),
     "hetero.score_grid": lambda: score_grid(
         {k: np.ones(2, np.float32) for k in METRIC_COLS},
         np.zeros((1, 2), np.int32), [1.0, 1.0], [1.0, 1.0]),
