@@ -96,7 +96,26 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             byte-equal given the CPU's PPA, DRC and LVS clean;
             ``Compiler().gradient_size`` within ``RTOL_GRAD`` of the CPU's;
             its wall time on the card and the CPU, and one warm sizing on
-            the card under ``torch.profiler``.
+            the card under ``torch.profiler``;
+18. obs    telemetry: ``Compiler(device="cuda", telemetry=True)``'s
+            ``explore``, ``compose`` swept to (1.2 V, 233 K), ``compose``
+            under ``power_bb`` on ``nlevel_task(3)`` and ``simulate``, and a
+            full-width hymba ``generate`` (8 steps) under
+            ``obs.enabled_scope(True)``: the Chrome trace written and its
+            report printed, every emitted name covered by the catalog,
+            ``kernels.dispatch.retention.cuda`` equal to each path's
+            retention launches, the serve kernels' dispatches equal to their
+            launches, outputs bit-equal with telemetry off, warm wall time
+            off and on, and a warm ``explore`` profiled off and on with the
+            same launch count; the sanitizer: ``Compiler(sanitize=True)``'s
+            ``explore``, swept ``compose`` and ``simulate`` clean and
+            bit-equal, their warm cost, a made NaN and an out-of-range
+            gather raising on ``cuda:0`` (the gather before it launches:
+            the card goes on after it); the grid: ``score_grid`` and
+            ``score_grid_corners`` at J = 65,536 x 4 slots (x the 4 named
+            corners) over ``[cuda:0] x 2`` and ``x 4`` bit-equal to the
+            plain call, and ``compose(sharded=True)`` on the one card equal
+            to ``compose()``.
 
 Each phase prints its seconds. It prints one ``{"kernels": [...]}`` line,
 then, last, the ``{"ok": true, "device": {...}}`` line.
@@ -799,6 +818,270 @@ def facade_phase():
     return facade, compile_launches
 
 
+def warm_pair(fn, rounds: int = 2):
+    """Warm wall seconds of ``fn(False)`` and ``fn(True)`` (the switch off
+    and on), taken in turns (off, on, on, off, ...) with a synchronize
+    around each call; returns (off seconds, on seconds, last off output,
+    last on output), each time the least of its ``rounds`` calls."""
+    import torch
+    times, outs = {False: [], True: []}, {}
+    for i in range(rounds):
+        for on in ((False, True) if i % 2 == 0 else (True, False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[on] = fn(on)
+            torch.cuda.synchronize()
+            times[on].append(time.perf_counter() - t0)
+    return min(times[False]), min(times[True]), outs[False], outs[True]
+
+
+def same_report(a, b) -> bool:
+    """Two composition reports with the same compositions, in the same
+    order, and bit-equal metrics (the re-rank's ``sim_*`` keys included)."""
+    from repro_torch.sim.rerank import composition_idx
+    return (a.labels() == b.labels()
+            and composition_idx(a).tolist() == composition_idx(b).tolist()
+            and [c.metrics for c in a.ranked] == [c.metrics for c in b.ranked])
+
+
+def same_explore(a, b) -> bool:
+    import numpy as np
+    return (a.labels() == b.labels()
+            and picks_of(a.selections) == picks_of(b.selections)
+            and a.table.metric_names == b.table.metric_names
+            and all(np.array_equal(a.table[k], b.table[k])
+                    for k in a.table.metric_names))
+
+
+def observability_phase(ptable, cfg, params, prompt, launches_by_path,
+                        seed: int):
+    """Phase 18: telemetry, the sanitizer and the device grid on the card
+    (see the module docstring). Returns the phase's stats."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import api, hetero, obs
+    from repro_torch.analysis import sanitize
+    from repro_torch.core import corners as corners_mod
+    from repro_torch.core import gainsight
+    from repro_torch.hetero import system
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import retention as kretention
+    from repro_torch.kernels import ssm_scan as kssm
+    from repro_torch.obs import catalog, report
+    from repro_torch.serve.engine import Engine
+
+    swept = hetero.ComposePolicy(vdd_sweep=(VDD_SWEEP_POINT,))
+    power_bb = hetero.ComposePolicy(**NLEVEL_POLICIES["power_bb"])
+    task = gainsight.TASKS[0]
+    # path -> (call with a Compiler, the launches_by_path key of its
+    # retention launches, how its outputs compare)
+    calls = {
+        "explore": (lambda c: c.explore(), "explore", same_explore),
+        "compose_vdd_sweep": (lambda c: c.compose(
+            task, space=ptable, compose_policy=swept), "compose_vdd_sweep",
+            same_report),
+        "compose_power_bb": (lambda c: c.compose(
+            gainsight.nlevel_task(3), space=ptable, compose_policy=power_bb),
+            None, same_report),
+        "simulate": (lambda c: c.simulate(task), "simulate", same_report),
+    }
+    stats = {"telemetry": {}, "sanitizer": {}, "grid": {}}
+
+    # telemetry: every call once traced, counting its retention launches
+    obs.disable()
+    obs.clear()
+    dispatch = "kernels.dispatch.retention.cuda"
+    traced_outs, spans_per_call = {}, {}
+    for path, (call, key, _) in calls.items():
+        kretention.retention_batch.launches = 0
+        n0, e0 = obs.value(dispatch), len(obs.events())
+        traced_outs[path] = call(api.Compiler(device="cuda", telemetry=True))
+        spans_per_call[path] = len(obs.events()) - e0
+        got = (obs.value(dispatch) - n0, kretention.retention_batch.launches)
+        want = launches_by_path[key] if key else 0
+        if got != (want, want) or obs.enabled():
+            fail(f"telemetry {path}: {dispatch} moved {got[0]}, the "
+                 f"wrapper counted {got[1]} retention launches, the "
+                 f"profiled phases {want}; tracing left on {obs.enabled()}")
+    engine = Engine(cfg, params, max_seq=SERVE_MAX_SEQ, device="cuda")
+    steps = 8
+    n_kernels = {op: obs.value(f"kernels.dispatch.{op}.cuda")
+                 for op in ("flash_attention", "ssm_scan")}
+    kflash.flash_attention.launches = kssm.ssm_scan.launches = 0
+    with obs.enabled_scope(True):
+        traced_tokens = engine.generate({"tokens": prompt}, steps=steps)
+    got = {op: (obs.value(f"kernels.dispatch.{op}.cuda") - n_kernels[op])
+           for op in n_kernels}
+    if got != {"flash_attention": kflash.flash_attention.launches,
+               "ssm_scan": kssm.ssm_scan.launches} \
+            or set(got.values()) != {cfg.num_layers}:
+        fail(f"traced generate: kernel dispatches {got}, wrapper launches "
+             f"{kflash.flash_attention.launches} / {kssm.ssm_scan.launches},"
+             f" expected {cfg.num_layers} each")
+    events, snap = obs.events(), obs.snapshot()
+    names = [e["name"] for e in events]
+    want_serve = {"serve.prefill": 1, "serve.sample": steps,
+                  "serve.decode_step": steps}
+    if {n: names.count(n) for n in want_serve} != want_serve:
+        fail(f"traced generate: serve spans "
+             f"{ {n: names.count(n) for n in want_serve} }")
+    uncovered = sorted({n for n in names if not catalog.covers(n)}
+                       | {n for sec in ("counters", "gauges", "histograms")
+                          for n in snap[sec] if not catalog.covers(n)})
+    if uncovered:
+        fail(f"names the catalog does not cover: {uncovered}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = obs.write(Path(tmp) / "trace.json")
+        doc = json.loads(Path(path).read_text())
+        n_x = sum(e["ph"] == "X" for e in doc["traceEvents"])
+        print(f"telemetry: Chrome trace {n_x} spans, "
+              f"{len(doc['traceEvents']) - n_x} counters, "
+              f"{Path(path).stat().st_size} bytes; the report:")
+        print(report.render_file(path), flush=True)
+    obs.clear()
+
+    # the same calls with telemetry off and on: bit-equal, warm wall time
+    for path, (call, _, same) in calls.items():
+        off_s, on_s, off, on = warm_pair(lambda t: call(api.Compiler(
+            device="cuda", telemetry=t)))
+        if not (same(off, on) and same(off, traced_outs[path])):
+            fail(f"telemetry {path}: outputs differ with telemetry on")
+        stats["telemetry"][path] = {"off_s": off_s, "on_s": on_s}
+        print(f"telemetry: {path} warm {off_s:.4f} s off, {on_s:.4f} s on, "
+              f"outputs bit-equal", flush=True)
+    obs.clear()
+
+    def gen(on):
+        with obs.enabled_scope(on):
+            return engine.generate({"tokens": prompt}, steps=steps)
+    off_s, on_s, off, on = warm_pair(gen)
+    if not (np.array_equal(off, on) and np.array_equal(off, traced_tokens)):
+        fail("telemetry: generate tokens differ with telemetry on")
+    stats["telemetry"]["generate"] = {"off_s": off_s, "on_s": on_s,
+                                      "steps": steps}
+    print(f"telemetry: generate ({SERVE_REQUESTS} x {SERVE_PROMPT} tokens, "
+          f"{steps} steps) warm {off_s:.4f} s off, {on_s:.4f} s on, tokens "
+          f"equal; the flash-attention and scan kernels {cfg.num_layers} "
+          f"launches each", flush=True)
+    obs.clear()
+    prof = {on: profile_report(f"warm explore, telemetry {on}",
+                               lambda on=on: api.Compiler(
+                                   device="cuda", telemetry=on).explore())
+            for on in (False, True)}
+    obs.clear()
+    if prof[False]["launches"] != prof[True]["launches"]:
+        fail(f"telemetry adds launches: {prof[False]['launches']} off, "
+             f"{prof[True]['launches']} on")
+    stats["telemetry"]["profiled_launches"] = prof[False]["launches"]
+    # the off path's host cost: what a disabled span and an unset sanitizer
+    # switch cost per use, times the spans a call records when traced
+    n = 100_000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with obs.span("t.off", probe=None, J=1):
+            pass
+    span_ns = (time.perf_counter() - t0) / n * 1e9
+    t0 = time.perf_counter()
+    for _ in range(n):
+        sanitize.maybe_wrap(len)
+    wrap_ns = (time.perf_counter() - t0) / n * 1e9
+    stats["telemetry"]["off_path"] = {"span_ns": span_ns, "wrap_ns": wrap_ns,
+                                      "spans_per_call": spans_per_call}
+    print(f"telemetry: off path on this host: a disabled span {span_ns:.0f} "
+          f"ns, an unset sanitizer switch {wrap_ns:.0f} ns; spans a call "
+          f"{spans_per_call} (at most "
+          f"{max(spans_per_call.values()) * (span_ns + wrap_ns) / 1e3:.1f} "
+          f"us a call)", flush=True)
+
+    # the sanitizer: the wired calls clean and bit-equal, its warm cost
+    for path in ("explore", "compose_vdd_sweep", "simulate"):
+        call, _, same = calls[path]
+        off_s, on_s, off, on = warm_pair(lambda s: call(api.Compiler(
+            device="cuda", sanitize=s)))
+        if not (same(off, on) and same(off, traced_outs[path])):
+            fail(f"sanitizer {path}: outputs differ when sanitized")
+        stats["sanitizer"][path] = {"off_s": off_s, "on_s": on_s}
+        print(f"sanitizer: {path} clean, outputs bit-equal; warm {off_s:.4f}"
+              f" s off, {on_s:.4f} s on ({on_s / off_s:.1f}x)", flush=True)
+    dev = torch.device("cuda", 0)
+    try:
+        sanitize.wrap(torch.log)(-torch.ones(4, device=dev))
+        fail("sanitizer: torch.log of a negative tensor did not raise")
+    except FloatingPointError as e:
+        if "aten.log" not in str(e):
+            fail(f"sanitizer: the NaN error does not name the op: {e}")
+        print(f"sanitizer: cuda:0 {type(e).__name__}: {e}")
+    try:
+        sanitize.wrap(torch.gather)(torch.arange(8.0, device=dev), 0,
+                                    torch.tensor([3, 8], device=dev))
+        fail("sanitizer: an out-of-range gather did not raise")
+    except IndexError as e:
+        print(f"sanitizer: cuda:0 {type(e).__name__}: {e}")
+    # the context survived: the card goes on launching and syncing
+    explored = api.explore(ptable, device="cuda")
+    torch.cuda.synchronize()
+    if not same_explore(explored, traced_outs["explore"]):
+        fail("sanitizer: explore after the index error differs")
+    print("sanitizer: after the out-of-range gather the card goes on: "
+          "explore on the table equal to the traced one", flush=True)
+
+    # the grid: J random compositions x S slots x the 4 named corners
+    named = tuple(corners_mod.CORNERS)
+    ctable = api.DesignTable.build(corners=named, device="cuda")
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, len(ptable), (SIM_J, SIM_S)).astype(np.int32)
+    idx[rng.random((SIM_J, SIM_S)) < 0.01] = -1
+    cap_bits = [2.0e5, 1.0e6, 3.2e7, 6.4e7]
+    f_req = [1.2e9, 5.0e8, 1.0e9, 2.0e9]
+    per_corner = [ctable.corner_metrics(c) for c in ctable.corner_labels]
+    for label, score, first in (
+            ("score_grid", system.score_grid, ptable.metrics),
+            ("score_grid_corners", system.score_grid_corners, per_corner)):
+        def run(devices, k=1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = score(first, idx, cap_bits, f_req, sharded=k > 1,
+                        devices=devices, device="cuda")
+            return out, time.perf_counter() - t0
+        score(first, idx, cap_bits, f_req, device="cuda")       # warm
+        plain, plain_s = run(None)
+        row = {"plain_s": plain_s}
+        for k in (2, 4):
+            n0 = obs.value("parallel.shard_calls")
+            run([dev] * k, k)                                    # warm
+            got, s = run([dev] * k, k)
+            bad = [m for m in system.SYSTEM_METRICS
+                   if not np.array_equal(got[m], plain[m])]
+            if bad or obs.value("parallel.shard_calls") != n0 + 2:
+                fail(f"{label} sharded over [cuda:0] x {k}: metrics {bad} "
+                     f"differ from the plain call, shard calls "
+                     f"{obs.value('parallel.shard_calls') - n0}")
+            row[f"k{k}_s"] = s
+        stats["grid"][label] = row
+        print(f"grid: {label} J={SIM_J} x S={SIM_S}"
+              + (f" x {len(named)} corners" if first is per_corner else "")
+              + f": sharded over [cuda:0] x 2 and x 4 bit-equal to the "
+              f"plain call; warm {row['plain_s']:.4f} s plain, "
+              f"{row['k2_s']:.4f} s x 2, {row['k4_s']:.4f} s x 4",
+              flush=True)
+    for label, kw in (("TASKS[0]", dict(task=task)),
+                      ("nlevel3 power_bb", dict(
+                          task=gainsight.nlevel_task(3),
+                          compose_policy=power_bb))):
+        n0 = obs.value("parallel.shard_calls")
+        plain = hetero.compose(ptable, device="cuda", **kw)
+        sharded = hetero.compose(ptable, sharded=True, device="cuda", **kw)
+        if not same_report(plain, sharded) or \
+                obs.value("parallel.shard_calls") != n0:
+            fail(f"compose(sharded=True) on one card, {label}: not the "
+                 f"plain call")
+    print("grid: compose(sharded=True) on the one card is the plain call, "
+          "reports equal", flush=True)
+    return stats
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1387,6 +1670,20 @@ def main() -> int:
     facade, compile_launches = facade_phase()
     phase_done(17, "facade", t_phase)
 
+    # 18. telemetry, the sanitizer and the device grid ----------------------
+    t_phase = time.perf_counter()
+    launches_by_path = {
+        "explore": launches,
+        **{f"explore_corners_{k}": v["launches"]
+           for k, v in corner_tables.items()},
+        "compose_vdd_sweep": compose_stats["vdd_sweep"][
+            "launches_per_compose"],
+        "simulate": sim_launches,
+        "compiler_compile": compile_launches}
+    observability = observability_phase(ptable, cfg, params, prompt,
+                                         launches_by_path, args.seed)
+    phase_done(18, "telemetry, sanitizer, grid", t_phase)
+
     main_shape = shapes["main"]
     warm = serve["warm"]
     print(f"end-to-end: serve {cfg.name} {SERVE_REQUESTS} x {SERVE_PROMPT} "
@@ -1404,17 +1701,10 @@ def main() -> int:
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
         "bound_terms_ms": main_shape["bound_terms_ms"], "shapes": shapes,
-        "launches_by_path": {
-            "explore": launches,
-            **{f"explore_corners_{k}": v["launches"]
-               for k, v in corner_tables.items()},
-            "compose_vdd_sweep": compose_stats["vdd_sweep"][
-                "launches_per_compose"],
-            "simulate": sim_launches,
-            "compiler_compile": compile_launches},
+        "launches_by_path": launches_by_path,
         "corners": corner_kernel, "corner_tables": corner_tables,
         "compose": compose_stats, "simulate": sim_stats,
-        "facade": facade}, {
+        "facade": facade, "observability": observability}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:68",

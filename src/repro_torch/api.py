@@ -32,8 +32,12 @@ Units everywhere in this module: frequencies [Hz], energies [J], areas
 Characterization, scoring and replay run on ``device`` (None = the CUDA
 device, where the retention column comes from the CUDA kernel; ``"cpu"``
 runs the plain versions), at every operating corner of ``corners=`` (one
-retention launch per corner). ``Macro`` carries a config and its PPA and
-emits the compiler's files (SPICE netlist, floorplan with DRC/LVS, Verilog,
+retention launch per corner). Each stage records a ``repro_torch.obs`` span
+when tracing is on (``REPRO_TRACE=path`` / ``Compiler(telemetry=True)``)
+and runs under the NaN/index sanitizer when it is on
+(``REPRO_SANITIZE=1`` / ``Compiler(sanitize=True)``; see
+``repro_torch.analysis.sanitize``). ``Macro`` carries a config and its PPA
+and emits the compiler's files (SPICE netlist, floorplan with DRC/LVS, Verilog,
 Liberty, LEF), byte for byte the reference's for the same PPA.
 
     >>> from repro_torch.api import Compiler, explore
@@ -43,6 +47,7 @@ Liberty, LEF), byte for byte the reference's for the same PPA.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -56,6 +61,8 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import obs
+from repro_torch.analysis import sanitize
 from repro_torch.core import artifacts as artifacts_mod
 from repro_torch.core import bitcells, periphery, tech
 from repro_torch.core import characterize as chz
@@ -117,14 +124,18 @@ def _hash_seed() -> "hashlib._Hash":
 
 
 # how many characterization sweeps ran (a DesignTable cache hit leaves it
-# unchanged, which is how the tests prove a hit)
-_CHARACTERIZE_CALLS = 0
+# unchanged, which is how the tests prove a hit), and the table cache's
+# hits and misses (repro_torch.obs registry)
+_C_CHARACTERIZE = obs.counter("api.characterize_calls")
+_C_TABLE_HIT = obs.counter("api.table_cache_hits")
+_C_TABLE_MISS = obs.counter("api.table_cache_misses")
+_C_BUILDS = obs.counter("kernels.builds")   # probe= of api.characterize
 
 
 def characterize_call_count() -> int:
     """Number of characterization sweeps (``DesignTable.from_configs``)
     this process has run."""
-    return _CHARACTERIZE_CALLS
+    return _C_CHARACTERIZE.value
 
 
 DEFAULT_MEM_TYPES = ("sram6t", "gc_sisi", "gc_ossi")
@@ -204,22 +215,26 @@ class DesignTable:
         """Characterize a config list into a table on ``device`` (None = the
         CUDA device), at every operating point of ``corners`` (None =
         nominal only; one retention launch per corner)."""
-        global _CHARACTERIZE_CALLS
         dev = resolve_device(device)
         ops = corners_mod.as_corners(corners)
         vecs = torch.stack([c.to_vector() for c in configs]).to(dev)
-        if ops == (NOMINAL,):
-            out = chz.characterize_batch(vecs, device=dev)
-            metrics = {k: v.cpu().numpy() for k, v in out.items()}
-        else:
-            out = chz.characterize_corners(vecs, ops, device=dev)
-            metrics = {}
-            for k, v in out.items():
-                grid = v.cpu().numpy()                      # (N, C)
-                metrics[k] = grid[:, 0]
-                for c, op in enumerate(ops):
-                    metrics[f"{k}@{op.corner}"] = grid[:, c]
-        _CHARACTERIZE_CALLS += 1
+        with obs.span("api.characterize", probe=_C_BUILDS,
+                      n_configs=len(configs), n_corners=len(ops)):
+            if ops == (NOMINAL,):
+                out = sanitize.maybe_wrap(chz.characterize_batch)(
+                    vecs, device=dev)
+                metrics = {k: v.cpu().numpy() for k, v in out.items()}
+            else:
+                # characterize_corners sanitizes each per-corner dispatch
+                # itself (one characterize per corner)
+                out = chz.characterize_corners(vecs, ops, device=dev)
+                metrics = {}
+                for k, v in out.items():
+                    grid = v.cpu().numpy()                  # (N, C)
+                    metrics[k] = grid[:, 0]
+                    for c, op in enumerate(ops):
+                        metrics[f"{k}@{op.corner}"] = grid[:, c]
+        _C_CHARACTERIZE.inc()
         axes = {
             "mem_type": np.array([c.mem_type for c in configs]),
             "word_size": np.array([c.word_size for c in configs], np.int64),
@@ -256,17 +271,23 @@ class DesignTable:
             return cls.from_configs(configs, corners=corners, device=dev)
         cache_path = Path(cache) / \
             f"table_{grid_hash(configs, corners=corners)}.npz"
-        if cache_path.exists():
-            try:
-                return cls.load(cache_path)
-            except (OSError, ValueError, KeyError,
-                    zipfile.BadZipFile) as e:       # stale or corrupt: rebuild
-                warnings.warn(f"ignoring unreadable DesignTable cache "
-                              f"{cache_path}: {e}", RuntimeWarning,
-                              stacklevel=2)
-        table = cls.from_configs(configs, corners=corners, device=dev)
-        table.save(cache_path)
-        return table
+        with obs.span("api.table_build", n_configs=len(configs)) as sp:
+            if cache_path.exists():
+                try:
+                    table = cls.load(cache_path)
+                    _C_TABLE_HIT.inc()
+                    sp.set(cache="hit")
+                    return table
+                except (OSError, ValueError, KeyError,
+                        zipfile.BadZipFile) as e:   # stale/corrupt: rebuild
+                    warnings.warn(f"ignoring unreadable DesignTable cache "
+                                  f"{cache_path}: {e}", RuntimeWarning,
+                                  stacklevel=2)
+            _C_TABLE_MISS.inc()
+            sp.set(cache="miss")
+            table = cls.from_configs(configs, corners=corners, device=dev)
+            table.save(cache_path)
+            return table
 
     def save(self, path: Union[str, Path]) -> Path:
         """Persist axes + metrics to ``path`` (npz, stamped with the grid
@@ -580,10 +601,14 @@ class Compiler:
     ``design_space``/``table``/``explore``/``compose``/``simulate``;
     ``device`` is where every call of this instance characterizes, scores
     and replays (None = the CUDA device; ``"cpu"`` runs the plain
-    versions). ``sanitize=True`` (the reference's runtime NaN/index
-    sanitizer) and ``telemetry=True`` (its span recording) are not ported
-    yet and raise ``NotImplementedError``; the defaults, off, leave outputs
-    as they are.
+    versions). ``sanitize=True`` runs every characterization, scoring and
+    replay this instance launches under the runtime NaN/index sanitizer
+    (``repro_torch.analysis.sanitize``): bit-identical outputs, and an
+    exception at the first NaN made or out-of-bounds index instead of
+    propagating it. ``telemetry=True`` records ``repro_torch.obs`` spans
+    for every call this instance launches (the same events ``REPRO_TRACE``
+    enables process-wide), scoped to the call; off (the default) the obs
+    layer is a no-op and outputs are bit-identical.
     """
     tech: str = "gf22"
     mem_types: Tuple[str, ...] = DEFAULT_MEM_TYPES
@@ -596,10 +621,22 @@ class Compiler:
         if unknown:
             raise KeyError(f"unknown mem_types {unknown}; available: "
                            f"{sorted(bitcells.BITCELLS)}")
-        for flag in ("sanitize", "telemetry"):
-            if getattr(self, flag):
-                raise NotImplementedError(
-                    f"Compiler({flag}=True) is not ported to repro_torch yet")
+
+    def _sanitize_scope(self):
+        """Force-enable the sanitizer for calls made by this instance;
+        a plain Compiler() leaves the ambient REPRO_SANITIZE setting in
+        charge instead of force-disabling it."""
+        if not self.sanitize:
+            return contextlib.nullcontext()
+        return sanitize.enabled_scope(True)
+
+    def _obs_scope(self):
+        """Force-enable span recording for calls made by this instance;
+        a plain Compiler() leaves the ambient REPRO_TRACE setting in
+        charge instead of force-disabling it."""
+        if not self.telemetry:
+            return contextlib.nullcontext()
+        return obs.enabled_scope(True)
 
     # ------------------------------------------------------------- compile
     def compile(self, config: Optional[MacroConfig] = None,
@@ -618,8 +655,12 @@ class Compiler:
             config = dataclasses.replace(config, **overrides)
         if config.mem_type not in bitcells.BITCELLS:
             raise KeyError(f"unknown mem_type {config.mem_type!r}")
-        return Macro(config=config, ppa=chz.characterize_config(
-            config, tp=op, device=self.device))
+        with self._sanitize_scope(), self._obs_scope(), \
+                obs.span("api.compile", mem_type=config.mem_type,
+                         word_size=config.word_size,
+                         num_words=config.num_words):
+            return Macro(config=config, ppa=chz.characterize_config(
+                config, tp=op, device=self.device))
 
     # ----------------------------------------------------------- exploration
     def design_space(self, **kw) -> List[MacroConfig]:
@@ -631,8 +672,9 @@ class Compiler:
               corners=None) -> DesignTable:
         if space is None:
             space = self.design_space()
-        return DesignTable.build(space, cache=cache, corners=corners,
-                                 device=self.device)
+        with self._sanitize_scope(), self._obs_scope():
+            return DesignTable.build(space, cache=cache, corners=corners,
+                                     device=self.device)
 
     def explore(self, tasks=None, space: SpaceLike = None,
                 policy: Optional[SelectionPolicy] = None,
@@ -641,8 +683,10 @@ class Compiler:
         """Independent per-level DSE; see module-level ``explore``."""
         if space is None:
             space = self.design_space()
-        return explore(space=space, tasks=tasks, policy=policy, cache=cache,
-                       corners=corners, robust=robust, device=self.device)
+        with self._sanitize_scope(), self._obs_scope():
+            return explore(space=space, tasks=tasks, policy=policy,
+                           cache=cache, corners=corners, robust=robust,
+                           device=self.device)
 
     def compose(self, task, space: SpaceLike = None,
                 policy: Optional[SelectionPolicy] = None,
@@ -655,11 +699,12 @@ class Compiler:
         analytic top-K by trace replay (see ``Compiler.simulate``)."""
         if space is None:
             space = self.design_space()
-        return compose(space=space, task=task, policy=policy,
-                       compose_policy=compose_policy, cache=cache,
-                       sharded=sharded, refine=refine, sim_policy=sim_policy,
-                       corners=corners, robust=robust, levels=levels,
-                       device=self.device)
+        with self._sanitize_scope(), self._obs_scope():
+            return compose(space=space, task=task, policy=policy,
+                           compose_policy=compose_policy, cache=cache,
+                           sharded=sharded, refine=refine,
+                           sim_policy=sim_policy, corners=corners,
+                           robust=robust, levels=levels, device=self.device)
 
     def simulate(self, task, space: SpaceLike = None,
                  policy: Optional[SelectionPolicy] = None,
@@ -781,13 +826,16 @@ def explore(space: SpaceLike = None, tasks=None,
         tasks = gainsight.TASKS
     task_reqs = tuple(as_task_req(t) for t in tasks)
     policy = policy or SelectionPolicy()
-    table = DesignTable.build(space, cache=cache, corners=corners, device=dev)
-    metrics = table.robust_metrics(robust)
-    families = table.families
-    selections: Dict[object, Dict[str, LevelSelection]] = {
-        t.task_id: {lvl: select_level(metrics, families, req, policy)
-                    for lvl, req in t.levels.items()}
-        for t in task_reqs}
+    with obs.span("api.explore", n_tasks=len(task_reqs),
+                  robust=robust or "nominal"):
+        table = DesignTable.build(space, cache=cache, corners=corners,
+                                  device=dev)
+        metrics = table.robust_metrics(robust)
+        families = table.families
+        selections: Dict[object, Dict[str, LevelSelection]] = {
+            t.task_id: {lvl: select_level(metrics, families, req, policy)
+                        for lvl, req in t.levels.items()}
+            for t in task_reqs}
     return DSEReport(table=table, tasks=task_reqs, policy=policy,
                      selections=selections, robust=robust)
 

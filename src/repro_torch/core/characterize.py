@@ -17,6 +17,7 @@ from typing import Dict, Sequence
 
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.core import bitcells, corners, devices, macro, periphery, \
     retention, tech
 from repro_torch.device import DeviceLike, resolve_device
@@ -182,8 +183,9 @@ def characterize_batch(vecs, device: DeviceLike = None, tp=None
 def characterize_config(cfg: macro.MacroConfig, tp=None,
                         device: DeviceLike = None) -> Dict[str, float]:
     """One config as a one-row batch at corner ``tp``; returns python
-    floats."""
-    out = characterize_batch(cfg.to_vector()[None], device=device, tp=tp)
+    floats. Runs under the sanitizer when it is on."""
+    out = sanitize.maybe_wrap(characterize_batch)(
+        cfg.to_vector()[None], device=device, tp=tp)
     return {k: float(v[0]) for k, v in out.items()}
 
 
@@ -193,10 +195,11 @@ def characterize_corners(vecs, ops: Sequence, device: DeviceLike = None
     of ``ops`` (OperatingPoints / corner names / (vdd, temp_k) tuples), one
     ``characterize`` per corner (one retention launch each) on ``device``
     (None = the CUDA device). Returns a dict of (N, C) tensors, corner order
-    = ``ops`` order."""
+    = ``ops`` order. Each corner's ``characterize`` runs under the sanitizer
+    when it is on."""
     dev = resolve_device(device)
     vecs = torch.as_tensor(vecs, dtype=torch.float32, device=dev)
-    per_corner = [characterize(vecs, corners.resolve(
+    per_corner = [sanitize.maybe_wrap(characterize)(vecs, corners.resolve(
         corners.as_operating_point(o))) for o in ops]
     return {k: torch.stack([out[k] for out in per_corner], dim=1)
             for k in per_corner[0]}

@@ -28,6 +28,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core import corners as corners_mod
 from repro_torch.core.select import (BucketPick, LevelReq, SelectionPolicy,
                                      TaskReq, as_task_req, composition_label)
@@ -40,6 +41,13 @@ from repro_torch.hetero.system import (SYSTEM_METRICS, SystemBudget,
 
 OBJECTIVES = ("preference", "power", "area", "balanced")
 SEARCH_MODES = ("auto", "exhaustive", "branch_and_bound")
+
+# composition-report cache traffic (repro_torch.obs registry; a hit proves
+# the repeat compose() re-ran neither the scoring nor the search)
+_C_CACHE_HIT = obs.counter("hetero.cache_hits")
+_C_CACHE_MISS = obs.counter("hetero.cache_misses")
+# swept (operating point x refresh margin) blocks built beyond the base one
+_C_EXPANDED = obs.counter("hetero.expanded_points")
 
 
 @dataclass(frozen=True)
@@ -450,8 +458,10 @@ def compose(space=None, task=None, policy: Optional[SelectionPolicy] = None,
                 composition-report npz cache; a repeated ``compose()`` on the
                 same (grid, task, policies) re-runs neither the
                 characterization nor the batched scoring.
-    ``sharded`` split the composition grid across devices: not ported yet,
-                raises ``NotImplementedError``.
+    ``sharded`` split the composition grid across every visible CUDA
+                device (``repro_torch.parallel.grid``; on the CPU, or with
+                one card, the plain call): identical results, throughput
+                only.
     ``refine``  ``"simulate"`` prunes analytically to the policy's ``top_k``
                 and re-ranks those leaders by trace-replayed energy/latency
                 (``repro_torch.sim``) on ``device``; the simulated report
@@ -474,9 +484,6 @@ def compose(space=None, task=None, policy: Optional[SelectionPolicy] = None,
     if refine not in (None, "simulate"):
         raise ValueError(f"unknown refine mode {refine!r}; "
                          f"valid: None, 'simulate'")
-    if sharded:
-        raise NotImplementedError(
-            "compose(sharded=True) is not ported to repro_torch yet")
     dev = resolve_device(device)
     if task is None:
         raise TypeError("compose() requires a task "
@@ -506,12 +513,25 @@ def compose(space=None, task=None, policy: Optional[SelectionPolicy] = None,
         return simulate_report(report, sim_policy=sim_policy, cache=cache,
                                device=dev)
 
+    compose_span = obs.span("hetero.compose", task=str(task.task_id),
+                            objective=cp.objective)
+    with compose_span:
+        return _compose_inner(table, task, policy, cp, cache, sharded,
+                              robust, _refine, compose_span, dev)
+
+
+def _compose_inner(table, task, policy, cp, cache, sharded, robust,
+                   _refine, sp, dev) -> CompositionReport:
     if cache is not None:
         from repro_torch.hetero import cache as cache_mod
         hit = cache_mod.load_report(cache, table, task, policy, cp,
                                     robust=robust)
         if hit is not None:
+            _C_CACHE_HIT.inc()
+            sp.set(cache="hit")
             return _refine(hit)
+        _C_CACHE_MISS.inc()
+        sp.set(cache="miss")
 
     metrics = table.robust_metrics(robust)
     fam_col = table.families
@@ -520,8 +540,11 @@ def compose(space=None, task=None, policy: Optional[SelectionPolicy] = None,
         # virtual (operating point x refresh margin) expansion: every table
         # row replicated per swept block, re-characterized at that block's
         # supply/temperature (see hetero.expand)
-        metrics, fam_col = expand_mod.expand_metrics(table, metrics, points,
-                                                     device=dev)
+        with obs.span("hetero.expand", n_points=len(points),
+                      n_base=len(fam_col)):
+            metrics, fam_col = expand_mod.expand_metrics(
+                table, metrics, points, device=dev)
+        _C_EXPANDED.inc(len(points) - 1)
     # candidate lists are ordered by the active objective's tiled slot
     # contribution so per-bucket caps and grid trimming discard the
     # objective's *worst* rows, not its best; active budgets pin their
@@ -547,15 +570,20 @@ def compose(space=None, task=None, policy: Optional[SelectionPolicy] = None,
               or (cp.search == "auto" and n_space > cp.search_threshold))
     norms = balanced_norms(slots, metrics) \
         if cp.objective == "balanced" else None
-    if use_bb:
-        idx, pos, rank_sum, scores, truncated, _ = branch_and_bound(
-            slots, metrics, cap_bits, f_req, cp.objective, budget,
-            top_k=cp.top_k, max_nodes=cp.max_compositions,
-            batch=cp.search_batch, device=dev)
-    else:
-        idx, pos, rank_sum, truncated = _composition_grid(
-            slots, cp.max_compositions)
-        scores = score_grid(metrics, idx, cap_bits, f_req, device=dev)
+    with obs.span("hetero.search",
+                  search=("branch_and_bound" if use_bb else "exhaustive"),
+                  n_space=int(n_space)) as search_span:
+        if use_bb:
+            idx, pos, rank_sum, scores, truncated, _ = branch_and_bound(
+                slots, metrics, cap_bits, f_req, cp.objective, budget,
+                top_k=cp.top_k, max_nodes=cp.max_compositions,
+                batch=cp.search_batch, sharded=sharded, device=dev)
+        else:
+            idx, pos, rank_sum, truncated = _composition_grid(
+                slots, cp.max_compositions)
+            scores = score_grid(metrics, idx, cap_bits, f_req,
+                                sharded=sharded, device=dev)
+        search_span.set(n_scored=int(idx.shape[0]))
     truncated = truncated or any(bc.capped for bc in slots)
 
     feasible = np.all(idx >= 0, axis=1) & budget.feasible(scores)

@@ -38,10 +38,12 @@ cheaper than the heap walk.
 from __future__ import annotations
 
 import heapq
+import math
 from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.device import DeviceLike
 from repro_torch.hetero.candidates import BucketCandidates
 from repro_torch.hetero.system import SYSTEM_METRICS, SystemBudget, \
@@ -51,6 +53,12 @@ from repro_torch.hetero.system import SYSTEM_METRICS, SystemBudget, \
 # composition and its float32 kernel score agree to ~1e-6 relative per slot;
 # 1e-4 is orders of magnitude of headroom without enumerating the world
 _CUTOFF_REL_SLACK = 1e-4
+
+# search statistics (repro_torch.obs registry): nodes actually scored,
+# batches flushed, and compositions the bound proof never had to score
+_C_NODES = obs.counter("hetero.search_nodes")
+_C_BATCHES = obs.counter("hetero.search_batches")
+_C_PRUNED = obs.counter("hetero.search_pruned")
 
 
 def slot_contributions(slots: Sequence[BucketCandidates],
@@ -187,6 +195,7 @@ def branch_and_bound(slots: Sequence[BucketCandidates],
                 rank_np[j] += cand.pref_rank
         scores = score_grid(metrics, idx_np, cap_bits, f_req,
                             sharded=sharded, device=device)
+        _C_BATCHES.inc()
         feas = np.all(idx_np >= 0, axis=1) & budget.feasible(scores)
         for j in np.where(feas)[0]:
             b = pending[j][0]
@@ -221,6 +230,9 @@ def branch_and_bound(slots: Sequence[BucketCandidates],
         if len(pending) >= batch:
             flush()
     flush()
+
+    _C_NODES.inc(n_scored)
+    _C_PRUNED.inc(max(math.prod(len(c) for c in lists) - n_scored, 0))
 
     idx = np.concatenate(out_idx) if out_idx else \
         np.empty((0, n_slots), np.int32)

@@ -18,7 +18,10 @@ compositions × S slots), run as float32 torch code on the device of the
 call (the reference's ``compose_score`` is jnp, with no Pallas kernel). Each
 Σ adds the S slots left to right in slot order, one slot at a time, so the
 card, the CPU and the reference's XLA reduction add in the same order and a
-near-tie in the ranking cannot flip by an ulp.
+near-tie in the ranking cannot flip by an ulp. With ``sharded=True`` the
+same code runs on blocks of the grid, one per device
+(``repro_torch.parallel.grid``): every row is priced alone, so the result
+is bit-identical to the plain call.
 
 Slots carrying the infeasible sentinel (``config_idx < 0``) price at +inf
 area/power so they sort last and are flagged infeasible by the caller.
@@ -31,7 +34,10 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+from repro_torch.analysis import sanitize
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.parallel.grid import shard2d, shard_leading
 
 # DesignTable metric columns the scorer gathers from
 METRIC_COLS = ("area_um2", "bits", "p_leak_w", "p_refresh_w", "e_read_j",
@@ -91,12 +97,13 @@ class SystemBudget:
 
 # how many batched composition scorings this process has run (a compose()
 # cache hit leaves it unchanged, which is how the tests prove a hit)
-_EVALS = 0
+_C_EVALS = obs.counter("hetero.compose_evals")
+_C_BUILDS = obs.counter("kernels.builds")   # probe= of hetero.score
 
 
 def composition_eval_count() -> int:
     """Number of batched composition scoring sweeps executed so far."""
-    return _EVALS
+    return _C_EVALS.value
 
 
 def _slot_sum(x: torch.Tensor) -> torch.Tensor:
@@ -163,43 +170,64 @@ def tiles_for(metrics: Mapping[str, np.ndarray], idx: np.ndarray,
 
 
 def _score(cols: Dict[str, np.ndarray], idx, cap_bits, f_req,
-           sharded: bool, device: DeviceLike) -> Dict[str, np.ndarray]:
-    global _EVALS
-    if sharded:
-        raise NotImplementedError(
-            "sharded composition scoring is not ported to repro_torch yet")
+           sharded: bool, devices: Optional[Sequence], device: DeviceLike,
+           n_corners: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """``score_kernel`` on ``device``: sharded over ``devices`` (the
+    compositions, and the corners of ``cols`` stacked over ``n_corners``),
+    or whole under the sanitizer when it is on."""
     dev = resolve_device(device)
 
     def f32(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                device=dev)
-    out = score_kernel(
-        torch.as_tensor(np.asarray(idx), dtype=torch.int64, device=dev),
-        {k: f32(v) for k, v in cols.items()}, f32(cap_bits), f32(f_req))
-    _EVALS += 1
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    args = (torch.as_tensor(np.asarray(idx), dtype=torch.int64, device=dev),
+            {k: f32(v) for k, v in cols.items()}, f32(cap_bits), f32(f_req))
+    span_args = {} if n_corners is None else {"corners": n_corners}
+    with obs.span("hetero.score", probe=_C_BUILDS, J=int(args[0].shape[0]),
+                  S=int(args[0].shape[1]), sharded=sharded, **span_args):
+        if not sharded:
+            out = sanitize.maybe_wrap(score_kernel)(*args)
+        elif n_corners is not None:
+            # the sanitizer covers the unsharded path, as in the JAX
+            # package: the blocks compute the same values
+            out = shard2d(score_kernel, *args, devices=devices)
+        else:
+            out = shard_leading(score_kernel, *args, devices=devices)
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+    _C_EVALS.inc()
+    return out
 
 
 def score_grid(metrics: Mapping[str, np.ndarray], idx: np.ndarray,
                cap_bits: Sequence[float], f_req: Sequence[float],
-               *, sharded: bool = False, device: DeviceLike = None
-               ) -> Dict[str, np.ndarray]:
+               *, sharded: bool = False, devices: Optional[Sequence] = None,
+               device: DeviceLike = None) -> Dict[str, np.ndarray]:
     """Score ``(J, S)`` composition grid ``idx`` against table ``metrics``
     on ``device`` (None = the CUDA device). Returns numpy ``(J,)`` float32
-    arrays keyed by SYSTEM_METRICS. ``sharded=True`` (split over several
-    devices) is not ported and raises."""
+    arrays keyed by SYSTEM_METRICS.
+
+    ``sharded=True`` splits the grid's J axis over ``devices`` (None =
+    every visible CUDA device, or ``device`` itself when that is the CPU;
+    a list may repeat a device), with results bit-identical to the plain
+    call; with one device it is the plain call."""
     cols = {k: np.asarray(metrics[k]) for k in METRIC_COLS}
-    return _score(cols, idx, cap_bits, f_req, sharded, device)
+    return _score(cols, idx, cap_bits, f_req, sharded, devices, device)
 
 
 def score_grid_corners(corner_metrics: Sequence[Mapping[str, np.ndarray]],
                        idx: np.ndarray, cap_bits: Sequence[float],
                        f_req: Sequence[float], *, sharded: bool = False,
+                       devices: Optional[Sequence] = None,
                        device: DeviceLike = None) -> Dict[str, np.ndarray]:
     """Score one ``(J, S)`` grid under ``C`` operating-corner column sets in
     one pass (``corner_metrics`` is one metric mapping per corner, e.g.
     ``[table.corner_metrics(c) for c in table.corner_labels]``). Returns
-    ``(C, J)`` numpy arrays keyed by SYSTEM_METRICS."""
+    ``(C, J)`` numpy arrays keyed by SYSTEM_METRICS.
+
+    ``sharded=True`` spreads the work over a 2D (compositions × corners)
+    grid of blocks on ``devices`` (``repro_torch.parallel.grid.shard2d``;
+    defaults as in ``score_grid``), bit-identical to the plain call."""
     cols = {k: np.stack([np.asarray(m[k]) for m in corner_metrics])
             for k in METRIC_COLS}
-    return _score(cols, idx, cap_bits, f_req, sharded, device)
+    return _score(cols, idx, cap_bits, f_req, sharded, devices, device,
+                  n_corners=len(corner_metrics))

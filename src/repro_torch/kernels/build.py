@@ -3,7 +3,9 @@ plain C interface, loaded with ``ctypes``.
 
 The library goes to ``build/repro_torch/`` at the root of the checkout,
 named by a hash of its source and flags, and is built on first use (a few
-seconds). Nothing here runs at import: the CPU tests import every module.
+seconds). Each ``nvcc`` run counts in the ``kernels.builds`` counter, the
+probe that spans read to record a build as ``new_traces``. Nothing here
+runs at import: the CPU tests import every module.
 """
 from __future__ import annotations
 
@@ -14,9 +16,12 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, Sequence
+
+from repro_torch import obs
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -24,6 +29,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # IEEE expf/logf/log1pf and IEEE division: no --use_fast_math.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# libraries compiled in this process; builds run on a thread pool, so the
+# count is bumped under a lock
+BUILDS = obs.counter("kernels.builds")
+_BUILDS_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -62,6 +72,8 @@ def build_library(name: str) -> Path:
                                f"(exit {run.returncode}):\n{run.stderr}")
         lib.with_suffix(".log").write_text(run.stdout + run.stderr)
         os.replace(tmp, lib)
+        with _BUILDS_LOCK:
+            BUILDS.inc()
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)

@@ -3,9 +3,13 @@ window, sink, round_p)``.
 
 On CUDA tensors it launches the hand-written kernel of
 ``kernels/csrc/flash_attention.cu`` (built on first use by
-``kernels.build``) and counts the launch in ``flash_attention.launches``;
-it never falls back. On CPU tensors it runs the plain version,
-``kernels.ref.attention_ref``.
+``kernels.build``) and counts the launch in ``flash_attention.launches``
+and in the ``kernels.dispatch.flash_attention.cuda`` counter; it never
+falls back. On CPU tensors it runs the plain version,
+``kernels.ref.attention_ref``, counted in
+``kernels.dispatch.flash_attention.plain``. Under the sanitizer
+(``analysis.sanitize.wrap``) the kernel's output is checked for a NaN its
+inputs did not hold.
 """
 from __future__ import annotations
 
@@ -14,11 +18,16 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
+from repro_torch.analysis import sanitize
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 96, 128)   # the D the kernel is instantiated for
 _MAX_GRID_Y = 65535                 # B * H blocks along the grid's y axis
+
+_C_CUDA = obs.counter("kernels.dispatch.flash_attention.cuda")
+_C_PLAIN = obs.counter("kernels.dispatch.flash_attention.plain")
 
 
 def _check(q, k, v, causal, window, sink) -> None:
@@ -58,6 +67,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     precision (the model). Same contract as ``ref.attention_ref``."""
     _check(q, k, v, causal, window, sink)
     if q.device.type == "cpu":
+        _C_PLAIN.inc()
         return attention_ref(q, k, v, causal=causal, window=window,
                              sink=sink, round_p=round_p)
     if q.device.type != "cuda":
@@ -88,6 +98,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      0 if window is None else int(window), int(sink),
                      int(round_p), stream)
     flash_attention.launches += 1
+    _C_CUDA.inc()
+    sanitize.check_kernel("flash_attention", (q, k, v), (o,))
     return o
 
 

@@ -2,14 +2,20 @@
 
 On a CUDA tensor it launches the hand-written kernel of
 ``kernels/csrc/retention.cu`` (built on first use by ``kernels.build``) and
-counts the launch in ``retention_batch.launches``; it never falls back. On
-a CPU tensor it runs the plain version, ``kernels.ref.retention_ref``.
+counts the launch in ``retention_batch.launches`` and in the
+``kernels.dispatch.retention.cuda`` counter; it never falls back. On a CPU
+tensor it runs the plain version, ``kernels.ref.retention_ref``, counted in
+``kernels.dispatch.retention.plain``. Under the sanitizer
+(``analysis.sanitize.wrap``) the kernel's output is checked for a NaN its
+inputs did not hold.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import obs
+from repro_torch.analysis import sanitize
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import N_FIELDS, UT, retention_ref  # noqa: F401
 
@@ -18,6 +24,9 @@ from repro_torch.kernels.ref import N_FIELDS, UT, retention_ref  # noqa: F401
 # 227 KB. At this limit a block takes 192 KB, one 128-thread block an SM;
 # the paper grid's 481 points take 7.5 KB
 _MAX_GRID_POINTS = 12_288
+
+_C_CUDA = obs.counter("kernels.dispatch.retention.cuda")
+_C_PLAIN = obs.counter("kernels.dispatch.retention.plain")
 
 
 def _check(params: torch.Tensor, ts: torch.Tensor) -> None:
@@ -58,6 +67,7 @@ def retention_batch(params: torch.Tensor, ts: torch.Tensor,
     _check(params, ts)
     ut32, inv_ut32 = thermal_voltage_args(ut)
     if params.device.type == "cpu":
+        _C_PLAIN.inc()
         return retention_ref(params, ts, ut32)
     if params.device.type != "cuda":
         raise ValueError(f"retention_batch runs on cuda or cpu, got "
@@ -74,6 +84,8 @@ def retention_batch(params: torch.Tensor, ts: torch.Tensor,
                      out.data_ptr(), B, ts.shape[0] - 1, ut32, inv_ut32,
                      stream)
     retention_batch.launches += 1
+    _C_CUDA.inc()
+    sanitize.check_kernel("retention", (params, ts), (out,))
     return out
 
 

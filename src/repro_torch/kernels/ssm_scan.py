@@ -2,17 +2,26 @@
 
 On CUDA tensors it launches the hand-written kernel of
 ``kernels/csrc/ssm_scan.cu`` (built on first use by ``kernels.build``) and
-counts the launch in ``ssm_scan.launches``; it never falls back. On CPU
-tensors it runs the plain version, ``kernels.ref.ssm_scan_ref``.
+counts the launch in ``ssm_scan.launches`` and in the
+``kernels.dispatch.ssm_scan.cuda`` counter; it never falls back. On CPU
+tensors it runs the plain version, ``kernels.ref.ssm_scan_ref``, counted in
+``kernels.dispatch.ssm_scan.plain``. Under the sanitizer
+(``analysis.sanitize.wrap``) the kernel's outputs are checked for a NaN its
+inputs did not hold.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
+from repro_torch.analysis import sanitize
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import ssm_scan_ref
 
 STATE_SIZES = (4, 8, 16, 32)    # the n the kernel is instantiated for
+
+_C_CUDA = obs.counter("kernels.dispatch.ssm_scan.cuda")
+_C_PLAIN = obs.counter("kernels.dispatch.ssm_scan.plain")
 
 
 def _check(x, dt, A, Bc, Cc, D) -> None:
@@ -45,6 +54,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``ref.ssm_scan_ref``."""
     _check(x, dt, A, Bc, Cc, D)
     if x.device.type == "cpu":
+        _C_PLAIN.inc()
         return ssm_scan_ref(x, dt, A, Bc, Cc, D)
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on cuda or cpu, got {x.device}")
@@ -62,6 +72,8 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                      Bc.data_ptr(), Cc.data_ptr(), D.data_ptr(), y.data_ptr(),
                      h_final.data_ptr(), B, S, di, n, stream)
     ssm_scan.launches += 1
+    _C_CUDA.inc()
+    sanitize.check_kernel("ssm_scan", (x, dt, A, Bc, Cc, D), (y, h_final))
     return y, h_final
 
 

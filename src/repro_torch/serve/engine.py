@@ -1,19 +1,31 @@
-"""Serving: prefill/decode step factories and a batched generation engine
-(``repro/serve/engine.py`` without its ``repro.obs`` telemetry, which is
-ROADMAP.md queue 1 work).
+"""Serving: prefill/decode step factories and a batched generation engine.
 
 Sampling runs outside the decode step, and the per-step host copy of the
-sampled tokens lies outside both, as in the reference.
+sampled tokens lies outside both, as in the reference. Telemetry
+(``repro_torch.obs``): dispatch counts always; wall-time histograms [s] and
+the ``serve.prefill`` / ``serve.sample`` / ``serve.decode_step`` spans when
+tracing is on. They read the host clock and add no device sync, so on the
+card they measure the host's dispatch of each step (its kernels run
+asynchronously), as the reference's spans do under JAX's async dispatch.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.device import DeviceLike
 from repro_torch.models import LM
+
+_C_PREFILL = obs.counter("serve.prefill_calls")
+_C_DECODE = obs.counter("serve.decode_steps")
+_C_BUILDS = obs.counter("kernels.builds")   # probe= of the serve spans
+_H_PREFILL_S = obs.histogram("serve.prefill_s")
+_H_DECODE_S = obs.histogram("serve.decode_step_s")
+_H_SAMPLE_S = obs.histogram("serve.sample_s")
 
 
 def make_prefill_step(cfg, max_seq: Optional[int] = None,
@@ -62,14 +74,27 @@ class Engine:
     def generate(self, batch: Dict[str, Any], steps: int,
                  temperature: Optional[float] = None, seed: int = 0):
         """batch {'tokens': (B, S) int} -> (B, steps) int32 numpy tokens."""
-        cache, logits = self._prefill(self.params, batch)
+        t0 = time.perf_counter()
+        with obs.span("serve.prefill", probe=_C_BUILDS,
+                      batch=int(np.shape(batch["tokens"])[0])):
+            cache, logits = self._prefill(self.params, batch)
+        _C_PREFILL.inc()
+        _H_PREFILL_S.observe(time.perf_counter() - t0)
         gen = torch.Generator(device=self.lm.device).manual_seed(seed)
         outs = []
-        for _ in range(steps):
-            if temperature is None:
-                tok = sample_greedy(logits)
-            else:
-                tok = sample_temperature(gen, logits, temperature)
-            outs.append(tok.cpu().numpy())   # host sync, outside both steps
-            logits, cache = self._decode(self.params, cache, {"tokens": tok})
+        for i in range(steps):
+            t0 = time.perf_counter()
+            with obs.span("serve.sample", step=i):
+                if temperature is None:
+                    tok = sample_greedy(logits)
+                else:
+                    tok = sample_temperature(gen, logits, temperature)
+            _H_SAMPLE_S.observe(time.perf_counter() - t0)
+            outs.append(tok.cpu().numpy())   # host sync, outside both spans
+            t0 = time.perf_counter()
+            with obs.span("serve.decode_step", probe=_C_BUILDS, step=i):
+                logits, cache = self._decode(self.params, cache,
+                                             {"tokens": tok})
+            _C_DECODE.inc()
+            _H_DECODE_S.observe(time.perf_counter() - t0)
         return np.stack(outs, axis=1)

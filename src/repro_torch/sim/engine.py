@@ -32,7 +32,9 @@ launches and each phase comes back to the host once. Sums over slots add
 slot 0 first, one slot at a time, so a composition's result does not depend
 on how many others replay beside it. ``simulate_traces(...,
 oracle=True)`` replays one composition at a time through the same step
-function: the oracle the batched path must equal bit for bit.
+function: the oracle the batched path must equal bit for bit. Under the
+sanitizer (``REPRO_SANITIZE=1``) each phase's replay runs under its
+NaN/index checks.
 """
 from __future__ import annotations
 
@@ -42,6 +44,8 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
+from repro_torch.analysis import sanitize
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.sim import refresh as refresh_mod
 from repro_torch.sim.trace import Trace
@@ -59,7 +63,8 @@ SIM_METRICS = ("e_dyn_j", "e_refresh_j", "e_rewrite_j", "e_leak_j",
 # how many batched trace replays this process has run (a cached
 # simulate/rerank leaves it unchanged — the same proof as
 # api.characterize_call_count / hetero.composition_eval_count)
-_REPLAYS = 0
+_C_REPLAYS = obs.counter("sim.replay_calls")
+_C_BUILDS = obs.counter("kernels.builds")   # probe= of sim.replay_phase
 
 # temperature-drift Arrhenius baseline: the solver's nominal die temperature
 # and activation ratio Ea/kB [K] (Ea = 0.5 eV, matching core.corners)
@@ -74,7 +79,7 @@ _EPS = 1e-30
 
 def sim_eval_count() -> int:
     """Number of batched trace-replay sweeps executed so far."""
-    return _REPLAYS
+    return _C_REPLAYS.value
 
 
 @dataclass(frozen=True)
@@ -312,7 +317,6 @@ def simulate_traces(cols: Mapping[str, np.ndarray], idx: np.ndarray,
     times, and collisions summed across phases, peaks maxed — plus
     ``"phases"``: the same per-phase dicts keyed by phase name.
     """
-    global _REPLAYS
     if not traces:
         raise ValueError("simulate_traces() needs at least one Trace")
     policy = policy or SimPolicy()
@@ -328,24 +332,30 @@ def simulate_traces(cols: Mapping[str, np.ndarray], idx: np.ndarray,
     def f32(a):
         return torch.as_tensor(np.array(a, np.float32), device=dev)
     slot = {"cap_bits": f32(t0.cap_bits), "lifetime_s": f32(t0.lifetime_s)}
-    replay = _phase_replay_oracle if oracle else _phase_replay
+    route = "oracle" if oracle else "torch"
+    obs.counter(f"kernels.dispatch.sim_replay.{route}").inc()
+    replay = sanitize.maybe_wrap(_phase_replay_oracle if oracle
+                                 else _phase_replay)
 
     per_phase: Dict[str, Dict[str, np.ndarray]] = {}
     bad = np.any(idx < 0, axis=1)
-    for tr in traces:
-        # the drift ramp spans each phase's own replay window
-        consts = tuple(f32([1.0 if policy.refresh else 0.0,
-                            policy.rewrite_overhead,
-                            1.0 if policy.adaptive_refresh else 0.0,
-                            policy.temp_drift_k,
-                            float(np.sum(tr.t_bin_s))]).unbind(0))
-        xs = (f32(tr.t_bin_s), f32(tr.reads.T), f32(tr.write_bits.T),
-              f32(tr.occupancy.T))
-        out = replay(params, slot, xs, consts).cpu().numpy()
-        per_phase[tr.phase] = _mask_sentinels(
-            {m: out[i].astype(np.float64) for i, m in enumerate(SIM_METRICS)},
-            bad)
-    _REPLAYS += 1
+    with obs.span("sim.replay", J=int(idx.shape[0]), S=int(S),
+                  phases=len(traces)):
+        for tr in traces:
+            # the drift ramp spans each phase's own replay window
+            consts = tuple(f32([1.0 if policy.refresh else 0.0,
+                                policy.rewrite_overhead,
+                                1.0 if policy.adaptive_refresh else 0.0,
+                                policy.temp_drift_k,
+                                float(np.sum(tr.t_bin_s))]).unbind(0))
+            xs = (f32(tr.t_bin_s), f32(tr.reads.T), f32(tr.write_bits.T),
+                  f32(tr.occupancy.T))
+            with obs.span("sim.replay_phase", probe=_C_BUILDS, phase=tr.phase):
+                out = replay(params, slot, xs, consts).cpu().numpy()
+            per_phase[tr.phase] = _mask_sentinels(
+                {m: out[i].astype(np.float64)
+                 for i, m in enumerate(SIM_METRICS)}, bad)
+    _C_REPLAYS.inc()
 
     combined = _mask_sentinels(_combine_phases(per_phase), bad)
     combined["phases"] = per_phase

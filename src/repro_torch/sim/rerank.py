@@ -34,11 +34,17 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.device import DeviceLike
 from repro_torch.hetero import cache as hcache
 from repro_torch.hetero.compose import CompositionReport
 from repro_torch.sim.engine import SIM_METRICS, SimPolicy, simulate_traces
 from repro_torch.sim.trace import Trace, task_traces
+
+# sim-report cache traffic (repro_torch.obs registry; a hit proves the
+# repeat simulate() re-ran no trace replay — see sim.engine.sim_eval_count)
+_C_CACHE_HIT = obs.counter("sim.cache_hits")
+_C_CACHE_MISS = obs.counter("sim.cache_misses")
 
 
 def composition_idx(report: CompositionReport) -> np.ndarray:
@@ -123,22 +129,30 @@ def simulate_report(report: CompositionReport,
                              n_bins=policy.n_bins)
     idx = composition_idx(report)
 
-    key = None
-    if cache is not None:
-        base = hcache.report_key(report.table.grid_hash, report.task,
-                                 report.policy, report.compose_policy,
-                                 robust=report.robust)
-        key = hcache.sim_report_key(base, policy,
-                                    [t.fingerprint() for t in traces])
-        hit = hcache.load_sim_report(cache, key, n_ranked=len(report.ranked))
-        if hit is not None:
-            return _apply(report, hit["metrics"], hit["order"])
+    with obs.span("sim.rerank", task=str(report.task.task_id),
+                  n_ranked=len(report.ranked),
+                  objective=policy.objective) as sp:
+        key = None
+        if cache is not None:
+            base = hcache.report_key(report.table.grid_hash, report.task,
+                                     report.policy, report.compose_policy,
+                                     robust=report.robust)
+            key = hcache.sim_report_key(base, policy,
+                                        [t.fingerprint() for t in traces])
+            hit = hcache.load_sim_report(cache, key,
+                                         n_ranked=len(report.ranked))
+            if hit is not None:
+                _C_CACHE_HIT.inc()
+                sp.set(cache="hit")
+                return _apply(report, hit["metrics"], hit["order"])
+            _C_CACHE_MISS.inc()
+            sp.set(cache="miss")
 
-    sim = simulate_traces(sim_cols(report.table), idx, traces,
-                          policy=policy, device=device)
-    order = _rerank_order(report, sim, policy)
-    if cache is not None:
-        hcache.save_sim_report(cache, key, order,
-                               {m: sim[m] for m in SIM_METRICS},
-                               sim["phases"])
-    return _apply(report, sim, order)
+        sim = simulate_traces(sim_cols(report.table), idx, traces,
+                              policy=policy, device=device)
+        order = _rerank_order(report, sim, policy)
+        if cache is not None:
+            hcache.save_sim_report(cache, key, order,
+                                   {m: sim[m] for m in SIM_METRICS},
+                                   sim["phases"])
+        return _apply(report, sim, order)

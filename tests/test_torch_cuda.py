@@ -430,3 +430,117 @@ def test_ssm_scan_kernel_matches_plain_version(cuda, shape):
     assert kssm.ssm_scan.launches == before + 1
     torch.testing.assert_close(y, y_ref, rtol=TOL_SSM, atol=TOL_SSM)
     torch.testing.assert_close(h, h_ref, rtol=TOL_SSM, atol=TOL_SSM)
+
+
+@pytest.mark.cuda
+def test_dispatch_counters_count_kernel_launches(cuda):
+    """On the card each wrapper counts its kernel in
+    ``kernels.dispatch.<op>.cuda``, one per launch, beside ``.launches``."""
+    from repro_torch import obs
+    params = torch.from_numpy(_perturbed(130)).to(cuda)
+    ts = retention.time_grid(cuda)
+    n0, p0 = (obs.value("kernels.dispatch.retention.cuda"),
+              obs.value("kernels.dispatch.retention.plain"))
+    before = kretention.retention_batch.launches
+    for _ in range(3):
+        kretention.retention_batch(params, ts)
+    torch.cuda.synchronize()
+    assert obs.value("kernels.dispatch.retention.cuda") == n0 + 3
+    assert obs.value("kernels.dispatch.retention.plain") == p0
+    assert kretention.retention_batch.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_sanitizer_on_the_card(cuda):
+    """A made NaN raises naming the op; an out-of-range gather raises
+    before it launches, so the context survives and the card goes on; a
+    sanitized characterization (kernel output check included) is clean and
+    bit-equal to the plain one."""
+    from repro_torch.analysis import sanitize
+    with pytest.raises(FloatingPointError, match="aten.log"):
+        sanitize.wrap(torch.log)(-torch.ones(4, device=cuda))
+    with pytest.raises(IndexError, match="out-of-bounds"):
+        sanitize.wrap(torch.gather)(torch.arange(8.0, device=cuda), 0,
+                                    torch.tensor([3, 8], device=cuda))
+    space = api.design_space(word_sizes=(16, 64), num_words=(16, 256))
+    plain = api.DesignTable.from_configs(space, device=cuda)
+    with sanitize.enabled_scope(True):
+        checked = api.DesignTable.from_configs(space, device=cuda)
+    torch.cuda.synchronize()
+    for k in plain.metric_names:
+        np.testing.assert_array_equal(plain[k], checked[k], err_msg=k)
+    bad = torch.tensor([1.0, float("nan")], device=cuda)
+
+    def launch():
+        sanitize.check_kernel("retention", (torch.ones(2, device=cuda),),
+                              (bad,))
+    with pytest.raises(FloatingPointError, match="kernel retention"):
+        sanitize.wrap(launch)()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 4])
+def test_sharded_scoring_on_the_card_is_bit_equal(cuda, k):
+    """``score_grid`` / ``score_grid_corners`` over ``[cuda:0] * k``: the
+    blocks' results equal the plain call's bit for bit."""
+    from repro_torch.hetero import system
+    table = api.DesignTable.build(corners=tuple(corners.CORNERS),
+                                  device=cuda)
+    rng = np.random.default_rng(k)
+    idx = rng.integers(0, len(table), (9999, 4)).astype(np.int32)
+    idx[rng.random(idx.shape) < 0.01] = -1
+    cap_bits, f_req = [2e5, 1e6, 3.2e7, 6.4e7], [1.2e9, 5e8, 1e9, 2e9]
+    per_corner = [table.corner_metrics(c) for c in table.corner_labels]
+    for score, first in ((system.score_grid, table.metrics),
+                         (system.score_grid_corners, per_corner)):
+        plain = score(first, idx, cap_bits, f_req, device=cuda)
+        sharded = score(first, idx, cap_bits, f_req, sharded=True,
+                        devices=[cuda] * k, device=cuda)
+        for m in system.SYSTEM_METRICS:
+            np.testing.assert_array_equal(sharded[m], plain[m], err_msg=m)
+
+
+@pytest.mark.cuda
+def test_sharded_scoring_across_cards_is_bit_equal(cuda):
+    """``devices=None`` on a host with several cards: the blocks run on
+    every visible card, are gathered onto the first, and the scores and
+    ``compose(sharded=True)`` equal the plain call's bit for bit."""
+    n_dev = torch.cuda.device_count()
+    if n_dev < 2:
+        pytest.skip("needs more than one card")
+    from repro_torch import obs
+    from repro_torch.hetero import system
+    from repro_torch.parallel import grid
+    ran_on = grid.shard_leading(
+        lambda x: torch.full((x.shape[0],), x.device.index,
+                             device=x.device),
+        torch.zeros(4 * n_dev + 1, device=cuda))
+    assert ran_on.device == torch.device("cuda", 0)
+    assert sorted(set(ran_on.tolist())) == list(range(n_dev))
+    table = api.DesignTable.build(corners=tuple(corners.CORNERS),
+                                  device=cuda)
+    rng = np.random.default_rng(n_dev)
+    idx = rng.integers(0, len(table), (9999, 4)).astype(np.int32)
+    idx[rng.random(idx.shape) < 0.01] = -1
+    cap_bits, f_req = [2e5, 1e6, 3.2e7, 6.4e7], [1.2e9, 5e8, 1e9, 2e9]
+    per_corner = [table.corner_metrics(c) for c in table.corner_labels]
+    for score, first in ((system.score_grid, table.metrics),
+                         (system.score_grid_corners, per_corner)):
+        plain = score(first, idx, cap_bits, f_req, device=cuda)
+        n0 = obs.value("parallel.shard_calls")
+        sharded = score(first, idx, cap_bits, f_req, sharded=True,
+                        device=cuda)
+        assert obs.value("parallel.shard_calls") == n0 + 1
+        for m in system.SYSTEM_METRICS:
+            np.testing.assert_array_equal(sharded[m], plain[m], err_msg=m)
+    nominal = api.DesignTable.build(device=cuda)
+    power_bb = ComposePolicy(objective="power", candidate_mode="all_feasible",
+                             search="branch_and_bound")
+    for policy in (ComposePolicy(), power_bb):
+        task = gainsight.nlevel_task(3)
+        plain = compose(nominal, task, compose_policy=policy, device=cuda)
+        sharded = compose(nominal, task, compose_policy=policy, sharded=True,
+                          device=cuda)
+        assert sharded.labels() == plain.labels()
+        for a, b in zip(plain.ranked, sharded.ranked):
+            assert a.metrics == b.metrics

@@ -104,16 +104,23 @@ def test_stale_cache_is_rejected_and_rebuilt(tmp_path):
 def test_corners_and_robust_are_not_ported_yet():
     """Corners and robust selection are ported (tests/test_torch_corners.py;
     a robust composition refined by replay and a corner table's emitters
-    are held in tests/test_torch_sim.py and tests/test_torch_facade.py).
-    What of their flow is not yet raises: sharded scoring and the
-    Compiler's sanitizer and telemetry switches."""
+    are held in tests/test_torch_sim.py and tests/test_torch_facade.py),
+    and so is the rest of their flow, which raised until it was: sharded
+    scoring (on the CPU the plain call) and the Compiler's sanitizer and
+    telemetry switches leave a corner table's results as they are."""
     space = api.design_space(word_sizes=(16,), num_words=(32,))
     table = api.DesignTable.build(space, corners=["nominal", "hot"],
                                   device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        api.compose(table, gainsight.TASKS[0], sharded=True, device="cpu")
+    plain = api.compose(table, gainsight.TASKS[0], device="cpu")
+    sharded = api.compose(table, gainsight.TASKS[0], sharded=True,
+                          device="cpu")
+    assert sharded.labels() == plain.labels()
+    assert [c.metrics for c in sharded.ranked] == \
+        [c.metrics for c in plain.ranked]
     for flag in ("sanitize", "telemetry"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            api.Compiler(**{flag: True})
+        on = api.Compiler(device="cpu", **{flag: True}).explore(
+            space=table, robust="worst_case")
+        assert on.labels() == api.explore(table, robust="worst_case",
+                                          device="cpu").labels()
     with pytest.raises(ValueError, match="robust mode"):
         api.explore(table, robust="typical", device="cpu")

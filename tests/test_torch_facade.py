@@ -187,9 +187,8 @@ def test_compiler_validation():
     with pytest.raises(KeyError):
         Compiler(device=CPU).compile(mem_type="nosuch", word_size=16,
                                      num_words=16)
-    for flag in ("sanitize", "telemetry"):
-        with pytest.raises(NotImplementedError, match=flag):
-            Compiler(**{flag: True})
+    for flag in ("sanitize", "telemetry"):      # ported: they construct
+        assert getattr(Compiler(**{flag: True}), flag) is True
     c = Compiler(mem_types=("sram6t", "gc_ossi"), device=CPU)
     assert {cfg.mem_type for cfg in c.design_space()} == {"sram6t",
                                                           "gc_ossi"}

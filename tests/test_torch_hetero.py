@@ -136,9 +136,11 @@ def test_score_grid_corners_matches_jax():
     for k in system.SYSTEM_METRICS:
         assert got[k].shape == (3, len(idx))
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    with pytest.raises(NotImplementedError):
-        system.score_grid(cols, idx, cap_bits, f_req, sharded=True,
-                          device="cpu")
+    sharded = system.score_grid(cols, idx, cap_bits, f_req, sharded=True,
+                                device="cpu")      # one device: plain call
+    plain = system.score_grid(cols, idx, cap_bits, f_req, device="cpu")
+    for k in system.SYSTEM_METRICS:
+        np.testing.assert_array_equal(sharded[k], plain[k], err_msg=k)
 
 
 # -------------------------------------------------------------- candidates

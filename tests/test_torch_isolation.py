@@ -42,7 +42,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.kernels.flash_attention, repro_torch.configs\n"
         "import repro_torch.hetero, repro_torch.hetero.cache\n"
         "import repro_torch.sim, repro_torch.core.artifacts\n"
-        "import repro_torch.core.dse\n"
+        "import repro_torch.core.dse, repro_torch.obs.catalog\n"
+        "import repro_torch.obs.__main__, repro_torch.obs.report\n"
+        "import repro_torch.analysis.sanitize, repro_torch.parallel.grid\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n")
@@ -82,6 +84,10 @@ ENTRY_POINTS = {
     "hetero.compose": lambda: compose(None, gainsight.TASKS[0]),
     "hetero.compose(refine=simulate)": lambda: compose(
         None, gainsight.TASKS[0], refine="simulate"),
+    "hetero.compose(sharded)": lambda: compose(
+        None, gainsight.TASKS[0], sharded=True),
+    "Compiler(telemetry, sanitize).explore": lambda: api.Compiler(
+        telemetry=True, sanitize=True).explore(),
     "api.simulate": lambda: api.simulate(task=gainsight.TASKS[0]),
     "sim.simulate_traces": lambda: simulate_traces(
         {k: np.ones(1) for k in SIM_COLS}, np.zeros((1, 2), np.int32),

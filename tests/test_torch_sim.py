@@ -533,8 +533,12 @@ def test_rerank_topk_containment(own_table):
     assert analytic.refined is None
     with pytest.raises(ValueError):
         compose(own_table, t, refine="nosuch", device=CPU)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        compose(own_table, t, refine="simulate", sharded=True, device=CPU)
+    sharded = compose(own_table, t, refine="simulate", sharded=True,
+                      device=CPU)
+    assert composition_idx(sharded).tolist() == \
+        composition_idx(refined).tolist()
+    assert [c.metrics for c in sharded.ranked] == \
+        [c.metrics for c in refined.ranked]
 
 
 @pytest.mark.parametrize("objective", ["energy", "latency", "edp"])
