@@ -8,8 +8,9 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
 
 1. device   name, count, and ``nvidia-smi`` name and power limit;
 2. build    every kernel from ``kernels/csrc/*.cu`` (retention, ssm_scan,
-            flash_attention), one ``nvcc`` each, all started together,
-            and print each ``-Xptxas -v`` report (registers, spills);
+            ssm_scan_bwd, flash_attention, flash_attention_bwd), one
+            ``nvcc`` each, all started together, and print each ``-Xptxas
+            -v`` report (registers, spills);
 3. kernel   against its plain PyTorch version on the card at B = 14 (the
             packed nominal rows: 7 bitcells x level shifter), 127 and 129
             (either side of the 128-row block), 130 (ragged) and 2^20 (rows
@@ -107,7 +108,7 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             retention launches, the serve kernels' dispatches equal to their
             launches, outputs bit-equal with telemetry off, warm wall time
             off and on, and a warm ``explore`` profiled off and on with the
-            same launch count; the sanitizer: ``Compiler(sanitize=True)``'s
+            same launch and copy calls from the host; the sanitizer: ``Compiler(sanitize=True)``'s
             ``explore``, swept ``compose`` and ``simulate`` clean and
             bit-equal, their warm cost, a made NaN and an out-of-range
             gather raising on ``cuda:0`` (the gather before it launches:
@@ -115,7 +116,33 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             ``score_grid_corners`` at J = 65,536 x 4 slots (x the 4 named
             corners) over ``[cuda:0] x 2`` and ``x 4`` bit-equal to the
             plain call, and ``compose(sharded=True)`` on the one card equal
-            to ``compose()``.
+            to ``compose()``;
+19. bwd    the two backward kernels, through their autograd wrappers (one
+            launch a backward), against autograd of their plain versions
+            (``ref.attention_ref_grads``, ``ref.ssm_scan_ref_grads``):
+            attention at hymba-1.5b's training shapes (4, 25, 5, 1,128, 64)
+            in bf16 with window 1,024 and sink 128 and without a window, and
+            small shapes in bf16 and float32; the scan at (4, 1,128, 3,200,
+            16) and small shapes, float32; max|kernel - plain| / max|plain|
+            per gradient against ``RTOL_ATTN_BWD`` / ``RTOL_SSM_BWD``; each
+            kernel's time at the training shape beside its bound, the plain
+            backward's time and (attention) SDPA's backward's;
+20. train  hymba-1.5b at full width in bf16 (1,655,198,400 parameters from
+            ``--seed``): ``make_train_step(remat="full")`` with AdamW, lr
+            1e-3, warmup 2, on ``SyntheticLMData(cfg, 4, 1128, seed)``
+            (1,000 text + 128 meta tokens), 8 steps: every loss and
+            grad_norm finite; per step 64 launches of each forward kernel
+            (the layer recomputed in the backward), 32 of each backward
+            kernel, and no plain dispatch; first and warm step seconds,
+            tokens/s, peak memory, model FLOPs against the bf16 dense peak;
+            one warm step under ``torch.profiler`` (device busy share, top
+            kernels, idle gaps, the four kernels' shares);
+21. parity the reduced hymba (float32) on the card against the CPU with the
+            same weights: the loss and every gradient leaf within
+            ``RTOL_TRAIN_CPU``; a ``Supervisor`` run of 6 steps (checkpoints
+            every 2) with a failure injected at step 4, restored from its
+            checkpoint: parameters bit-equal to an uninjected run, the same
+            losses and the data stream at the same state.
 
 Each phase prints its seconds. It prints one ``{"kernels": [...]}`` line,
 then, last, the ``{"ok": true, "device": {...}}`` line.
@@ -158,7 +185,8 @@ OPS_PER_STEP = 4 * (26 + 4) + 21
 OPS_PER_CROSSING = 9 + 3
 EXP_PER_STEP, EXP_PER_CROSSING = 4 * 2, 1
 
-KERNELS = ("retention", "ssm_scan", "flash_attention")
+KERNELS = ("retention", "ssm_scan", "ssm_scan_bwd", "flash_attention",
+           "flash_attention_bwd")
 # phase 13: the corners of the retention kernel's corner checks
 KERNEL_CORNERS = ("hot", "cold", "low_vdd", (1.2, 233.0))
 # phase 15: the vdd sweep point of tests/golden/table2_vdd.json, the
@@ -237,6 +265,50 @@ SSM_SHAPES = [(1, 128, 256, 16), (2, 256, 512, 8), (1, 64, 1024, 16),
 ATTN_FLOPS_PER_SCORE_DIM = 4
 ATTN_ELEM_OPS_PER_SCORE = 5
 SSM_OPS_PER_STATE, SSM_OPS_PER_CHANNEL = 7, 3
+# ... and of the two backward kernels:
+# - flash attention backward: per visible score 2D flops each for S (p is
+#   not an input: it is recomputed), dP, dV, dK and dQ on the bf16 peak; 5
+#   fp32 ops per score (exp, the lse subtraction, dP - Delta, the product,
+#   the mask) and 2D per row for Delta on the fp32 peak; bytes: q, k, v, o,
+#   dO and lse read once, dq, dk, dv written once;
+# - selective scan backward: per (b, t, channel) and state, 16 fp32 ops
+#   (the state recomputed from the saved one: 2; the adjoint: 2; ddt's
+#   term: 4; dx's: 1; dA's: 3; dB's and dC's: 2 each) and one exponential
+#   (a_t), plus 4 per (b, t, channel) (dx, dD); bytes: x, dt, dy, B, C, A,
+#   D and the saved states read once, dx, ddt, dA, dB, dC, dD written once.
+ATTN_BWD_FLOPS_PER_SCORE_DIM = 10
+# the CUDA runtime and driver calls that put work on a stream, as
+# torch.profiler names them
+HOST_LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync",
+                     "cudaMemsetAsync"}
+SSM_BWD_OPS_PER_STATE, SSM_BWD_OPS_PER_CHANNEL = 16, 4
+# phase 19: the backward kernels against autograd of their plain versions,
+# max|kernel - plain| / max|plain| per gradient: bf16 attention (both round
+# dq, dk, dv to bf16; the kernel takes Delta from the bf16 o, the plain
+# version differentiates the float32 accumulator), fp32 attention and the
+# fp32 scan (summation order)
+RTOL_ATTN_BWD = {"float32": 2e-5, "bfloat16": 1e-2}
+RTOL_SSM_BWD = 1e-4
+# (B, H, K, S, D, window, sink, dtype): hymba-1.5b's training shapes (the
+# sliding-window layers; the global ones), and small shapes in both dtypes
+# (the reduced hymba's layer: window 16, 4 meta tokens, D 16)
+ATTN_BWD_CASES = [(4, 25, 5, 1128, 64, 1024, 128, "bfloat16"),
+                  (4, 25, 5, 1128, 64, None, 0, "bfloat16"),
+                  (2, 4, 2, 300, 64, 100, 20, "bfloat16"),
+                  (2, 4, 2, 300, 64, 100, 20, "float32"),
+                  (4, 4, 2, 68, 16, 16, 4, "float32")]
+# (B, S, di, n): hymba-1.5b's full width; the reduced hymba's scan; a di no
+# block divides and an S no saved-state interval divides
+SSM_BWD_SHAPES = [(4, 1128, 3200, 16), (4, 68, 128, 8), (2, 193, 200, 16)]
+# phase 20: full-width training of hymba-1.5b
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 1128, 8, 1e-3
+# phase 21: the reduced hymba's loss and every gradient leaf on the card
+# against the CPU (float32; the gap grows through the 4 random-weight
+# layers as it does between the port and JAX on the CPU, 3.9e-4 there:
+# tests/test_torch_train.py), and a supervised 6-step run with a failure
+# injected at step 4
+RTOL_TRAIN_CPU = {"loss": 1e-5, "grads": 2e-3}
 
 
 def fail(msg: str) -> None:
@@ -524,14 +596,23 @@ def profile_report(label, fn):
                if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
+    # the launch and copy calls as the host made them: the device trace can
+    # hold a few more or fewer records of the same calls from one profiled
+    # window to the next (a warm explore: 971 or 985 with the same 137
+    # copies and 88 gathers issued)
+    host_calls = sum(e.count for e in prof.key_averages()
+                     if e.device_type == DeviceType.CPU
+                     and e.key in HOST_LAUNCH_CALLS)
     print(f"profile: {label} {wall_s:.4f} s wall, device busy "
           f"{device_us / 1e3:.4f} ms ({device_us / 1e4 / wall_s:.2f} %) in "
-          f"{launches} kernel launches")
+          f"{launches} kernel launches ({host_calls} launch and copy calls "
+          f"from the host)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
         print(f"  {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
     return {"wall_s": wall_s, "device_ms": device_us / 1e3,
-            "launches": launches, "kernels": kernels}
+            "launches": launches, "host_calls": host_calls,
+            "kernels": kernels}
 
 
 def simulate_phase(ptable, seed: int):
@@ -971,10 +1052,12 @@ def observability_phase(ptable, cfg, params, prompt, launches_by_path,
                                    device="cuda", telemetry=on).explore())
             for on in (False, True)}
     obs.clear()
-    if prof[False]["launches"] != prof[True]["launches"]:
-        fail(f"telemetry adds launches: {prof[False]['launches']} off, "
-             f"{prof[True]['launches']} on")
+    if prof[False]["host_calls"] != prof[True]["host_calls"]:
+        fail(f"telemetry adds launches: {prof[False]['host_calls']} launch "
+             f"and copy calls off, {prof[True]['host_calls']} on (device "
+             f"records {prof[False]['launches']}, {prof[True]['launches']})")
     stats["telemetry"]["profiled_launches"] = prof[False]["launches"]
+    stats["telemetry"]["host_launch_calls"] = prof[False]["host_calls"]
     # the off path's host cost: what a disabled span and an unset sanitizer
     # switch cost per use, times the spans a call records when traced
     n = 100_000
@@ -1080,6 +1163,395 @@ def observability_phase(ptable, cfg, params, prompt, launches_by_path,
     print("grid: compose(sharded=True) on the one card is the plain call, "
           "reports equal", flush=True)
     return stats
+
+
+def attn_bwd_bound(B, H, K, S, D, itemsize, window=None, sink=0):
+    """(bound ms, 'bytes' | 'operations') of the attention backward,
+    counting only the scores the mask leaves."""
+    scores = B * H * visible_scores(S, window, sink)
+    t_mm = scores * ATTN_BWD_FLOPS_PER_SCORE_DIM * D / PEAK_BF16_TC
+    t_elem = (scores * ATTN_ELEM_OPS_PER_SCORE + 2 * B * H * S * D) \
+        / PEAK_FP32_OPS
+    t_bytes = ((6 * B * H * S * D + 4 * B * K * S * D) * itemsize
+               + 4 * B * H * S) / PEAK_BYTES
+    t_ops = max(t_mm, t_elem)
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ssm_bwd_bound(B, S, di, n, n_states):
+    """``least_time`` of the selective-scan backward, float32."""
+    ops = B * S * di * (SSM_BWD_OPS_PER_STATE * n + SSM_BWD_OPS_PER_CHANNEL)
+    nbytes = 4 * (5 * B * S * di + 4 * B * S * n + 2 * (di * n + di)
+                  + B * n_states * di * n)
+    return least_time(nbytes, ops, B * S * di * n)
+
+
+def rel_gaps(got, want):
+    """max|got - want| / max|want| of each pair."""
+    return [((g.float() - w.float()).abs().max()
+             / w.float().abs().max()).item() for g, w in zip(got, want)]
+
+
+def abs_err(got, want) -> float:
+    """The largest max|got - want| over the pairs."""
+    return max((g.float() - w.float()).abs().max().item()
+               for g, w in zip(got, want))
+
+
+def backward_kernels_phase(seed: int):
+    """Phase 19: each backward kernel through its autograd wrapper against
+    autograd of its plain version (see the module docstring), and its time
+    beside its bound, the plain backward's and (attention) SDPA's
+    backward's. Returns {name: stats}."""
+    import torch
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssm_scan as kssm
+    dev = torch.device("cuda")
+    out = {"flash_attention_bwd": {"max_rel_err": {}, "cases": []},
+           "ssm_scan_bwd": {"max_rel_err": 0.0, "cases": []}}
+    for B, H, K, S, D, window, sink, dtype in ATTN_BWD_CASES:
+        q, k, v = attn_inputs((B, H, K, S, D), getattr(torch, dtype), seed,
+                              dev)
+        do = attn_inputs((B, H, K, S, D), getattr(torch, dtype), seed + 1,
+                         dev)[0]
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        n0 = kflash.flash_attention_bwd.launches
+        o = kflash.flash_attention(*leaves, window=window, sink=sink,
+                                   round_p=False)
+        got = torch.autograd.grad(o, leaves, do)
+        want = ref.attention_ref_grads(q, k, v, do, window=window, sink=sink)
+        torch.cuda.synchronize()
+        if kflash.flash_attention_bwd.launches != n0 + 1:
+            fail("the attention backward did not launch its kernel once")
+        gaps = rel_gaps(got, want)
+        gate = RTOL_ATTN_BWD[dtype]
+        label = (f"flash_attention_bwd {(B, H, K, S, D)} {dtype} window="
+                 f"{window} sink={sink}")
+        print(f"kernel {label}: max|kernel - plain| / max|plain| dq "
+              f"{gaps[0]:.3e}, dk {gaps[1]:.3e}, dv {gaps[2]:.3e} (gate "
+              f"{gate})", flush=True)
+        if max(gaps) > gate or not all(torch.isfinite(g).all() for g in got):
+            fail(f"{label}: gradients {gaps} beyond {gate}")
+        err = out["flash_attention_bwd"]["max_rel_err"]
+        err[dtype] = max(err.get(dtype, 0.0), *gaps)
+        out["flash_attention_bwd"]["cases"].append(
+            {"case": [B, H, K, S, D, window, sink, dtype], "gaps": gaps,
+             "max_abs_err": abs_err(got, want)})
+        del leaves, o, got, want
+    for shape in SSM_BWD_SHAPES:
+        xs = ssm_inputs(shape, seed, dev)
+        dy = ssm_inputs(shape, seed + 1, dev)[0]
+        leaves = [t.clone().requires_grad_(True) for t in xs]
+        n0 = kssm.ssm_scan_bwd.launches
+        y, _ = kssm.ssm_scan(*leaves)
+        got = torch.autograd.grad(y, leaves, dy)
+        want = ref.ssm_scan_ref_grads(*xs, dy)
+        torch.cuda.synchronize()
+        if kssm.ssm_scan_bwd.launches != n0 + 1:
+            fail("the scan backward did not launch its kernel once")
+        gaps = rel_gaps(got, want)
+        print(f"kernel ssm_scan_bwd {shape}: max|kernel - plain| / "
+              f"max|plain| dx {gaps[0]:.3e}, ddt {gaps[1]:.3e}, dA "
+              f"{gaps[2]:.3e}, dB {gaps[3]:.3e}, dC {gaps[4]:.3e}, dD "
+              f"{gaps[5]:.3e} (gate {RTOL_SSM_BWD})", flush=True)
+        if max(gaps) > RTOL_SSM_BWD or \
+                not all(torch.isfinite(g).all() for g in got):
+            fail(f"ssm_scan_bwd {shape}: gradients {gaps} beyond "
+                 f"{RTOL_SSM_BWD}")
+        out["ssm_scan_bwd"]["max_rel_err"] = max(
+            out["ssm_scan_bwd"]["max_rel_err"], *gaps)
+        out["ssm_scan_bwd"]["cases"].append({"shape": list(shape),
+                                             "gaps": gaps,
+                                             "max_abs_err": abs_err(got,
+                                                                    want)})
+        del leaves, y, got, want
+
+    # times at the training shapes: the kernel alone, the plain backward
+    # (autograd of the plain forward, the forward excluded) and SDPA's
+    for B, H, K, S, D, window, sink, dtype in ATTN_BWD_CASES[:2]:
+        q, k, v = attn_inputs((B, H, K, S, D), torch.bfloat16, seed, dev)
+        do = attn_inputs((B, H, K, S, D), torch.bfloat16, seed + 1, dev)[0]
+        o, lse = kflash._forward(q, k, v, True, window, sink, False,
+                                 with_lse=True)
+        ms = time_ms(lambda: kflash.flash_attention_bwd(
+            q, k, v, o, do, lse, True, window, sink), 20, 3)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o_plain = ref.attention_ref(*leaves, window=window, sink=sink,
+                                    round_p=False)
+        plain_ms = time_ms(lambda: torch.autograd.grad(
+            o_plain, leaves, do, retain_graph=True), 3, 1)
+        o_lib = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, is_causal=True, enable_gqa=True)
+        lib_ms = time_ms(lambda: torch.autograd.grad(
+            o_lib, leaves, do, retain_graph=True), 20, 3)
+        b_ms, b_by = attn_bwd_bound(B, H, K, S, D, 2, window, sink)
+        label = "SWA" if window else "global"
+        out["flash_attention_bwd"][label] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+        print(f"timing flash_attention_bwd {(B, H, K, S, D)} bf16 {label} "
+              f"(window {window}, sink {sink}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, SDPA backward (causal, GQA; the mask is "
+              f"the same at this S) {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})", flush=True)
+        del leaves, o_plain, o_lib
+    shape = SSM_BWD_SHAPES[0]
+    xs = ssm_inputs(shape, seed, dev)
+    dy = ssm_inputs(shape, seed + 1, dev)[0]
+    _, _, states = kssm._forward(*xs, with_states=True)
+    ms = time_ms(lambda: kssm.ssm_scan_bwd(*xs, states, dy), 20, 3)
+    leaves = [t.clone().requires_grad_(True) for t in xs]
+    y_plain, _ = ref.ssm_scan_ref(*leaves)
+    plain_ms = time_ms(lambda: torch.autograd.grad(
+        y_plain, leaves, dy, retain_graph=True), 2, 1)
+    b_ms, b_by, terms = ssm_bwd_bound(*shape, states.shape[1])
+    out["ssm_scan_bwd"].update({"ms": ms, "plain_ms": plain_ms,
+                                "library_ms": None, "bound_ms": b_ms,
+                                "bound_by": b_by, "bound_terms_ms": terms,
+                                "shape": list(shape)})
+    print(f"timing ssm_scan_bwd {shape}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; bytes "
+          f"{terms['bytes']:.4f}, operations {terms['operations']:.4f}); "
+          f"no single PyTorch call computes it", flush=True)
+    del leaves, y_plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def device_gaps(prof, top: int = 3):
+    """(idle ms between device kernels inside the traced window, the
+    ``top`` longest idle gaps in ms) from a ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    gaps, end = [], None
+    for start, stop in spans:
+        if end is not None and start > end:
+            gaps.append((start - end) / 1e3)
+        end = stop if end is None else max(end, stop)
+    return sum(gaps), sorted(gaps, reverse=True)[:top]
+
+
+def model_flops(cfg, batch: int, seq: int) -> float:
+    """FLOPs of one training step of hymba at (batch, seq): 6 per matrix
+    weight per token (forward and backward; the head over the text
+    positions that predict), plus the attention's 3 x 4 D per visible score
+    per head. Remat's recomputation is not counted (model FLOPs)."""
+    from repro_torch.models import LM
+    spec = LM(cfg, device="meta").init()
+    mats = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "w_in", "w_dt1",
+            "w_dt2", "w_B", "w_C", "w_out")
+
+    def count(tree):
+        if isinstance(tree, dict):
+            return sum(count(v) if isinstance(v, dict) else
+                       (v.numel() if k in mats else 0)
+                       for k, v in tree.items())
+        return 0
+    body = sum(count(spec[seg]) for seg in spec if isinstance(spec[seg],
+                                                                dict))
+    text = seq - cfg.meta_tokens
+    flops = 6 * body * batch * seq + 6 * spec["head"].numel() * batch * (
+        text - 1)
+    for i in range(cfg.num_layers):
+        window = None if i in cfg.full_attn_every else cfg.window
+        sink = 0 if window is None else cfg.meta_tokens
+        flops += 3 * 4 * cfg.head_dim * cfg.num_heads * batch * \
+            visible_scores(seq, window, sink)
+    return float(flops)
+
+
+def training_phase(seed: int, smi: str):
+    """Phase 20: full-width hymba-1.5b trained for ``TRAIN_STEPS`` steps
+    (see the module docstring). Returns its stats."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ssm_scan as kssm
+    from repro_torch.train.step import init_train_state, make_train_step
+    dev = torch.device("cuda")
+    cfg = get_config("hymba-1.5b")
+    routes = {"flash_attention": kflash.flash_attention,
+              "flash_attention_bwd": kflash.flash_attention_bwd,
+              "ssm_scan": kssm.ssm_scan, "ssm_scan_bwd": kssm.ssm_scan_bwd}
+    plain = ("kernels.dispatch.flash_attention.plain",
+             "kernels.dispatch.ssm_scan.plain")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, step = make_train_step(cfg, base_lr=TRAIN_LR, warmup=2,
+                              total_steps=TRAIN_STEPS, remat="full",
+                              device=dev)
+    params, opt = init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    n_params = sum(t.numel() for t in to_leaves(params))
+    data = SyntheticLMData(cfg, TRAIN_BATCH, TRAIN_SEQ, seed)
+    plain0 = [obs.value(c) for c in plain]
+    for fn in routes.values():
+        fn.launches = 0
+    rows = []
+    for i in range(TRAIN_STEPS):
+        before = {k: fn.launches for k, fn in routes.items()}
+        batch = data.next_batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch, i)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        rows.append({"s": time.perf_counter() - t0, "loss": loss,
+                     "grad_norm": gnorm, "lr": m["lr"],
+                     "launches": {k: fn.launches - before[k]
+                                  for k, fn in routes.items()}})
+        print(f"train step {i}: loss {loss:.6f}, grad_norm {gnorm:.6e}, lr "
+              f"{m['lr']:.3e}, {rows[-1]['s']:.4f} s, launches "
+              f"{rows[-1]['launches']}", flush=True)
+        if not np.isfinite(loss) or not np.isfinite(gnorm):
+            fail(f"training step {i}: loss {loss}, grad_norm {gnorm}")
+    launches = {k: fn.launches for k, fn in routes.items()}
+    plain_calls = [obs.value(c) - v for c, v in zip(plain, plain0)]
+    L = cfg.num_layers
+    want = {"flash_attention": 2 * L, "flash_attention_bwd": L,
+            "ssm_scan": 2 * L, "ssm_scan_bwd": L}
+    bad = [r["launches"] for r in rows if r["launches"] != want]
+    if bad or any(plain_calls):
+        fail(f"training launches a step {bad or rows[0]['launches']} "
+             f"(expected {want}: the forward kernels twice a layer under "
+             f"remat='full'), plain dispatches {plain_calls}")
+    peak = torch.cuda.max_memory_allocated()
+    warm = float(np.median([r["s"] for r in rows[1:]]))
+    flops = model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    stats = {"params": n_params, "first_s": rows[0]["s"], "warm_s": warm,
+             "tokens_per_s": tokens / warm,
+             "text_tokens_per_s": TRAIN_BATCH * (TRAIN_SEQ - cfg.meta_tokens)
+             / warm, "peak_bytes": peak, "model_flops": flops,
+             "mfu": flops / warm / PEAK_BF16_TC, "steps": rows,
+             "launches": launches, "plain_dispatches": plain_calls}
+    print(f"train: {cfg.name} {n_params:,} parameters (bf16), remat full, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens ({cfg.meta_tokens} meta): "
+          f"step {rows[0]['s']:.4f} s first, {warm:.4f} s warm (median of "
+          f"{len(rows) - 1}); {tokens / warm:,.0f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; model FLOPs {flops:.4e} a step, "
+          f"{100 * stats['mfu']:.2f} % of the bf16 dense peak; launches "
+          f"{launches}, plain dispatches {plain_calls}; {smi}", flush=True)
+    batch = data.next_batch()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch, TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    idle, longest = device_gaps(prof)
+    stats["profile"] = {"wall_s": wall, "device_ms": busy,
+                        "launches": sum(e.count for e in kernels),
+                        "idle_ms": idle, "longest_gaps_ms": longest}
+    print(f"profile: warm train step {wall:.4f} s wall, device busy "
+          f"{busy:.2f} ms ({busy / 10 / wall:.2f} %) in "
+          f"{stats['profile']['launches']} kernel launches; idle between "
+          f"kernels {idle:.2f} ms, longest gaps {[round(g, 3) for g in longest]}"
+          f" ms", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+    for label, keys in (("attention forward", ("flash_kernel",)),
+                        ("attention backward", ("delta_kernel",
+                                                "dkdv_kernel", "dq_kernel")),
+                        ("scan forward", ("ssm_scan_kernel",)),
+                        ("scan backward", ("ssm_scan_bwd",))):
+        own = [e for e in kernels if any(k in e.key for k in keys)]
+        own_ms = sum(e.self_device_time_total for e in own) / 1e3
+        stats["profile"][label] = own_ms
+        print(f"profile: train step {label} {own_ms:.3f} ms in "
+              f"{sum(e.count for e in own)} launches, "
+              f"{100 * own_ms / busy:.2f} % of the device time", flush=True)
+    del params, opt, step
+    torch.cuda.empty_cache()
+    return stats
+
+
+def training_parity_phase(seed: int):
+    """Phase 21: the reduced hymba's loss and gradients on the card against
+    the CPU, and a supervised run restarted from its checkpoint (see the
+    module docstring). Returns its stats."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.checkpoint.ckpt import Checkpointer
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import LM
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.runtime.supervisor import Supervisor, SupervisorConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    rcfg = reduce_config(get_config("hymba-1.5b"))
+    cpu_params = LM(rcfg, device="cpu").init(
+        torch.Generator().manual_seed(seed))
+    batch = SyntheticLMData(rcfg, 4, 68, seed).next_batch()
+    runs = {}
+    for where in ("cuda", "cpu"):
+        p = convert.lm_params_from_numpy(
+            rcfg, convert.lm_params_to_numpy(cpu_params), device=where)
+        flat = leaves(p)
+        for t in flat:
+            t.requires_grad_(True)
+        loss, _ = LM(rcfg, device=where).loss(p, batch)
+        runs[where] = (loss.item(), [g.cpu() for g in torch.autograd.grad(
+            loss, flat)])
+    loss_gap = abs(runs["cuda"][0] - runs["cpu"][0]) / abs(runs["cpu"][0])
+    grad_gap = max(rel_gaps(runs["cuda"][1], runs["cpu"][1]))
+    print(f"train parity: reduced hymba (float32, 4 x 68 tokens) card vs "
+          f"CPU: loss {loss_gap:.3e} (gate {RTOL_TRAIN_CPU['loss']}), worst "
+          f"of {len(runs['cpu'][1])} gradient leaves {grad_gap:.3e} (gate "
+          f"{RTOL_TRAIN_CPU['grads']})", flush=True)
+    if loss_gap > RTOL_TRAIN_CPU["loss"] or grad_gap > RTOL_TRAIN_CPU["grads"]:
+        fail(f"reduced hymba training card vs CPU: loss {loss_gap:.3e}, "
+             f"gradients {grad_gap:.3e}")
+
+    def supervised(directory, fail_at=None, steps=6):
+        _, step = make_train_step(rcfg, base_lr=1e-3, warmup=2,
+                                  total_steps=steps, device="cuda")
+        params, opt = init_train_state(
+            rcfg, torch.Generator(device="cuda").manual_seed(seed),
+            device="cuda")
+        data = SyntheticLMData(rcfg, 4, 68, seed)
+        tripped = []
+
+        def inject(s):
+            if s == fail_at and not tripped:
+                tripped.append(s)
+                raise RuntimeError("injected fault")
+        sup = Supervisor(step, Checkpointer(directory, keep=3),
+                         SupervisorConfig(ckpt_every=2),
+                         failure_injector=inject)
+        params, _, report = sup.run(params, opt, data, total_steps=steps)
+        return params, report, data.state.to_dict()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clean, clean_rep, clean_data = supervised(Path(tmp) / "clean")
+        hurt, hurt_rep, hurt_data = supervised(Path(tmp) / "hurt", fail_at=4)
+    same = all(torch.equal(a, b) for a, b in zip(leaves(hurt),
+                                                  leaves(clean)))
+    print(f"train supervisor: 6 steps, failure injected at step 4: "
+          f"{hurt_rep.restarts} restart, {hurt_rep.steps_run} steps run, "
+          f"data state {hurt_data} (uninjected {clean_data}), losses equal "
+          f"{hurt_rep.losses == clean_rep.losses}, parameters bit-equal to "
+          f"the uninjected run {same}", flush=True)
+    if not (same and hurt_rep.restarts == 1 and hurt_data == clean_data
+            and hurt_rep.losses == clean_rep.losses):
+        fail("the supervisor's restart did not resume training bit for bit")
+    return {"loss_gap": loss_gap, "grad_gap": grad_gap,
+            "restarts": hurt_rep.restarts, "bit_equal": same,
+            "losses": clean_rep.losses}
 
 
 def main() -> int:
@@ -1683,6 +2155,23 @@ def main() -> int:
     observability = observability_phase(ptable, cfg, params, prompt,
                                          launches_by_path, args.seed)
     phase_done(18, "telemetry, sanitizer, grid", t_phase)
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # 19. the backward kernels against their plain versions -----------------
+    t_phase = time.perf_counter()
+    bwd = backward_kernels_phase(args.seed)
+    phase_done(19, "backward kernels", t_phase)
+
+    # 20. train hymba-1.5b at full width -------------------------------------
+    t_phase = time.perf_counter()
+    train = training_phase(args.seed, smi)
+    phase_done(20, "train", t_phase)
+
+    # 21. training on the card against the CPU, and the supervisor ----------
+    t_phase = time.perf_counter()
+    train_parity = training_parity_phase(args.seed)
+    phase_done(21, "train parity, supervisor", t_phase)
 
     main_shape = shapes["main"]
     warm = serve["warm"]
@@ -1716,7 +2205,8 @@ def main() -> int:
         "bound_ms": main_attn["bound_ms"],
         "bound_by": main_attn["bound_by"], "library_ms": attn_lib_ms,
         "shape": [B, H, K, S, D], "window": cfg.window,
-        "sink": cfg.meta_tokens, "modes": attn_timing}, {
+        "sink": cfg.meta_tokens, "modes": attn_timing,
+        "train_launches": train["launches"]["flash_attention"]}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:50",
@@ -1724,7 +2214,41 @@ def main() -> int:
         "tol": TOL_SSM, "ms": ssm_ms, "plain_ms": ssm_plain_ms,
         "bound_ms": ssm_bound_ms, "bound_by": ssm_bound_by,
         "library_ms": None, "bound_terms_ms": ssm_terms,
-        "shape": [B, S, di, n]}]}))
+        "shape": [B, S, di, n],
+        "train_launches": train["launches"]["ssm_scan"]}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:110",
+        "gradient_of": "causal_attention, by autodiff in the JAX model; the "
+                       "TPU kernel src/repro/kernels/flash_attention.py:68 "
+                       "is forward only",
+        "launches": train["launches"]["flash_attention_bwd"],
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in bwd["flash_attention_bwd"]["cases"]),
+        "max_rel_err": bwd["flash_attention_bwd"]["max_rel_err"],
+        "rtol": RTOL_ATTN_BWD, "cases": bwd["flash_attention_bwd"]["cases"],
+        "ms": bwd["flash_attention_bwd"]["SWA"]["ms"],
+        "plain_ms": bwd["flash_attention_bwd"]["SWA"]["plain_ms"],
+        "bound_ms": bwd["flash_attention_bwd"]["SWA"]["bound_ms"],
+        "bound_by": bwd["flash_attention_bwd"]["SWA"]["bound_by"],
+        "library_ms": bwd["flash_attention_bwd"]["SWA"]["library_ms"],
+        "global": bwd["flash_attention_bwd"]["global"],
+        "shape": [B, H, K, S, D], "train": train}, {
+        "name": "ssm_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:78",
+        "gradient_of": "ssm_scan_chunked, by autodiff in the JAX model; the "
+                       "TPU kernel src/repro/kernels/ssm_scan.py:50 is "
+                       "forward only",
+        "launches": train["launches"]["ssm_scan_bwd"],
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in bwd["ssm_scan_bwd"]["cases"]),
+        "max_rel_err": bwd["ssm_scan_bwd"]["max_rel_err"],
+        "rtol": RTOL_SSM_BWD, "cases": bwd["ssm_scan_bwd"]["cases"],
+        **{k: bwd["ssm_scan_bwd"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "bound_terms_ms", "shape")},
+        "train_parity": train_parity}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

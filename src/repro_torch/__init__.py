@@ -19,7 +19,11 @@ A port of the JAX package ``repro`` that imports neither ``jax`` nor
 - hymba-1.5b serving (``models``, ``serve``, ``launch.serve``): prefill with
   decode caches and batched decode, with the global-attention prefill in
   ``kernels/csrc/flash_attention.cu`` and the SSM prefill scan in
-  ``kernels/csrc/ssm_scan.cu``.
+  ``kernels/csrc/ssm_scan.cu``;
+- hymba-1.5b training (``LM.loss``, ``optim``, ``train``, ``data``,
+  ``checkpoint``, ``runtime``, ``launch.train``), with the two kernels'
+  gradients in ``kernels/csrc/flash_attention_bwd.cu`` and
+  ``kernels/csrc/ssm_scan_bwd.cu``.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` (see ``repro_torch.device``).

@@ -4,9 +4,11 @@ The compiler's state is its physics catalog: the device stack
 (``DEVICE_STACK``), the bitcell stack (``stack_bitcells()``) and the
 retention time grid, and what it characterizes from them, a
 ``DesignTable``. The language models' state is their parameter tree
-(``LM.init``). These functions take them as numpy arrays and return the
-port's objects, so a caller can check that both packages compute from the
-same catalog, the same table and the same weights.
+(``LM.init``) and, in training, the AdamW state (``optim.adamw``). These
+functions take them as numpy arrays and return the port's objects, so a
+caller can check that both packages compute from the same catalog, the
+same table, the same weights and the same optimizer state; the
+``*_to_numpy`` functions carry the port's weights and state back.
 """
 from __future__ import annotations
 
@@ -112,3 +114,65 @@ def lm_params_from_numpy(cfg, tree: Mapping[str, Any],
         return _lm_tensor(node, path, want, dev)
 
     return walk(tree, spec, "")
+
+
+_NP_OF = {torch.float32: np.float32, torch.int8: np.int8,
+          torch.int32: np.int32}
+
+
+def _state_tensor(array, path: str, want: torch.Tensor,
+                  device: torch.device) -> torch.Tensor:
+    array = np.asarray(array)
+    if array.dtype != _NP_OF.get(want.dtype):
+        raise TypeError(f"{path}: expected {want.dtype}, got {array.dtype}")
+    if tuple(array.shape) != tuple(want.shape):
+        raise ValueError(f"{path}: expected shape {tuple(want.shape)}, got "
+                         f"{tuple(array.shape)}")
+    return torch.from_numpy(array.copy()).to(device)
+
+
+def adamw_state_from_numpy(cfg, tree: Mapping[str, Any], acfg=None,
+                           device: DeviceLike = None):
+    """The reference's ``adamw_init``/``adamw_update`` state for
+    ``LM(cfg)``'s parameters (``{"m", "v", "count"}``, moments float32 or,
+    with ``acfg.quantized``, ``{"q": int8, "scale": float32}``), as nested
+    dicts of numpy arrays, as the port's state on ``device``. Names, shapes
+    and dtypes must match the port's ``adamw_init`` exactly."""
+    from repro_torch.models import LM
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    dev = resolve_device(device)
+    spec = adamw_init(LM(cfg, device="meta").init(), acfg or AdamWConfig())
+
+    def walk(node, want, path):
+        if isinstance(want, dict):
+            if not isinstance(node, Mapping) or set(node) != set(want):
+                got = sorted(node) if isinstance(node, Mapping) else type(node)
+                raise KeyError(f"{path or 'state'}: expected keys "
+                               f"{sorted(want)}, got {got}")
+            return {k: walk(node[k], want[k], f"{path}/{k}") for k in want}
+        if isinstance(node, Mapping):
+            raise KeyError(f"{path}: expected an array, got keys "
+                           f"{sorted(node)} (a quantized moment?)")
+        return _state_tensor(node, path, want, dev)
+
+    return walk(tree, spec, "")
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+
+def lm_params_to_numpy(params):
+    """The port's parameters as nested dicts of numpy arrays, the layout
+    ``lm_params_from_numpy`` takes (bfloat16 leaves widened to float32,
+    exactly: numpy has no bfloat16)."""
+    return _to_numpy(params)
+
+
+def adamw_state_to_numpy(state):
+    """The port's AdamW state as nested dicts of numpy arrays, the layout
+    ``adamw_state_from_numpy`` takes."""
+    return _to_numpy(state)

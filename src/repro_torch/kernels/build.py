@@ -50,12 +50,15 @@ def nvcc() -> str:
 
 
 def build_library(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source and
-    flags is already built; return the library's path. The compiler's
-    report (``-Xptxas -v``: registers, shared memory, spills) is kept beside
-    it as ``.log``."""
+    """Compile ``csrc/<name>.cu`` unless a library of the same source,
+    headers (``csrc/*.cuh``) and flags is already built; return the
+    library's path. The compiler's report (``-Xptxas -v``: registers, shared
+    memory, spills) is kept beside it as ``.log``."""
     src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    key = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     lib = BUILD_DIR / f"{name}_{key.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
@@ -93,11 +96,17 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 LAUNCH_ARGTYPES = {
     # params_t, ts, out, B, n_steps, ut, inv_ut, stream
     "retention": [_P, _P, _P, _I64, _I, _F, _F, _P],
-    # x, dt, A, Bc, Cc, D, y, h_final, B, S, di, n, stream
-    "ssm_scan": [_P] * 8 + [_I] * 4 + [_P],
-    # q, k, v, o, B, H, K, S, Sk, D, scale, bf16, causal, window, sink,
+    # x, dt, A, Bc, Cc, D, y, h_final, states, B, S, di, n, stream
+    "ssm_scan": [_P] * 9 + [_I] * 4 + [_P],
+    # x, dt, A, Bc, Cc, D, states, dy, dh_final, dx, ddt, dA, dB, dC, dD,
+    # scratch, scratch_floats, B, S, di, n, stream
+    "ssm_scan_bwd": [_P] * 16 + [_I64] + [_I] * 4 + [_P],
+    # q, k, v, o, lse, B, H, K, S, Sk, D, scale, bf16, causal, window, sink,
     # round_p, stream
-    "flash_attention": [_P] * 4 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    "flash_attention": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    # q, k, v, o, dO, lse, delta, dq, dk, dv, B, H, K, S, Sk, D, scale, bf16,
+    # causal, window, sink, stream
+    "flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
 }
 
 

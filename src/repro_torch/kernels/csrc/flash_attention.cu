@@ -16,7 +16,11 @@
 //     (round_p = 1, the TPU kernel's), or kept at fp32 precision (round_p =
 //     0, what the model's blocked computation does).
 // The plain PyTorch version is repro_torch/kernels/ref.py::attention_ref,
-// which uses the same kv tile width and mask.
+// which uses the same kv tile width and mask. When asked (a non-null lse
+// pointer: the training call), it also writes each row's log-sum-exp, from
+// which flash_attention_bwd.cu recomputes p; the serving call does not ask.
+// The tile sizes, the mask, the tile walk and the mma helpers are in
+// flash_attention.cuh, shared with the backward.
 //
 // What bounds it on this card: at hymba's prefill shape (4, 25, 5, 1128, 64)
 // the causal work is ~16 GFLOP on ~35 MB, far above the bytes-per-op ridge,
@@ -65,142 +69,15 @@
 // first real key arrives. IEEE expf in the fp32 kernel, no
 // --use_fast_math anywhere.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_attention.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // q rows per block
-constexpr int kBK = 64;        // kv rows per tile (ref.BLOCK_K)
-// -0.7 * FLT_MAX, rounded once from double, as the plain version has it
-constexpr float kNeg = static_cast<float>(-0.7 * 3.4028234663852886e38);
-constexpr float kLog2e = 1.4426950408889634f;
-
-// the mask, with window <= 0 meaning no window
-struct Mask {
-  int Sk, causal, window, sink;
-  __device__ __forceinline__ bool visible(int r, int c) const {
-    return c < Sk && (!causal || (c <= r && (window <= 0 || r - c < window ||
-                                             c < sink)));
-  }
-  // whether some (row, key) of the tile (q0.., k0..) is masked
-  __device__ __forceinline__ bool partial(int q0, int k0) const {
-    if (k0 + kBK > Sk) return true;
-    if (!causal) return false;
-    if (k0 + kBK - 1 > q0) return true;
-    return window > 0 && q0 + kBQ - 1 - k0 >= window && k0 + kBK > sink;
-  }
-};
-
-// the kv tiles a q tile visits, in increasing order: tile i < n_sink is i,
-// the others first + (i - n_sink)
-struct Tiles {
-  int n_sink, first, n;
-  __device__ __forceinline__ int operator[](int i) const {
-    return i < n_sink ? i : first + (i - n_sink);
-  }
-};
-
-__device__ __forceinline__ Tiles tiles_of(const Mask& mk, int q0, int S) {
-  int hi = (mk.Sk + kBK - 1) / kBK - 1;
-  int first = 0, n_sink = 0;
-  if (mk.causal) {
-    hi = min(hi, (min(q0 + kBQ, S) - 1) / kBK);
-    if (mk.window > 0) {
-      first = max(0, q0 - mk.window + 1) / kBK;
-      n_sink = min((mk.sink + kBK - 1) / kBK, first);
-    }
-  }
-  return Tiles{n_sink, first, n_sink + max(hi - first + 1, 0)};
-}
-
-// ---------------------------------------------------------------------------
-// bf16: tensor cores
-// ---------------------------------------------------------------------------
-
-constexpr int kWarps = 4;
-constexpr int kThreadsTC = 32 * kWarps;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes = 0 fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> bf16x2, the first in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// the part of each float that bf16 rounding dropped, as bf16x2
-__device__ __forceinline__ uint32_t pack_bf16_residual(float lo, float hi,
-                                                       uint32_t rounded) {
-  const __nv_bfloat162 r = *reinterpret_cast<const __nv_bfloat162*>(&rounded);
-  return pack_bf16(lo - __bfloat162float(r.x), hi - __bfloat162float(r.y));
-}
-
-constexpr int kPad = 8;  // row pitch D + kPad bf16: rows 16 bytes apart
+using namespace fa;
 
 template <int D>
 constexpr size_t smem_bytes_tc() {
   return sizeof(__nv_bfloat16) * (D + kPad) * (kBQ + 4 * kBK);
-}
-
-// 64 rows of D bf16 from rows [row0, row0 + 64) of src (n_rows rows) into
-// dst with pitch D + kPad; rows past n_rows are zero-filled
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int n_rows, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks a row
-  constexpr int LD = D + kPad;
-  for (int i = tid; i < kBK * kChunks; i += kThreadsTC) {
-    const int r = i / kChunks, c = i % kChunks;
-    const bool in = row0 + r < n_rows;
-    const __nv_bfloat16* s =
-        src + static_cast<long long>(in ? row0 + r : 0) * D + c * 8;
-    cp_async16(smem_u32(dst + r * LD + c * 8), s, in ? 16 : 0);
-  }
 }
 
 template <int D, bool kSplitP>
@@ -209,6 +86,7 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
                 const __nv_bfloat16* __restrict__ k,   // (B, K, Sk, D)
                 const __nv_bfloat16* __restrict__ v,   // (B, K, Sk, D)
                 __nv_bfloat16* __restrict__ o,         // (B, H, S, D)
+                float* __restrict__ lse,               // (B, H, S) or null
                 int H, int K, int S, Mask mk, float scale) {
   constexpr int LD = D + kPad;
   constexpr int NT = kBK / 8;    // score n-tiles of 8 keys
@@ -372,6 +250,9 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
     const int row = row0 + 8 * h;
     if (row >= S) continue;
     const float denom = fmaxf(l[h], 1e-30f);
+    // m is the unscaled row max: p = exp((s - m) * scale)
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[static_cast<long long>(bh) * S + row] = m[h] * scale + logf(denom);
 #pragma unroll
     for (int j = 0; j < NO; ++j)
       *reinterpret_cast<__nv_bfloat162*>(
@@ -399,6 +280,7 @@ flash_kernel_f32(const float* __restrict__ q,   // (B, H, S, D)
                  const float* __restrict__ k,   // (B, K, Sk, D)
                  const float* __restrict__ v,   // (B, K, Sk, D)
                  float* __restrict__ o,         // (B, H, S, D)
+                 float* __restrict__ lse,       // (B, H, S) or null
                  int H, int K, int S, Mask mk, float scale) {
   extern __shared__ float smem[];
   constexpr int LD = D + 1;
@@ -493,6 +375,9 @@ flash_kernel_f32(const float* __restrict__ q,   // (B, H, S, D)
 
   if (row < S) {
     const float denom = fmaxf(l, 1e-30f);
+    // m is the scaled row max: p = exp(s * scale - m)
+    if (lse != nullptr && c4 == 0)
+      lse[static_cast<long long>(bh) * S + row] = m + logf(denom);
 #pragma unroll
     for (int j = 0; j < D / 4; ++j)
       op[static_cast<long long>(row) * D + c4 + 4 * j] = acc[j] / denom;
@@ -505,8 +390,8 @@ flash_kernel_f32(const float* __restrict__ q,   // (B, H, S, D)
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int K, int S, Mask mk, float scale, int bf16,
-                   int round_p, cudaStream_t stream) {
+                   float* lse, int B, int H, int K, int S, Mask mk,
+                   float scale, int bf16, int round_p, cudaStream_t stream) {
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
   if (!bf16) {
     constexpr size_t smem = smem_bytes_f32<D>();
@@ -516,8 +401,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return err;
     flash_kernel_f32<D><<<grid, kThreadsF, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), H, K, S, mk,
-        scale);
+        static_cast<const float*>(v), static_cast<float*>(o), lse, H, K, S,
+        mk, scale);
     return cudaGetLastError();
   }
   constexpr size_t smem = smem_bytes_tc<D>();
@@ -530,7 +415,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      H, K, S, mk, scale);
+      lse, H, K, S, mk, scale);
   return cudaGetLastError();
 }
 
@@ -541,8 +426,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // must be 16, 32, 64, 96 or 128, and H a multiple of K. window <= 0 means
 // no window (and sink is then ignored); window and sink apply only with
 // causal != 0. round_p != 0 rounds p to v's dtype before the PV product.
+// lse (B, H, S) fp32, when not null, receives each row's log-sum-exp of the
+// scaled scores, m + log(l), which the backward (flash_attention_bwd.cu)
+// recomputes p from; the serving call passes null.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int B, int H,
+                                      const void* v, void* o, float* lse,
+                                      int B, int H,
                                       int K, int S, int Sk, int D,
                                       float scale, int bf16, int causal,
                                       int window, int sink, int round_p,
@@ -553,11 +442,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Mask mk{Sk, causal, window, sink};
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, B, H, K, S, mk, scale, bf16, round_p, s);
-    case 32: return launch<32>(q, k, v, o, B, H, K, S, mk, scale, bf16, round_p, s);
-    case 64: return launch<64>(q, k, v, o, B, H, K, S, mk, scale, bf16, round_p, s);
-    case 96: return launch<96>(q, k, v, o, B, H, K, S, mk, scale, bf16, round_p, s);
-    case 128: return launch<128>(q, k, v, o, B, H, K, S, mk, scale, bf16, round_p, s);
+    case 16: return launch<16>(q, k, v, o, lse, B, H, K, S, mk, scale, bf16, round_p, s);
+    case 32: return launch<32>(q, k, v, o, lse, B, H, K, S, mk, scale, bf16, round_p, s);
+    case 64: return launch<64>(q, k, v, o, lse, B, H, K, S, mk, scale, bf16, round_p, s);
+    case 96: return launch<96>(q, k, v, o, lse, B, H, K, S, mk, scale, bf16, round_p, s);
+    case 128: return launch<128>(q, k, v, o, lse, B, H, K, S, mk, scale, bf16, round_p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

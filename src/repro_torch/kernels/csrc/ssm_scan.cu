@@ -5,8 +5,11 @@
 //   h_j = exp(dt_t * A[d, j]) * h_j + (dt_t * x_t) * B[b, t, j]
 //   y[b, t, d] = sum_j h_j * C[b, t, j] + D[d] * x_t
 // and, unlike the TPU kernel, it also writes the final state h_final (B, di,
-// n), which the model keeps as the decode cache. The plain PyTorch version
-// is repro_torch/kernels/ref.py::ssm_scan_ref.
+// n), which the model keeps as the decode cache, and, when asked (the
+// training call), the state entering every kStateEvery = 64-th step, from
+// which the backward (ssm_scan_bwd.cu) recomputes the rest. The plain
+// PyTorch version is repro_torch/kernels/ref.py::ssm_scan_ref. The step's
+// arithmetic (ex2 and one FMA) is in ssm_scan.cuh, shared with the backward.
 //
 // What bounds it: the bytes. The function reads x and dt and writes y once,
 // 12 bytes per (batch, step, channel) (175 MB, 0.052 ms at hymba's prefill
@@ -53,16 +56,15 @@
 // sequential grid axis in VMEM; here the time loop is inside the thread.
 // No --use_fast_math.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "ssm_scan.cuh"
 
 namespace {
 
-constexpr int kGroup = 2;           // lanes per channel (power of 2)
-constexpr int kThreads = 64;        // threads per block
+using namespace ssm;
+
 constexpr int kChunk = 32;          // timesteps staged per round
 constexpr int kBatch = 8;           // timesteps a batch of loads and exps
-constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kStateEvery % kChunk == 0, "a saved state starts a round");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -82,13 +84,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// 2^x, so exp(dt * A) for x = dt * A * log2(e)
-__device__ __forceinline__ float exp_of(float x) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
-  return r;
 }
 
 // NL consecutive floats of shared memory into registers, 16 bytes a load
@@ -170,7 +165,7 @@ __device__ __forceinline__ void scan_steps(const Stage<N, CH>& s, int t,
     acc[u] = 0.0f;
 #pragma unroll
     for (int j = 0; j < NL; ++j) {
-      h[j] = e[u][j] * h[j] + dtx * bv[u][j];
+      h[j] = scan_step(e[u][j], h[j], dtx, bv[u][j]);
       acc[u] += h[j] * cv[u][j];
     }
   }
@@ -187,14 +182,10 @@ __device__ __forceinline__ void scan_steps(const Stage<N, CH>& s, int t,
   }
 }
 
-template <int N>
-struct Split {
-  static constexpr int G = kGroup;                    // lanes of a channel
-  static constexpr int NL = N / G;                    // states per lane
-  static constexpr int CH = kThreads / G;             // channels per block
-};
-
-template <int N>
+// kSaveStates: write the state entering every kStateEvery-th step (the
+// training launch); a template argument, so the serving launch runs code
+// with no trace of it
+template <int N, bool kSaveStates>
 __global__ void __launch_bounds__(kThreads)
 ssm_scan_kernel(const float* __restrict__ x,    // (B, S, di)
                 const float* __restrict__ dt,   // (B, S, di)
@@ -204,6 +195,7 @@ ssm_scan_kernel(const float* __restrict__ x,    // (B, S, di)
                 const float* __restrict__ D,    // (di,)
                 float* __restrict__ y,          // (B, S, di)
                 float* __restrict__ h_final,    // (B, di, N)
+                float* __restrict__ states,     // (B, n_states, di, N) or null
                 int S, int di) {
   constexpr int G = Split<N>::G, NL = Split<N>::NL, CH = Split<N>::CH;
   __shared__ Stage<N, CH> stage[2];
@@ -242,6 +234,14 @@ ssm_scan_kernel(const float* __restrict__ x,    // (B, S, di)
     __syncthreads();   // round r's copies, from every thread, have landed
     const Stage<N, CH>& s = stage[r & 1];
     const int T = min(kChunk, S - t0);
+    if (kSaveStates && t0 % kStateEvery == 0 && active) {
+      // the state entering step t0, which the backward restarts from
+      const int n_states = (S + kStateEvery - 1) / kStateEvery;
+      float* hs = states + ((static_cast<long long>(b) * n_states +
+                             t0 / kStateEvery) * di + d) * N + g * NL;
+#pragma unroll
+      for (int j = 0; j < NL; ++j) hs[j] = h[j];
+    }
     float* y_c = y + (row0 + t0) * di + d;
     const bool store = g == 0 && active;
     int t = 0;
@@ -261,30 +261,37 @@ ssm_scan_kernel(const float* __restrict__ x,    // (B, S, di)
 template <int N>
 cudaError_t launch(const float* x, const float* dt, const float* A,
                    const float* Bc, const float* Cc, const float* D, float* y,
-                   float* h_final, int B, int S, int di, cudaStream_t stream) {
+                   float* h_final, float* states, int B, int S, int di,
+                   cudaStream_t stream) {
   constexpr int CH = Split<N>::CH;
   dim3 grid((di + CH - 1) / CH, B);
-  ssm_scan_kernel<N><<<grid, kThreads, 0, stream>>>(x, dt, A, Bc, Cc, D, y,
-                                                     h_final, S, di);
+  auto kernel = states != nullptr ? ssm_scan_kernel<N, true>
+                                  : ssm_scan_kernel<N, false>;
+  kernel<<<grid, kThreads, 0, stream>>>(x, dt, A, Bc, Cc, D, y, h_final,
+                                        states, S, di);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// n must be 4, 8, 16 or 32.
+// n must be 4, 8, 16 or 32. states, when not null, is (B, ceil(S /
+// kStateEvery), di, n) and receives the state entering every kStateEvery-th
+// step (the first is h0 = 0), from which ssm_scan_bwd.cu recomputes the
+// others; the serving call passes null.
 extern "C" int ssm_scan_launch(const float* x, const float* dt, const float* A,
                                const float* Bc, const float* Cc,
                                const float* D, float* y, float* h_final,
-                               int B, int S, int di, int n, void* stream) {
+                               float* states, int B, int S, int di, int n,
+                               void* stream) {
   if (B <= 0 || S <= 0 || di <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (n) {
-    case 4: err = launch<4>(x, dt, A, Bc, Cc, D, y, h_final, B, S, di, s); break;
-    case 8: err = launch<8>(x, dt, A, Bc, Cc, D, y, h_final, B, S, di, s); break;
-    case 16: err = launch<16>(x, dt, A, Bc, Cc, D, y, h_final, B, S, di, s); break;
-    case 32: err = launch<32>(x, dt, A, Bc, Cc, D, y, h_final, B, S, di, s); break;
+    case 4: err = launch<4>(x, dt, A, Bc, Cc, D, y, h_final, states, B, S, di, s); break;
+    case 8: err = launch<8>(x, dt, A, Bc, Cc, D, y, h_final, states, B, S, di, s); break;
+    case 16: err = launch<16>(x, dt, A, Bc, Cc, D, y, h_final, states, B, S, di, s); break;
+    case 32: err = launch<32>(x, dt, A, Bc, Cc, D, y, h_final, states, B, S, di, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

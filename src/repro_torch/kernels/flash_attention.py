@@ -1,15 +1,19 @@
-"""Flash-attention forward wrapper: ``flash_attention(q, k, v, causal, *,
-window, sink, round_p)``.
+"""Flash-attention wrapper: ``flash_attention(q, k, v, causal, *, window,
+sink, round_p)``, differentiable.
 
-On CUDA tensors it launches the hand-written kernel of
+On CUDA tensors the forward launches the hand-written kernel of
 ``kernels/csrc/flash_attention.cu`` (built on first use by
-``kernels.build``) and counts the launch in ``flash_attention.launches``
-and in the ``kernels.dispatch.flash_attention.cuda`` counter; it never
-falls back. On CPU tensors it runs the plain version,
-``kernels.ref.attention_ref``, counted in
-``kernels.dispatch.flash_attention.plain``. Under the sanitizer
-(``analysis.sanitize.wrap``) the kernel's output is checked for a NaN its
-inputs did not hold.
+``kernels.build``), counted in ``flash_attention.launches`` and the
+``kernels.dispatch.flash_attention.cuda`` counter. When autograd will need
+the gradient it runs as ``_FlashAttention`` (a ``torch.autograd.Function``):
+the forward also writes each row's log-sum-exp, and the backward launches
+``kernels/csrc/flash_attention_bwd.cu``, counted in
+``flash_attention_bwd.launches`` and ``kernels.dispatch.flash_attention_bwd.
+cuda``. Neither falls back. On CPU tensors it runs the plain version,
+``kernels.ref.attention_ref`` (counted in
+``kernels.dispatch.flash_attention.plain``), under plain autograd. Under the
+sanitizer (``analysis.sanitize.wrap``) the kernels' outputs are checked for
+a NaN their inputs did not hold.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ _MAX_GRID_Y = 65535                 # B * H blocks along the grid's y axis
 
 _C_CUDA = obs.counter("kernels.dispatch.flash_attention.cuda")
 _C_PLAIN = obs.counter("kernels.dispatch.flash_attention.plain")
+_C_BWD = obs.counter("kernels.dispatch.flash_attention_bwd.cuda")
 
 
 def _check(q, k, v, causal, window, sink) -> None:
@@ -64,7 +69,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     visible to row r when c <= r and (``window`` is None or r - c < window
     or c < ``sink``). ``round_p`` rounds p to v's dtype before the PV
     product (the TPU kernel); ``round_p=False`` keeps it at float32
-    precision (the model). Same contract as ``ref.attention_ref``."""
+    precision (the model). Same contract as ``ref.attention_ref``. On the
+    card the gradient needs ``round_p=False`` (the backward kernel's p)."""
     _check(q, k, v, causal, window, sink)
     if q.device.type == "cpu":
         _C_PLAIN.inc()
@@ -73,6 +79,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, got "
                          f"{q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if round_p:
+            raise ValueError("the flash-attention backward kernel takes p in "
+                             "float32: call with round_p=False to train")
+        return _FlashAttention.apply(q, k, v, causal, window, sink)
+    return _forward(q, k, v, causal, window, sink, round_p, with_lse=False)[0]
+
+
+def _forward(q, k, v, causal, window, sink, round_p, *, with_lse: bool):
+    """Launch the forward kernel; returns (o, lse or None)."""
     B, H, S, D = q.shape
     K, Sk = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
@@ -86,21 +103,81 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("the bf16 kernel loads 16-byte rows: q, k, v must "
                          "start at 16-byte aligned addresses")
     o = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if q.numel() == 0:
-        return o
+        return o, lse
     if Sk == 0:
         raise ValueError("flash_attention needs at least one key")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         build.launch("flash_attention", q.data_ptr(), k.data_ptr(),
-                     v.data_ptr(), o.data_ptr(), B, H, K, S, Sk, D,
+                     v.data_ptr(), o.data_ptr(),
+                     0 if lse is None else lse.data_ptr(), B, H, K, S, Sk, D,
                      1.0 / math.sqrt(D), int(bf16), int(causal),
                      0 if window is None else int(window), int(sink),
                      int(round_p), stream)
     flash_attention.launches += 1
     _C_CUDA.inc()
     sanitize.check_kernel("flash_attention", (q, k, v), (o,))
-    return o
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=None,
+                        sink=0):
+    """The gradient of ``flash_attention(q, k, v, causal, window=window,
+    sink=sink, round_p=False)`` on the card: (dq, dk, dv) in q's, k's and
+    v's dtype, from the forward's ``o`` and ``lse`` and the upstream
+    gradient ``do`` (o's shape and dtype). One launch of the backward
+    kernel; the plain version is ``ref.attention_ref_grads``."""
+    _check(q, k, v, causal, window, sink)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda, got {q.device}")
+    if do.shape != q.shape or do.dtype != q.dtype or o.shape != q.shape \
+            or lse.shape != q.shape[:3] or lse.dtype != torch.float32:
+        raise ValueError("flash_attention_bwd takes o and do of q's shape and "
+                         "dtype and a float32 (B, H, S) lse")
+    do, o = do.contiguous(), o.contiguous()
+    if q.dtype == torch.bfloat16 and do.data_ptr() % 16:
+        do = do.clone()     # the bf16 kernel loads 16-byte rows of do
+    B, H, S, D = q.shape
+    K, Sk = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        build.launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(),
+                     v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                     dk.data_ptr(), dv.data_ptr(), B, H, K, S, Sk, D,
+                     1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
+                     int(causal), 0 if window is None else int(window),
+                     int(sink), stream)
+    flash_attention_bwd.launches += 1
+    _C_BWD.inc()
+    sanitize.check_kernel("flash_attention_bwd", (q, k, v, o, do, lse),
+                          (dq, dk, dv))
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel pair on the card, p in float32: the forward keeps q, k, v,
+    o and the row log-sum-exps for the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, sink):
+        o, lse = _forward(q, k, v, causal, window, sink, False,
+                          with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window, sink)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, *ctx.mask)
+        return dq, dk, dv, None, None, None
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

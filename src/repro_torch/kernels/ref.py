@@ -8,6 +8,10 @@ of ``kernels/csrc/*.cu`` and what the wrappers run for tensors on the CPU.
   to v's dtype, or float32).
 - ``ssm_scan_ref`` is the sequential selective scan, returning the final
   state as well.
+
+Their gradients are autograd through them: ``attention_ref_grads`` and
+``ssm_scan_ref_grads`` return them, the plain versions of the backward
+kernels (``kernels/csrc/*_bwd.cu``).
 """
 from __future__ import annotations
 
@@ -131,6 +135,28 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
 
 
+def _grads(fn, inputs, grads_out):
+    """Autograd of ``fn(*inputs)`` against the upstream gradients
+    ``grads_out`` (None for an output that gets none)."""
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    with torch.enable_grad():
+        outs = fn(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grads_out) if g is not None]
+        return torch.autograd.grad([o for o, _ in pairs],
+                                   leaves, [g for _, g in pairs])
+
+
+def attention_ref_grads(q, k, v, do, causal: bool = True, *, window=None,
+                        sink: int = 0):
+    """(dq, dk, dv) of ``attention_ref`` with p in float32 (the model's, and
+    the backward kernel's) against the upstream gradient ``do``, by
+    autograd; in q's, k's and v's dtype."""
+    return _grads(lambda q, k, v: attention_ref(
+        q, k, v, causal=causal, window=window, sink=sink, round_p=False),
+        (q, k, v), (do,))
+
+
 ULP_FLOOR = 2.0 ** -10
 
 
@@ -170,3 +196,10 @@ def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         h = a * h + (dt[:, t] * x[:, t])[..., None] * Bc[:, t, None, :]
         ys.append((h * Cc[:, t, None, :]).sum(-1) + D * x[:, t])
     return torch.stack(ys, dim=1), h
+
+
+def ssm_scan_ref_grads(x, dt, A, Bc, Cc, D, dy, dh_final=None):
+    """(dx, ddt, dA, dBc, dCc, dD) of ``ssm_scan_ref`` against the upstream
+    gradients ``dy`` (B,S,di) and ``dh_final`` (B,di,n) or None, by
+    autograd."""
+    return _grads(ssm_scan_ref, (x, dt, A, Bc, Cc, D), (dy, dh_final))

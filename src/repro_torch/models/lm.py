@@ -2,6 +2,7 @@
 
 ``LM(cfg, device=None)`` exposes, as ``repro/models/lm.py`` does:
     init(generator)                    -> params (nested dict of tensors)
+    loss(params, batch, remat)         -> (scalar, metrics)  [train]
     prefill(params, batch, max_seq)    -> (cache, last_logits)
     decode(params, cache, batch, pos)  -> (logits, cache)
     init_cache(B, max_seq)             -> cache (zeros)
@@ -11,26 +12,56 @@ leaf, the reference's ``jax.vmap(init_one)`` layout) and run by a Python
 loop over the layer index in place of ``lax.scan``. ``decode`` writes each
 layer's new cache entries into the stacked cache in place and returns it,
 so a step allocates no copy of the cache; ``cache["pos"]`` is a Python int.
+In training each layer runs under the ``remat`` policy (``REMAT_POLICIES``)
+and takes its parameters as ``unbind`` slices of the stacked leaves, so
+the backward stacks each leaf's gradient once.
 
-MLA, MoE, xLSTM, vision, audio, cross attention and ``loss`` (training) are
-not ported yet (ROADMAP.md) and raise ``NotImplementedError``.
+MLA, MoE, xLSTM, vision, audio and cross attention are not ported yet
+(ROADMAP.md) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (dense_init, dtype_of, embed_init,
-                                       rmsnorm, rmsnorm_init)
+from repro_torch.models.common import (chunked_cross_entropy, dense_init,
+                                       dtype_of, embed_init, rmsnorm,
+                                       rmsnorm_init)
 from repro_torch.models.mlp import init_mlp, mlp_block
 
 _UNPORTED = "not ported yet (ROADMAP.md, queue 1: the other LM families)"
+
+# what a training layer keeps for its backward, as the reference's
+# ``REMAT_POLICIES``: everything; only the outputs of matrix products
+# without batch dimensions (``dots_with_no_batch_dims_saveable``; the
+# attention and scan kernels and the elementwise ops are recomputed); or
+# only the layer's input (``nothing_saveable``)
+REMAT_POLICIES = ("none", "dots", "full")
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, x, policy: str):
+    """``fn(x)`` under the remat ``policy``."""
+    if policy == "none":
+        return fn(x)
+    if policy == "full":
+        return checkpoint(fn, x, use_reentrant=False)
+    return checkpoint(fn, x, use_reentrant=False, context_fn=functools.partial(
+        create_selective_checkpoint_contexts, _save_dots))
 
 
 def _tree_map(fn, *trees):
@@ -49,6 +80,16 @@ def _stack(trees):
 def _layer(tree, i: int):
     """Layer ``i``'s slice of a stacked tree: views, no copies."""
     return _tree_map(lambda a: a[i], tree)
+
+
+def _unstack(tree):
+    """The per-layer trees of a stacked parameter tree (nested dicts), as
+    ``unbind`` views."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _store(dst, src) -> None:
@@ -231,8 +272,35 @@ class LM:
         params["ln_f"] = rmsnorm_init(d, dev)
         return params
 
-    def loss(self, params, batch):
-        raise NotImplementedError(f"training (LM.loss) is {_UNPORTED}")
+    # ------------------------------------------------------------------ loss
+    def loss(self, params, batch, remat: str = "full"):
+        """Next-token cross entropy of ``batch["tokens"]`` (B, S_text): the
+        meta tokens are prepended, every layer runs under ``remat``, and the
+        text positions but the last predict the next token. Returns (loss,
+        {"loss": loss})."""
+        if remat not in REMAT_POLICIES:
+            raise ValueError(f"remat must be one of {REMAT_POLICIES}, got "
+                             f"{remat!r}")
+        x = self._embed_inputs(params, batch)
+        positions = torch.arange(x.shape[1], device=self.device)
+        x = self._run_train(params, x, positions, remat)
+        x = rmsnorm(x, params["ln_f"])
+        h = x[:, self.cfg.meta_tokens or 0:]
+        loss = chunked_cross_entropy(h[:, :-1], self._head(params),
+                                     self._tokens(batch)[:, 1:])
+        return loss, {"loss": loss}
+
+    def _run_train(self, params, x, positions, remat: str):
+        """Every layer, its caches dropped, under the ``remat`` policy."""
+        cfg = self.cfg
+        for seg in self.plan:
+            sink = cfg.meta_tokens if seg.window is not None else 0
+            for lp in _unstack(params[seg.name]):
+                def layer(h, lp=lp, seg=seg, sink=sink):
+                    return _layer_apply(lp, h, cfg, positions, kind=seg.kind,
+                                        window=seg.window, sink=sink)[0]
+                x = _remat(layer, x, remat)
+        return x
 
     # -------------------------------------------------------------- embedding
     def _tokens(self, batch) -> torch.Tensor:

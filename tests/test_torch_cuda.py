@@ -1,6 +1,7 @@
 """Card-only checks of the PyTorch port: each CUDA kernel (retention at
 every operating corner, selective scan, flash attention with its window,
-sink and both treatments of p) against its plain version on the card, and
+sink and both treatments of p, and the two backward kernels) against its
+plain version on the card, and
 the corner table, ``compose``, the trace-replay re-rank (``simulate``) and
 the compiler façade (``Compiler.compile``, ``Macro.write_all``,
 ``gradient_size``) on the card against the CPU. They skip
@@ -430,6 +431,106 @@ def test_ssm_scan_kernel_matches_plain_version(cuda, shape):
     assert kssm.ssm_scan.launches == before + 1
     torch.testing.assert_close(y, y_ref, rtol=TOL_SSM, atol=TOL_SSM)
     torch.testing.assert_close(h, h_ref, rtol=TOL_SSM, atol=TOL_SSM)
+
+
+# the backward kernels against autograd of their plain versions, as
+# max|kernel - plain| / max|plain| per gradient: bf16 attention (both round
+# dQ, dK, dV to bf16 at the end; the kernel takes Delta from the bf16 o),
+# fp32 attention (summation order), the fp32 scan (summation order over up
+# to B S terms)
+RTOL_ATTN_BWD = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+RTOL_SSM_BWD = 1e-4
+
+# (B, H, K, S, D, window, sink): GQA, ragged S, a window with a sink no tile
+# boundary meets, D = 16 (the reduced hymba) and 128, in both dtypes; and
+# hymba-1.5b's training shapes (the 29 sliding-window layers and the 3
+# global ones) in bf16, the model's dtype
+_SMALL = [(1, 6, 2, 77, 32, None, 0), (2, 4, 4, 200, 64, None, 0),
+          (1, 4, 2, 300, 64, 100, 20), (2, 2, 1, 130, 128, 64, 0),
+          (2, 4, 2, 44, 16, 16, 4)]
+ATTN_BWD_CASES = [(c, dt) for c in _SMALL
+                  for dt in (torch.float32, torch.bfloat16)] + [
+    ((4, 25, 5, 1128, 64, 1024, 128), torch.bfloat16),
+    ((4, 25, 5, 1128, 64, None, 0), torch.bfloat16)]
+
+
+def _rel_gaps(got, want):
+    return [((g.float() - w.float()).abs().max()
+             / w.float().abs().max()).item() for g, w in zip(got, want)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", ATTN_BWD_CASES, ids=str)
+def test_flash_attention_bwd_kernel_matches_plain_gradients(cuda, case,
+                                                            dtype):
+    """The backward kernel through the autograd wrapper (one launch a
+    backward) against autograd of ``attention_ref`` with p in float32."""
+    B, H, K, S, D, window, sink = case
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, h, S, D)).astype(
+        np.float32)).to(cuda, dtype) for h in (H, K, K, H))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (kflash.flash_attention.launches,
+              kflash.flash_attention_bwd.launches)
+    o = kflash.flash_attention(*leaves, window=window, sink=sink,
+                               round_p=False)
+    got = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert (kflash.flash_attention.launches,
+            kflash.flash_attention_bwd.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    want = ref.attention_ref_grads(q, k, v, do, window=window, sink=sink)
+    gaps = _rel_gaps(got, want)
+    assert all(g.dtype == dtype for g in got)
+    assert max(gaps) <= RTOL_ATTN_BWD[dtype], gaps
+
+
+@pytest.mark.cuda
+def test_flash_attention_on_the_card_refuses_to_train_with_p_rounded(cuda):
+    q = torch.ones((1, 2, 8, 16), device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="round_p=False"):
+        kflash.flash_attention(q, q, q)
+
+
+# (B, S, di, n): the reference's shapes, S and di no block or chunk divides,
+# n = 4, 8 (the reduced hymba) and 32, S below one saved-state interval, and
+# hymba-1.5b's full width
+SSM_BWD_SHAPES = [(1, 128, 256, 16), (2, 45, 200, 8), (2, 130, 64, 4),
+                  (1, 70, 96, 32), (3, 1, 40, 16), (2, 193, 100, 16),
+                  (4, 1128, 3200, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSM_BWD_SHAPES, ids=str)
+@pytest.mark.parametrize("with_dh", [False, True], ids=["dy", "dy+dh"])
+def test_ssm_scan_bwd_kernel_matches_plain_gradients(cuda, shape, with_dh):
+    """The backward kernel through the autograd wrapper (one launch a
+    backward) against autograd of ``ssm_scan_ref``, with and without a
+    gradient of the final state."""
+    B, S, di, n = shape
+    rng = np.random.default_rng(6)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda)
+
+    xs = (t(rng.normal(size=(B, S, di))),
+          t(rng.uniform(0.001, 0.1, size=(B, S, di))),
+          t(-rng.uniform(0.5, 2.0, size=(di, n))),
+          t(rng.normal(size=(B, S, n))), t(rng.normal(size=(B, S, n))),
+          t(rng.normal(size=(di,))))
+    dy = t(rng.normal(size=(B, S, di)))
+    dh = t(rng.normal(size=(B, di, n))) if with_dh else None
+    leaves = [a.clone().requires_grad_(True) for a in xs]
+    before = (kssm.ssm_scan.launches, kssm.ssm_scan_bwd.launches)
+    y, h = kssm.ssm_scan(*leaves)
+    outs, grads = ((y, h), (dy, dh)) if with_dh else ((y,), (dy,))
+    got = torch.autograd.grad(outs, leaves, grads)
+    torch.cuda.synchronize()
+    assert (kssm.ssm_scan.launches, kssm.ssm_scan_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = ref.ssm_scan_ref_grads(*xs, dy, dh)
+    gaps = _rel_gaps(got, want)
+    assert max(gaps) <= RTOL_SSM_BWD, gaps
 
 
 @pytest.mark.cuda

@@ -23,10 +23,15 @@ its window and sink) it is held to the JAX model's blocked attention
   ulps: measured up to 11), and at most 1 % of the elements differing at
   all; measured worst share 0.04 %, and 1 ulp.
 
+Gradients: the wrapper on the CPU (the plain version under autograd)
+against ``jax.grad`` of the JAX model's ``causal_attention`` (GQA, window,
+sink, several q chunks), float32, within ``RTOL_GRAD`` of max|jax|.
+
 ``python tests/test_torch_flash_attention.py`` prints the measured gaps.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -334,6 +339,51 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         kflash.flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"))
 
 
+# ---------------------------------------------------------------------------
+# gradients: the wrapper on the CPU (its plain version under autograd)
+# against jax.grad of the JAX model's attention
+# ---------------------------------------------------------------------------
+
+# max|port - jax| / max|jax| per gradient, float32; measured worst 6.7e-7
+RTOL_GRAD = 5e-6
+# (B, S, K, G, hd, window, sink, chunk): GQA; a ragged S; a window with a
+# sink no tile boundary meets; the reduced hymba's window 16 with 4 meta
+# tokens; the JAX model's blocking over several q chunks (S % chunk == 0)
+GRAD_CASES = [(2, 64, 2, 3, 16, None, 0, 2048), (1, 77, 1, 4, 32, None, 0,
+                                                 2048),
+              (1, 130, 2, 2, 16, 40, 6, 2048), (2, 44, 2, 2, 16, 16, 4,
+                                                2048),
+              (1, 96, 2, 2, 16, 24, 4, 32)]
+
+
+def attention_grad_gaps(case, seed=7):
+    """[dq, dk, dv] relative gaps: ``models.attention.causal_attention``
+    (the wrapper, plain route) against jax.grad of the JAX model's, for the
+    loss sum(o * w) with w drawn from ``seed``."""
+    B, S, K, G, hd, window, sink, chunk = case
+    q, k, v = _model_inputs(B, S, K, G, hd, seed)
+    w = np.random.default_rng(seed + 1).normal(
+        size=(B, S, K * G, hd)).astype(np.float32)
+
+    def jax_loss(q, k, v):
+        o = jax_attn.causal_attention(q, k, v, jnp.arange(S), window=window,
+                                      chunk=chunk, sink=sink)
+        return jnp.sum(o * w)
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    o = attn.causal_attention(*leaves, torch.arange(S), window=window,
+                              sink=sink)
+    got = torch.autograd.grad((o * torch.from_numpy(w)).sum(), leaves)
+    return [float(np.abs(g.numpy() - np.asarray(j)).max()
+                  / np.abs(np.asarray(j)).max()) for g, j in zip(got, want)]
+
+
+@pytest.mark.parametrize("case", GRAD_CASES, ids=str)
+def test_wrapper_gradients_match_jax_grad_of_the_model_attention(case):
+    assert max(attention_grad_gaps(case)) <= RTOL_GRAD
+
+
 def _global_layer_gaps():
     """(ulps, share) of the global-layer check above, and of the same
     layer with p rounded to bf16 as before the repair."""
@@ -351,6 +401,9 @@ def _global_layer_gaps():
 
 
 if __name__ == "__main__":
+    print("gradients vs jax.grad of the model attention, worst of dq, dk, "
+          f"dv: {max(max(attention_grad_gaps(c)) for c in GRAD_CASES):.2e} "
+          f"(RTOL_GRAD {RTOL_GRAD})")
     worst = {"f32": 0.0, "bf16": 0.0}
     for shape in [(1, 2, 256, 64), (2, 1, 128, 128), (1, 4, 512, 64),
                   (2, 2, 256, 96)]:

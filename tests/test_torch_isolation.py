@@ -21,10 +21,12 @@ from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import retention as kretention
 from repro_torch.kernels import ssm_scan as kssm
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models import LM
 from repro_torch.serve.engine import Engine
 from repro_torch.sim import simulate_traces, task_traces
 from repro_torch.sim.engine import SIM_COLS
+from repro_torch.train.step import init_train_state, make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -45,6 +47,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.core.dse, repro_torch.obs.catalog\n"
         "import repro_torch.obs.__main__, repro_torch.obs.report\n"
         "import repro_torch.analysis.sanitize, repro_torch.parallel.grid\n"
+        "import repro_torch.optim.adamw, repro_torch.train.step\n"
+        "import repro_torch.data.pipeline, repro_torch.checkpoint.ckpt\n"
+        "import repro_torch.runtime.supervisor, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n")
@@ -112,6 +117,13 @@ ENTRY_POINTS = {
     "launch.serve": lambda: launch_serve.main(["--reduced"]),
     "convert.lm_params_from_numpy": lambda: convert.lm_params_from_numpy(
         reduce_config(get_config("hymba-1.5b")), {}),
+    "convert.adamw_state_from_numpy": lambda: convert.adamw_state_from_numpy(
+        reduce_config(get_config("hymba-1.5b")), {}),
+    "train.make_train_step": lambda: make_train_step(
+        reduce_config(get_config("hymba-1.5b"))),
+    "train.init_train_state": lambda: init_train_state(
+        reduce_config(get_config("hymba-1.5b"))),
+    "launch.train": lambda: launch_train.main(["--reduced", "--steps", "1"]),
 }
 
 

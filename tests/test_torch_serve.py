@@ -226,7 +226,8 @@ def test_config_registry_and_unported_families():
     """hymba-1.5b is registered, field for field the reference's config
     (full and reduced); other names raise a KeyError naming what is
     registered; families and features not ported raise
-    NotImplementedError pointing at ROADMAP.md."""
+    NotImplementedError pointing at ROADMAP.md: the other families, and
+    training a MoE configuration; ``LM.loss`` of hymba returns a loss."""
     import dataclasses
     from repro_torch.configs import list_archs
     assert list_archs() == ["hymba-1.5b"]
@@ -241,8 +242,13 @@ def test_config_registry_and_unported_families():
                      dict(audio_codebooks=4), dict(family="ssm")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LM(small.replace(**unported), device="cpu")
+    lm = LM(small, device="cpu")
+    loss, _ = lm.loss(lm.init(torch.Generator().manual_seed(0)),
+                      {"tokens": np.zeros((1, 8), np.int32)})
+    assert torch.isfinite(loss)
+    from repro_torch.train.step import make_train_step
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(small, device="cpu").loss({}, {})
+        make_train_step(small.replace(moe=True), device="cpu")
 
 
 def test_launcher_serves_the_reduced_model_on_the_cpu(capsys):

@@ -9,6 +9,7 @@ Tolerance: 1e-4, rtol and atol, the reference's own gate for its kernel
 y and 3.0e-7 on h_final (``python tests/test_torch_ssm_scan.py`` prints
 them).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,6 +155,43 @@ def test_kernel_order_of_operations_matches_plain_version_and_jax(B, S, di,
     _close(h.numpy(), h_ref)
 
 
+# gradients of the wrapper on the CPU (its plain version under autograd)
+# against jax.grad of the JAX model's chunked scan, for the loss sum(y * wy)
+# + sum(h_final * wh): max|port - jax| / max|jax| per gradient; measured
+# worst 4.1e-7
+RTOL_GRAD = 5e-6
+# (B, S, di, n, chunk): one chunk; several chunks; a ragged S (one chunk);
+# the reduced hymba's scan (di 128, n 8)
+GRAD_SHAPES = [(1, 64, 48, 16, 128), (2, 96, 32, 8, 32), (2, 45, 40, 4, 128),
+               (2, 24, 128, 8, 128)]
+
+
+def scan_grad_gaps(shape, seed=9):
+    B, S, di, n, chunk = shape
+    arrays = _inputs(B, S, di, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    wy = rng.normal(size=(B, S, di)).astype(np.float32)
+    wh = rng.normal(size=(B, di, n)).astype(np.float32)
+
+    def jax_loss(*xs):
+        y, h = ssm_scan_chunked(*xs, jnp.zeros((B, di, n), jnp.float32),
+                                chunk=chunk)
+        return jnp.sum(y * wy) + jnp.sum(h * wh)
+    want = jax.grad(jax_loss, argnums=tuple(range(6)))(
+        *(jnp.asarray(a) for a in arrays))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    y, h = kssm.ssm_scan(*leaves)
+    loss = (y * torch.from_numpy(wy)).sum() + (h * torch.from_numpy(wh)).sum()
+    got = torch.autograd.grad(loss, leaves)
+    return [float(np.abs(g.numpy() - np.asarray(j)).max()
+                  / np.abs(np.asarray(j)).max()) for g, j in zip(got, want)]
+
+
+@pytest.mark.parametrize("shape", GRAD_SHAPES, ids=str)
+def test_wrapper_gradients_match_jax_grad_of_the_model_scan(shape):
+    assert max(scan_grad_gaps(shape)) <= RTOL_GRAD
+
+
 def test_wrapper_runs_the_plain_version_on_the_cpu():
     arrays = [torch.from_numpy(a) for a in _inputs(2, 20, 48, 16, 5)]
     before = kssm.ssm_scan.launches
@@ -178,6 +216,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 
 if __name__ == "__main__":
+    print("gradients vs jax.grad of the model scan, worst of the six: "
+          f"{max(max(scan_grad_gaps(s)) for s in GRAD_SHAPES):.2e} "
+          f"(RTOL_GRAD {RTOL_GRAD})")
     worst_y = worst_h = 0.0
     for shape in [(1, 128, 256, 16), (2, 256, 512, 8), (1, 64, 1024, 16),
                   (2, 45, 200, 8), (1, 37, 3200, 16), (3, 130, 96, 4)]:
