@@ -124,9 +124,16 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             in bf16 with window 1,024 and sink 128 and without a window, and
             small shapes in bf16 and float32; the scan at (4, 1,128, 3,200,
             16) and small shapes, float32; max|kernel - plain| / max|plain|
-            per gradient against ``RTOL_ATTN_BWD`` / ``RTOL_SSM_BWD``; each
-            kernel's time at the training shape beside its bound, the plain
-            backward's time and (attention) SDPA's backward's;
+            per gradient against ``RTOL_ATTN_BWD`` / ``RTOL_SSM_BWD``; at
+            the training shapes each backward run twice, bit-equal; each
+            kernel's time there (the median of ``TIME_REPEATS`` queued event
+            timings, as for SDPA's, and beside it one un-queued reading)
+            beside its bound, the plain backward's time and (attention)
+            SDPA's backward's, pinned to one backend (``SDPA_BACKENDS``: the
+            first that runs, named); each launch's kernels' device times
+            from one ``torch.profiler`` window over ``TIME_REPEATS`` whole
+            launches (attention: delta, dK/dV, dQ with the dK/dV combine;
+            the scan: chunk adjoints, carries, gradients, reduction);
 20. train  hymba-1.5b at full width in bf16 (1,655,198,400 parameters from
             ``--seed``): ``make_train_step(remat="full")`` with AdamW, lr
             1e-3, warmup 2, on ``SyntheticLMData(cfg, 4, 1128, seed)``
@@ -301,6 +308,14 @@ ATTN_BWD_CASES = [(4, 25, 5, 1128, 64, 1024, 128, "bfloat16"),
 # (B, S, di, n): hymba-1.5b's full width; the reduced hymba's scan; a di no
 # block divides and an S no saved-state interval divides
 SSM_BWD_SHAPES = [(4, 1128, 3200, 16), (4, 68, 128, 8), (2, 193, 200, 16)]
+# phase 19's times: the median of this many time_ms readings, each of 20
+# calls queued behind a sleep of QUEUE_CYCLES card cycles (~10 ms, longer
+# than the host takes to queue them)
+TIME_REPEATS = 5
+QUEUE_CYCLES = 20_000_000
+# SDPA's backward as the yardstick, pinned to the first of these backends
+# that runs (names of torch.nn.attention.SDPBackend)
+SDPA_BACKENDS = ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION")
 # phase 20: full-width training of hymba-1.5b
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 1128, 8, 1e-3
 # phase 21: the reduced hymba's loss and every gradient leaf on the card
@@ -419,13 +434,18 @@ def picks_of(selections):
             for lvl, sel in levels.items()]
 
 
-def time_ms(fn, iters: int, warmup: int) -> float:
-    """Mean ms per call of ``fn`` over ``iters`` calls, CUDA events."""
+def time_ms(fn, iters: int, warmup: int, queued: bool = False) -> float:
+    """Mean ms per call of ``fn`` over ``iters`` calls, CUDA events. With
+    ``queued`` the card first sleeps (``QUEUE_CYCLES``) while the host
+    queues every call, so that a call shorter than its host-side cost is
+    timed by its device work alone."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -1187,6 +1207,78 @@ def ssm_bwd_bound(B, S, di, n, n_states):
     return least_time(nbytes, ops, B * S * di * n)
 
 
+# the kernels of each backward launch, by a piece of their names as
+# torch.profiler gives them (the attention's combine runs in dQ's launch)
+ATTN_BWD_KERNELS = {"delta": "delta_kernel", "dkdv": "dkdv_kernel",
+                    "dq+combine": "dq_kernel"}
+SSM_BWD_KERNELS = {name: f"ssm_scan_bwd_{name}" for name in (
+    "chunk_adjoint", "carries", "grads", "reduce")}
+
+
+def kernel_split_ms(fn, kernels) -> dict:
+    """{name: device ms a call} of each of ``kernels`` ({name: a piece of
+    the kernel's name}): ``fn`` run ``TIME_REPEATS`` times, after one warm
+    call, under one ``torch.profiler`` window: each kernel's device time
+    over the records the trace holds of it. Fails if one has none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(TIME_REPEATS):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    out = {}
+    for name, piece in kernels.items():
+        hits = [e for e in events if piece in e.key]
+        records = sum(e.count for e in hits)
+        if not records:
+            fail(f"profiler: no device record of {name} ({piece}) in "
+                 f"{TIME_REPEATS} launches")
+        out[name] = sum(e.self_device_time_total for e in hits) \
+            / records / 1e3
+    return out
+
+
+def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """The median of ``TIME_REPEATS`` queued readings of ``time_ms``."""
+    return sorted(time_ms(fn, iters, warmup, queued=True)
+                  for _ in range(TIME_REPEATS))[TIME_REPEATS // 2]
+
+
+def same_twice(label, fn):
+    """Run ``fn`` (a tuple of tensors) twice; fail unless bit-equal."""
+    import torch
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail(f"{label}: two runs of the backward differ")
+    print(f"determinism {label}: two runs bit-equal", flush=True)
+
+
+def sdpa_backward_ms(leaves, do):
+    """(backend name, median ms) of SDPA's backward (causal, GQA) on the
+    first of ``SDPA_BACKENDS`` that runs."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name)
+        try:
+            with sdpa_kernel([backend]):
+                o = torch.nn.functional.scaled_dot_product_attention(
+                    *leaves, is_causal=True, enable_gqa=True)
+                return name, median_ms(lambda: torch.autograd.grad(
+                    o, leaves, do, retain_graph=True))
+        except RuntimeError as err:
+            print(f"SDPA backend {name} does not run here: "
+                  f"{str(err).splitlines()[0]}", flush=True)
+    fail(f"none of the SDPA backends {SDPA_BACKENDS} runs")
+
+
 def rel_gaps(got, want):
     """max|got - want| / max|want| of each pair."""
     return [((g.float() - w.float()).abs().max()
@@ -1268,40 +1360,56 @@ def backward_kernels_phase(seed: int):
                                                                     want)})
         del leaves, y, got, want
 
-    # times at the training shapes: the kernel alone, the plain backward
-    # (autograd of the plain forward, the forward excluded) and SDPA's
+    # at the training shapes: two runs bit-equal; times of the kernel alone
+    # (queued and not), of its kernels on the device, of the plain backward
+    # (autograd of the plain forward, the forward excluded) and of SDPA's
     for B, H, K, S, D, window, sink, dtype in ATTN_BWD_CASES[:2]:
         q, k, v = attn_inputs((B, H, K, S, D), torch.bfloat16, seed, dev)
         do = attn_inputs((B, H, K, S, D), torch.bfloat16, seed + 1, dev)[0]
         o, lse = kflash._forward(q, k, v, True, window, sink, False,
                                  with_lse=True)
-        ms = time_ms(lambda: kflash.flash_attention_bwd(
-            q, k, v, o, do, lse, True, window, sink), 20, 3)
+
+        def bwd():
+            return kflash.flash_attention_bwd(q, k, v, o, do, lse, True,
+                                              window, sink)
+        label = "SWA" if window else "global"
+        same_twice(f"flash_attention_bwd {label}", bwd)
+        ms = median_ms(bwd)
+        unqueued_ms = time_ms(bwd, 20, 3)
+        stages_ms = kernel_split_ms(bwd, ATTN_BWD_KERNELS)
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         o_plain = ref.attention_ref(*leaves, window=window, sink=sink,
                                     round_p=False)
         plain_ms = time_ms(lambda: torch.autograd.grad(
             o_plain, leaves, do, retain_graph=True), 3, 1)
-        o_lib = torch.nn.functional.scaled_dot_product_attention(
-            *leaves, is_causal=True, enable_gqa=True)
-        lib_ms = time_ms(lambda: torch.autograd.grad(
-            o_lib, leaves, do, retain_graph=True), 20, 3)
+        del o_plain
+        backend, lib_ms = sdpa_backward_ms(leaves, do)
         b_ms, b_by = attn_bwd_bound(B, H, K, S, D, 2, window, sink)
-        label = "SWA" if window else "global"
         out["flash_attention_bwd"][label] = {
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
+            "library": f"SDPA backward, {backend}", "bound_ms": b_ms,
+            "bound_by": b_by, "unqueued_ms": unqueued_ms,
+            "stages_ms": stages_ms}
         print(f"timing flash_attention_bwd {(B, H, K, S, D)} bf16 {label} "
-              f"(window {window}, sink {sink}): kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, SDPA backward (causal, GQA; the mask is "
-              f"the same at this S) {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by})", flush=True)
-        del leaves, o_plain, o_lib
+              f"(window {window}, sink {sink}): kernel {ms:.4f} ms (un-"
+              f"queued {unqueued_ms:.4f}; on the device: "
+              + ", ".join(f"{n} {t:.4f}" for n, t in stages_ms.items())
+              + f"), plain "
+              f"{plain_ms:.4f} ms, SDPA backward on {backend} (causal, GQA; "
+              f"the mask is the same at this S) {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+        del leaves
     shape = SSM_BWD_SHAPES[0]
     xs = ssm_inputs(shape, seed, dev)
     dy = ssm_inputs(shape, seed + 1, dev)[0]
     _, _, states = kssm._forward(*xs, with_states=True)
-    ms = time_ms(lambda: kssm.ssm_scan_bwd(*xs, states, dy), 20, 3)
+
+    def scan_bwd():
+        return kssm.ssm_scan_bwd(*xs, states, dy)
+    same_twice("ssm_scan_bwd", scan_bwd)
+    ms = median_ms(scan_bwd)
+    unqueued_ms = time_ms(scan_bwd, 20, 3)
+    stages_ms = kernel_split_ms(scan_bwd, SSM_BWD_KERNELS)
     leaves = [t.clone().requires_grad_(True) for t in xs]
     y_plain, _ = ref.ssm_scan_ref(*leaves)
     plain_ms = time_ms(lambda: torch.autograd.grad(
@@ -1310,11 +1418,16 @@ def backward_kernels_phase(seed: int):
     out["ssm_scan_bwd"].update({"ms": ms, "plain_ms": plain_ms,
                                 "library_ms": None, "bound_ms": b_ms,
                                 "bound_by": b_by, "bound_terms_ms": terms,
+                                "unqueued_ms": unqueued_ms,
+                                "stages_ms": stages_ms,
                                 "shape": list(shape)})
-    print(f"timing ssm_scan_bwd {shape}: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; bytes "
-          f"{terms['bytes']:.4f}, operations {terms['operations']:.4f}); "
-          f"no single PyTorch call computes it", flush=True)
+    print(f"timing ssm_scan_bwd {shape}: kernel {ms:.4f} ms (un-queued "
+          f"{unqueued_ms:.4f}; on the device: "
+          + ", ".join(f"{n} {t:.4f}" for n, t in stages_ms.items())
+          + f"), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"bytes {terms['bytes']:.4f}, operations "
+          f"{terms['operations']:.4f}); no single PyTorch call computes it",
+          flush=True)
     del leaves, y_plain
     torch.cuda.empty_cache()
     return out
@@ -2232,6 +2345,8 @@ def main() -> int:
         "bound_ms": bwd["flash_attention_bwd"]["SWA"]["bound_ms"],
         "bound_by": bwd["flash_attention_bwd"]["SWA"]["bound_by"],
         "library_ms": bwd["flash_attention_bwd"]["SWA"]["library_ms"],
+        **{k: bwd["flash_attention_bwd"]["SWA"][k] for k in (
+            "library", "unqueued_ms", "stages_ms")},
         "global": bwd["flash_attention_bwd"]["global"],
         "shape": [B, H, K, S, D], "train": train}, {
         "name": "ssm_scan_bwd", "route": "cuda",
@@ -2247,7 +2362,7 @@ def main() -> int:
         "rtol": RTOL_SSM_BWD, "cases": bwd["ssm_scan_bwd"]["cases"],
         **{k: bwd["ssm_scan_bwd"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "bound_terms_ms", "shape")},
+            "bound_terms_ms", "unqueued_ms", "stages_ms", "shape")},
         "train_parity": train_parity}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

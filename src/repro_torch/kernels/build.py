@@ -104,24 +104,51 @@ LAUNCH_ARGTYPES = {
     # q, k, v, o, lse, B, H, K, S, Sk, D, scale, bf16, causal, window, sink,
     # round_p, stream
     "flash_attention": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
-    # q, k, v, o, dO, lse, delta, dq, dk, dv, B, H, K, S, Sk, D, scale, bf16,
-    # causal, window, sink, stream
-    "flash_attention_bwd": [_P] * 10 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+    # q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S,
+    # Sk, D, scale, bf16, causal, window, sink, stream
+    "flash_attention_bwd": [_P] * 7 + [_I64] + [_P] * 3 + [_I] * 6 + [_F]
+    + [_I] * 4 + [_P],
+}
+
+
+# the C signature of `long long <name>_scratch_floats(...)`, the scratch a
+# launch at a shape needs, in the libraries that take one: the launch checks
+# its scratch against the same function
+SCRATCH_ARGTYPES = {
+    # B, S, di, n
+    "ssm_scan_bwd": [_I] * 4,
+    # B, H, K, S, Sk, D, bf16
+    "flash_attention_bwd": [_I] * 7,
 }
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The library of ``csrc/<name>.cu``, built if needed, with the C
-    signatures of its launch and error-string functions declared."""
+    signatures of its launch, error-string and (where it has one) scratch
+    functions declared."""
     lib = ctypes.CDLL(str(build_library(name)))
     launch_fn = getattr(lib, f"{name}_launch")
     launch_fn.argtypes = LAUNCH_ARGTYPES[name]
     launch_fn.restype = ctypes.c_int
+    if name in SCRATCH_ARGTYPES:
+        scratch_fn = getattr(lib, f"{name}_scratch_floats")
+        scratch_fn.argtypes = SCRATCH_ARGTYPES[name]
+        scratch_fn.restype = ctypes.c_longlong
     error_string = getattr(lib, f"{name}_error_string")
     error_string.argtypes = [ctypes.c_int]
     error_string.restype = ctypes.c_char_p
     return lib
+
+
+def scratch_floats(name: str, *args) -> int:
+    """``<name>_scratch_floats(*args)``: the float32 scratch the launch of
+    ``name`` needs at that shape; raises where the library takes no such
+    shape (0)."""
+    floats = getattr(load(name), f"{name}_scratch_floats")(*args)
+    if floats <= 0:
+        raise ValueError(f"{name} takes no launch of shape {args}")
+    return int(floats)
 
 
 def launch(name: str, *args) -> None:

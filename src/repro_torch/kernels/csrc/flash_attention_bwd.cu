@@ -28,26 +28,52 @@
 // tensor cores (S, dP, dV, dK, dQ; the dQ pass recomputes S and dP, 4 D
 // more) and a few fp32 operations, on ~q, k, v, o, dO read once: operations,
 // far above the bytes-per-op ridge at hymba's shape, as for the forward.
-//
-// One launch (flash_attention_bwd_launch) runs three kernels on the stream:
-//   1. delta: one warp per row, Delta in fp32 into a scratch the wrapper
-//      allocates;
-//   2. dK, dV: one block per (batch * kv head, 64-key tile); it loops over
-//      the G = H / K query heads of its kv head and over the q tiles that
-//      visit its kv tile, so the GQA sum over heads stays inside the block
-//      (no atomics, a fixed order). bf16: 4 warps of 16 keys each compute
-//      S^T = K Q^T and dP^T = V dO^T on mma.sync (K and V are the A
-//      operands, so P^T and dS^T land in accumulator fragments that are
-//      already the A fragments of dV = P^T dO and dK = dS^T Q), with a
-//      cp.async double buffer of Q and dO tiles;
-//   3. dQ: one block per (batch * head, 64-row q tile), over the kv tiles
-//      of the forward's walk, recomputing S and dP (a second pass in place
-//      of atomics across kv tiles: the result does not depend on the order
-//      blocks run in).
 // P and dS enter the products as bf16 hi + bf16 lo (the forward's split for
-// p in fp32), so they keep ~17 bits: 2x the tensor-core work of bf16 P and
-// dS. fp32 inputs: IEEE fp32 FMAs out of shared memory (no TF32), four
-// threads a key (dK, dV) or a q row (dQ). No --use_fast_math.
+// p in fp32), so they keep ~17 bits: with the recomputation, ~20 D tensor
+// flops a score.
+//
+// The first port (0.60 ms at hymba's (4, 25, 5, 1128, 64), PERF.md) spent
+// most of it in its dK/dV kernel: one block per (b, kv head, key tile)
+// looped over the G query heads and the q tiles that visit its tile, 5 to
+// 90 items a block, 360 blocks, so the first key tiles set the time; its
+// products were on mma.sync. The redesign, one launch
+// (flash_attention_bwd_launch) of three kernels:
+//   1. delta: Delta in fp32 into the scratch, 8 lanes a row with 16-byte
+//      loads (bf16);
+//   2. dK, dV: one block per (b, query head, key tile), at most ceil(S / 64)
+//      q tiles (18 at hymba's shape) each, 1,800 blocks; the blocks of the
+//      first key tiles (the most q tiles, under a causal mask) start first
+//      (the key tile is the grid's slow axis). Each writes fp32 dK/dV
+//      partials of its head to the scratch (2 B H Sk D floats);
+//   3. dQ: one block per (b, head, q tile), over the kv tiles of the
+//      forward's walk, recomputing S and dP (a second pass in place of
+//      atomics across kv tiles), the longest q tiles first; then, in the
+//      same launch, blocks that sum the dK/dV partials over the G heads of
+//      each kv head in head order, scale and round them to bf16 (they
+//      start as the dQ blocks drain, so their bytes overlap the last dQ
+//      products).
+// No atomics: nothing depends on the order blocks run in.
+// The products, bf16 at D = 64 (hymba's head size): Hopper's wgmma, one
+// warpgroup of 4 warps a block, m64n64k16, fp32 accumulators:
+//   - K, V (dK/dV) or Q, dO (dQ) and a cp.async double buffer of the other
+//     pair's tiles sit in shared memory in the 128-byte swizzle wgmma reads
+//     (a 64-bf16 row is one 128-byte line; 16-byte chunk c of row r at
+//     chunk c ^ (r % 8)), so one tile serves as a K-major operand (S^T = K
+//     Q^T, dP^T = V dO^T; S = Q K^T, dP = dO V^T) and as an MN-major one
+//     (dV += P^T dO, dK += dS^T Q; dQ += dS K);
+//   - P^T and dS^T (P and dS in the dQ pass) go from the accumulators into
+//     bf16 hi and lo A fragments in registers, the accumulator layout being
+//     the register-A layout, with no shared-memory round trip;
+//   - the rows' lse and Delta come with their Q and dO tiles by cp.async,
+//     so no warp waits on a load the warpgroup's next product needs;
+//   - occupancy (-Xptxas -v): dK/dV 168 registers under its launch bound,
+//     3 blocks an SM; dQ 122 registers, 4 blocks; 51 KB of shared memory
+//     a block.
+// Other D: mma.sync.m16n8k16 with the same work split (4 warps of 16 keys
+// or rows, ldmatrix fragments, rows padded by 16 bytes).
+// fp32 inputs: IEEE fp32 FMAs out of shared memory (no TF32), four threads
+// a key (dK, dV) or a q row (dQ); their dK/dV kernel sums the G heads
+// inside the block. No --use_fast_math.
 
 #include "flash_attention.cuh"
 
@@ -59,37 +85,362 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreadsF = 256;   // fp32 kernels: 4 threads a key or row
 
 __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 // ---------------------------------------------------------------------------
 // 1. Delta = rowsum(dO * O), fp32
 // ---------------------------------------------------------------------------
 
-template <typename T>
+// fp32: a warp a row
 __global__ void __launch_bounds__(256)
-delta_kernel(const T* __restrict__ o, const T* __restrict__ dO,
+delta_kernel(const float* __restrict__ o, const float* __restrict__ dO,
              float* __restrict__ delta, long long rows, int D) {
   const long long row = blockIdx.x * 8LL + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   float acc = 0.0f;
   for (int d = lane; d < D; d += 32)
-    acc = fmaf(to_f(dO[row * D + d]), to_f(o[row * D + d]), acc);
+    acc = fmaf(dO[row * D + d], o[row * D + d], acc);
 #pragma unroll
   for (int m = 16; m >= 1; m >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, m);
   if (lane == 0) delta[row] = acc;
 }
 
+// bf16: 8 lanes a row, 8 values (16 bytes) a load
+__global__ void __launch_bounds__(256)
+delta_kernel_bf16(const bf16* __restrict__ o, const bf16* __restrict__ dO,
+                  float* __restrict__ delta, long long rows, int D) {
+  const long long row = blockIdx.x * 32LL + (threadIdx.x >> 3);
+  const int l8 = threadIdx.x & 7;
+  float acc = 0.0f;
+  if (row < rows) {
+    for (int c = l8; c < D / 8; c += 8) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(o + row * D + 8 * c);
+      const uint4 dv = *reinterpret_cast<const uint4*>(dO + row * D + 8 * c);
+      const bf16* op = reinterpret_cast<const bf16*>(&ov);
+      const bf16* dp = reinterpret_cast<const bf16*>(&dv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        acc = fmaf(__bfloat162float(dp[e]), __bfloat162float(op[e]), acc);
+    }
+  }
+#pragma unroll
+  for (int m = 4; m >= 1; m >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (row < rows && l8 == 0) delta[row] = acc;
+}
+
 // ---------------------------------------------------------------------------
-// 2. dK, dV (bf16: tensor cores)
+// wgmma helpers (bf16, D = 64)
 // ---------------------------------------------------------------------------
 
+constexpr int kTileBytes = 64 * 128;   // 64 rows of 64 bf16
+
+// byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// 4 bytes global -> shared, asynchronously; in = false writes a zero
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// rows [row0, row0 + 64) of src (n_rows rows of 64 bf16) into the swizzled
+// tile at shared address dst; rows past n_rows are zero-filled
+__device__ __forceinline__ void load_tile_sw(uint32_t dst, const bf16* src,
+                                             int row0, int n_rows, int tid) {
+  for (int i = tid; i < 64 * 8; i += kThreadsTC) {
+    const int r = i >> 3, c = i & 7;
+    const bool in = row0 + r < n_rows;
+    cp_async16(dst + sw128(r, c),
+               src + static_cast<long long>(in ? row0 + r : 0) * 64 + 8 * c,
+               in ? 16 : 0);
+  }
+}
+
+// The wgmma descriptor of a 128-byte-swizzled tile from shared address
+// addr: 8-row groups 1,024 bytes apart (SBO), 128-byte swizzle; the leading
+// offset is unused at these shapes. K-major (the K of the product along a
+// row) steps 16 columns by +32 bytes, MN-major 16 rows by +2,048 bytes.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// every wgmma the warpgroup committed is done
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// the accumulator registers are live here (no move of them across a wait)
+__device__ __forceinline__ void wg_fence_acc(float (&d)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+// shared memory written by cp.async becomes visible to wgmma's reads
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x 64 fp32, the m64n64 accumulator layout: warp w rows 16 w.., n-tile
+// j, element e as mma.sync's) (+)= A B, A and B from shared memory
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransB));
+}
+// the same with A (16 columns of the 64 rows) in registers, in the
+// mma.sync A-fragment layout of each warp's 16 rows
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate), "n"(kTransB));
+}
+
+// ---------------------------------------------------------------------------
+// 2. dK, dV per (b, query head, key tile), fp32 partials (bf16 inputs)
+// ---------------------------------------------------------------------------
+
+// what both dK/dV kernels share: the block's head and key tile, and the
+// q tiles that visit the key tile, in increasing order
+struct KvBlock {
+  int bh, kvh, t_kv, k0, n_qt;
+  __device__ __forceinline__ KvBlock(int H, int K, int S) {
+    bh = blockIdx.x;                                 // b * H + h
+    kvh = (bh / H) * K + (bh % H) / (H / K);
+    t_kv = blockIdx.y;
+    k0 = t_kv * kBK;
+    n_qt = (S + kBQ - 1) / kBQ;
+  }
+  // the first q tile >= qt whose walk visits the key tile, or -1
+  __device__ __forceinline__ int next(const Mask& mk, int qt, int S) const {
+    for (; qt < n_qt; ++qt)
+      if (tiles_of(mk, qt * kBQ, S).visits(t_kv)) return qt;
+    return -1;
+  }
+};
+
+// P^T and dS^T of a (64 keys x 64 q rows) tile pair from the accumulator
+// fragments of S^T and dP^T (fragment (j, e): key key0 + 8 (e / 2), q row
+// q0 + 8 j + quad_col + e % 2), in place; lse and dl are the q tile's rows'
+// lse and Delta (zero past S, where the rows of Q and dO are zero too, so
+// that those rows add nothing)
+__device__ __forceinline__ void p_ds_t(float (&st)[8][4], float (&dpt)[8][4],
+                                       const float* lse, const float* dl,
+                                       const Mask& mk, int q0, int k0,
+                                       int key0, int quad_col, float c2) {
+  const bool part = mk.partial(q0, k0);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 8 * j + quad_col + (e & 1);
+      float p = exp2f(fmaf(st[j][e], c2, -(lse[r] * kLog2e)));
+      if (part && !mk.visible(q0 + r, key0 + 8 * (e >> 1))) p = 0.0f;
+      st[j][e] = p;
+      dpt[j][e] = p * (dpt[j][e] - dl[r]);
+    }
+}
+
+// fp32 partials of the block's 64 keys: rows key0, key0 + 8 of the
+// accumulator fragments, unscaled
+template <int D>
+__device__ __forceinline__ void store_partials(const float (&dk)[D / 8][4],
+                                               const float (&dv)[D / 8][4],
+                                               float* pk, float* pv,
+                                               long long bh, int Sk, int key0,
+                                               int quad_col) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    if (key >= Sk) continue;
+    const long long off = (bh * Sk + key) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(pk + off + 8 * j + quad_col) =
+          make_float2(dk[j][2 * h], dk[j][2 * h + 1]);
+      *reinterpret_cast<float2*>(pv + off + 8 * j + quad_col) =
+          make_float2(dv[j][2 * h], dv[j][2 * h + 1]);
+    }
+  }
+}
+
+constexpr size_t smem_bytes_wg() {
+  // six swizzled tiles (two fixed, a double buffer of two), 2 x 2 x 64
+  // floats of lse and Delta (dK/dV), and 1 KB to align the tiles
+  return 6 * kTileBytes + sizeof(float) * 4 * kBQ + 1024;
+}
+
+// wgmma, D = 64: S^T = K Q^T and dP^T = V dO^T (K-major), then dV += P^T dO
+// and dK += dS^T Q (dO and Q MN-major), P^T and dS^T as register A
+// operands. Three blocks an SM overlap one block's elementwise work with
+// another's products (issuing item i + 1's S^T before item i's dV, dK in
+// one block needs 234 registers, 2 blocks an SM, and was slower).
+__global__ void __launch_bounds__(kThreadsTC, 3)
+dkdv_kernel_wg(const bf16* __restrict__ q,      // (B, H, S, 64)
+               const bf16* __restrict__ k,      // (B, K, Sk, 64)
+               const bf16* __restrict__ v,      // (B, K, Sk, 64)
+               const bf16* __restrict__ dO,     // (B, H, S, 64)
+               const float* __restrict__ lse,   // (B, H, S)
+               const float* __restrict__ delta, // (B, H, S)
+               float* __restrict__ pk,          // (B, H, Sk, 64)
+               float* __restrict__ pv,          // (B, H, Sk, 64)
+               int H, int K, int S, Mask mk, float scale) {
+  constexpr int D = 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t k_s = base, v_s = base + kTileBytes;
+  const uint32_t q_s = base + 2 * kTileBytes;    // 2 tiles
+  const uint32_t do_s = base + 4 * kTileBytes;   // 2 tiles
+  float* lse_s = reinterpret_cast<float*>(smem_raw + (base - raw) +
+                                          6 * kTileBytes);  // 2 x kBQ
+  float* dl_s = lse_s + 2 * kBQ;                            // 2 x kBQ
+
+  const KvBlock blk(H, K, S);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int key0 = blk.k0 + warp * 16 + (lane >> 2);   // keys key0, key0 + 8
+  const int quad_col = 2 * (lane & 3);
+  const long long qo = static_cast<long long>(blk.bh) * S;
+
+  auto load_item = [&](int qt, int buf) {
+    const int q0 = qt * kBQ;
+    load_tile_sw(q_s + buf * kTileBytes, q + qo * D, q0, S, tid);
+    load_tile_sw(do_s + buf * kTileBytes, dO + qo * D, q0, S, tid);
+    if (tid < kBQ) {
+      const int r = q0 + tid;
+      const long long i = qo + (r < S ? r : 0);
+      cp_async4(lse_s + buf * kBQ + tid, lse + i, r < S);
+      cp_async4(dl_s + buf * kBQ + tid, delta + i, r < S);
+    }
+  };
+
+  const long long kv_off = static_cast<long long>(blk.kvh) * mk.Sk * D;
+  load_tile_sw(k_s, k + kv_off, blk.k0, mk.Sk, tid);
+  load_tile_sw(v_s, v + kv_off, blk.k0, mk.Sk, tid);
+  int qt = blk.next(mk, 0, S);
+  if (qt >= 0) load_item(qt, 0);
+  cp_async_commit();
+
+  float dk[8][4], dv[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.0f;
+  const float c2 = scale * kLog2e;
+  const uint64_t dK = desc_sw128(k_s), dV = desc_sw128(v_s);
+
+  for (int buf = 0; qt >= 0; buf ^= 1) {
+    const int nxt = blk.next(mk, qt + 1, S);
+    if (nxt >= 0) {
+      // buffer buf ^ 1 was last read before the __syncthreads that ended
+      // the previous item
+      load_item(nxt, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_smem();
+    __syncthreads();
+    const int q0 = qt * kBQ;
+    const uint32_t qt_s = q_s + buf * kTileBytes;
+    const uint32_t dot_s = do_s + buf * kTileBytes;
+    const uint64_t dQ = desc_sw128(qt_s), dD = desc_sw128(dot_s);
+
+    float st[8][4], dpt[8][4];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<0>(st, dK + 2 * kk, dQ + 2 * kk, kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<0>(dpt, dV + 2 * kk, dD + 2 * kk, kk);
+    wg_commit();
+    wg_wait_all();
+    wg_fence_acc(st);
+    wg_fence_acc(dpt);
+    p_ds_t(st, dpt, lse_s + buf * kBQ, dl_s + buf * kBQ, mk, q0, blk.k0, key0,
+           quad_col, c2);
+
+    // every A fragment first: wgmma reads them after it is issued
+    uint32_t ph[4][4], pl[4][4], sh[4][4], sl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      acc_to_a<true>(st, kk, ph[kk], pl[kk]);
+      acc_to_a<true>(dpt, kk, sh[kk], sl[kk]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+      const uint64_t bdo = desc_sw128(dot_s + kk * 2048);
+      const uint64_t bq = desc_sw128(qt_s + kk * 2048);
+      wgmma_rs<1>(dv, ph[kk], bdo, 1);
+      wgmma_rs<1>(dv, pl[kk], bdo, 1);
+      wgmma_rs<1>(dk, sh[kk], bq, 1);
+      wgmma_rs<1>(dk, sl[kk], bq, 1);
+    }
+    wg_commit();
+    wg_wait_all();
+    wg_fence_acc(dk);
+    wg_fence_acc(dv);
+    __syncthreads();  // every warp is done with buf before it is refilled
+    qt = nxt;
+  }
+  cp_async_wait<0>();   // a key tile no q tile visits loaded K and V only
+  store_partials<D>(dk, dv, pk, pv, blk.bh, mk.Sk, key0, quad_col);
+}
+
+// mma.sync, any D
 template <int D>
 constexpr size_t smem_bytes_dkdv_tc() {
   // K and V tiles, a double buffer of Q and dO tiles, and the two buffers'
-  // lse * log2(e) and Delta
+  // lse and Delta
   return sizeof(bf16) * (D + kPad) * (2 * kBK + 4 * kBQ) +
          sizeof(float) * 4 * kBQ;
 }
@@ -102,8 +453,8 @@ dkdv_kernel_tc(const bf16* __restrict__ q,      // (B, H, S, D)
                const bf16* __restrict__ dO,     // (B, H, S, D)
                const float* __restrict__ lse,   // (B, H, S)
                const float* __restrict__ delta, // (B, H, S)
-               bf16* __restrict__ dk,           // (B, K, Sk, D)
-               bf16* __restrict__ dv,           // (B, K, Sk, D)
+               float* __restrict__ pk,          // (B, H, Sk, D)
+               float* __restrict__ pv,          // (B, H, Sk, D)
                int H, int K, int S, Mask mk, float scale) {
   constexpr int LD = D + kPad;
   constexpr int NT = kBQ / 8;    // n-tiles of 8 q rows
@@ -114,46 +465,33 @@ dkdv_kernel_tc(const bf16* __restrict__ q,      // (B, H, S, D)
   bf16* v_s = k_s + kBK * LD;
   bf16* q_s = v_s + kBK * LD;            // 2 x kBQ x LD
   bf16* do_s = q_s + 2 * kBQ * LD;       // 2 x kBQ x LD
-  float* l2_s = reinterpret_cast<float*>(do_s + 2 * kBQ * LD);  // 2 x kBQ
-  float* dl_s = l2_s + 2 * kBQ;                                 // 2 x kBQ
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kBQ * LD);  // 2 x kBQ
+  float* dl_s = lse_s + 2 * kBQ;                                 // 2 x kBQ
 
-  const int bkv = blockIdx.y;            // b * K + kv head
-  const int G = H / K;
-  const int hq0 = (bkv / K) * H + (bkv % K) * G;   // first query head (b, h)
-  const int t_kv = blockIdx.x;
-  const int k0 = t_kv * kBK;
-  const int Sk = mk.Sk;
-  const int n_qt = (S + kBQ - 1) / kBQ;
+  const KvBlock blk(H, K, S);
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int key0 = k0 + warp * 16 + (lane >> 2);   // keys key0, key0 + 8
+  const int key0 = blk.k0 + warp * 16 + (lane >> 2);   // keys key0, key0 + 8
   const int quad_col = 2 * (lane & 3);
+  const long long qo = static_cast<long long>(blk.bh) * S;
 
-  // work items it = g * n_qt + qt: head g of the group, q tile qt, taken
-  // when the forward's walk of q tile qt visits this kv tile
-  auto next = [&](int it) {
-    for (; it < G * n_qt; ++it)
-      if (tiles_of(mk, (it % n_qt) * kBQ, S).visits(t_kv)) return it;
-    return -1;
-  };
-  auto load_item = [&](int it, int buf) {
-    const long long bh = hq0 + it / n_qt;
-    const int q0 = (it % n_qt) * kBQ;
-    load_tile<D>(q_s + buf * kBQ * LD, q + bh * S * D, q0, S, tid);
-    load_tile<D>(do_s + buf * kBQ * LD, dO + bh * S * D, q0, S, tid);
+  auto load_item = [&](int qt, int buf) {
+    const int q0 = qt * kBQ;
+    load_tile<D>(q_s + buf * kBQ * LD, q + qo * D, q0, S, tid);
+    load_tile<D>(do_s + buf * kBQ * LD, dO + qo * D, q0, S, tid);
     if (tid < kBQ) {
       const int r = q0 + tid;
-      // a row past S gets p = exp2(-inf) = 0
-      l2_s[buf * kBQ + tid] = r < S ? lse[bh * S + r] * kLog2e : inf();
-      dl_s[buf * kBQ + tid] = r < S ? delta[bh * S + r] : 0.0f;
+      const long long i = qo + (r < S ? r : 0);
+      cp_async4(lse_s + buf * kBQ + tid, lse + i, r < S);
+      cp_async4(dl_s + buf * kBQ + tid, delta + i, r < S);
     }
   };
 
-  const long long kv_off = static_cast<long long>(bkv) * Sk * D;
-  load_tile<D>(k_s, k + kv_off, k0, Sk, tid);
-  load_tile<D>(v_s, v + kv_off, k0, Sk, tid);
-  int it = next(0);
-  if (it >= 0) load_item(it, 0);
+  const long long kv_off = static_cast<long long>(blk.kvh) * mk.Sk * D;
+  load_tile<D>(k_s, k + kv_off, blk.k0, mk.Sk, tid);
+  load_tile<D>(v_s, v + kv_off, blk.k0, mk.Sk, tid);
+  int qt = blk.next(mk, 0, S);
+  if (qt >= 0) load_item(qt, 0);
   cp_async_commit();
 
   float dk_acc[NO][4], dv_acc[NO][4];
@@ -163,11 +501,9 @@ dkdv_kernel_tc(const bf16* __restrict__ q,      // (B, H, S, D)
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.0f;
   const float c2 = scale * kLog2e;
 
-  for (int buf = 0; it >= 0; buf ^= 1) {
-    const int nxt = next(it + 1);
+  for (int buf = 0; qt >= 0; buf ^= 1) {
+    const int nxt = blk.next(mk, qt + 1, S);
     if (nxt >= 0) {
-      // buffer buf ^ 1 was last read before the __syncthreads that ended
-      // the previous item
       load_item(nxt, buf ^ 1);
       cp_async_commit();
       cp_async_wait<1>();
@@ -175,11 +511,9 @@ dkdv_kernel_tc(const bf16* __restrict__ q,      // (B, H, S, D)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int q0 = (it % n_qt) * kBQ;
-    const bf16* qt = q_s + buf * kBQ * LD;
+    const int q0 = qt * kBQ;
+    const bf16* qt_s = q_s + buf * kBQ * LD;
     const bf16* dot = do_s + buf * kBQ * LD;
-    const float* l2 = l2_s + buf * kBQ;
-    const float* dl = dl_s + buf * kBQ;
 
     // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x the 64 q rows
     float st[NT][4], dpt[NT][4];
@@ -195,7 +529,7 @@ dkdv_kernel_tc(const bf16* __restrict__ q,      // (B, H, S, D)
 #pragma unroll
       for (int j = 0; j < NT; j += 2) {
         uint32_t b[4];
-        ldsm_b_rows<LD>(b, qt, j, kk, lane);
+        ldsm_b_rows<LD>(b, qt_s, j, kk, lane);
         mma_bf16(st[j], ka, b[0], b[1]);
         mma_bf16(st[j + 1], ka, b[2], b[3]);
         ldsm_b_rows<LD>(b, dot, j, kk, lane);
@@ -203,19 +537,8 @@ dkdv_kernel_tc(const bf16* __restrict__ q,      // (B, H, S, D)
         mma_bf16(dpt[j + 1], va, b[2], b[3]);
       }
     }
-    // fragment (j, e): key key0 + 8 (e / 2), q row q0 + 8 j + quad_col +
-    // e % 2; st becomes P^T and dpt dS^T
-    const bool part = mk.partial(q0, k0);
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = 8 * j + quad_col + (e & 1);
-        float p = exp2f(fmaf(st[j][e], c2, -l2[r]));
-        if (part && !mk.visible(q0 + r, key0 + 8 * (e >> 1))) p = 0.0f;
-        st[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - dl[r]);
-      }
+    p_ds_t(st, dpt, lse_s + buf * kBQ, dl_s + buf * kBQ, mk, q0, blk.k0, key0,
+           quad_col, c2);
 
     // dV += P^T dO and dK += dS^T Q, 16 q rows a k-step
 #pragma unroll
@@ -231,7 +554,7 @@ dkdv_kernel_tc(const bf16* __restrict__ q,      // (B, H, S, D)
         mma_bf16(dv_acc[j + 1], ph, b[2], b[3]);
         mma_bf16(dv_acc[j], pl, b[0], b[1]);
         mma_bf16(dv_acc[j + 1], pl, b[2], b[3]);
-        ldsm_b_cols<LD>(b, qt, j, kk, lane);
+        ldsm_b_cols<LD>(b, qt_s, j, kk, lane);
         mma_bf16(dk_acc[j], sh, b[0], b[1]);
         mma_bf16(dk_acc[j + 1], sh, b[2], b[3]);
         mma_bf16(dk_acc[j], sl, b[0], b[1]);
@@ -239,29 +562,223 @@ dkdv_kernel_tc(const bf16* __restrict__ q,      // (B, H, S, D)
       }
     }
     __syncthreads();  // every warp is done with buf before it is refilled
-    it = nxt;
+    qt = nxt;
   }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = key0 + 8 * h;
-    if (key >= Sk) continue;
-    const long long off = (static_cast<long long>(bkv) * Sk + key) * D;
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j + quad_col) =
-          __floats2bfloat162_rn(dk_acc[j][2 * h] * scale,
-                                dk_acc[j][2 * h + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j + quad_col) =
-          __floats2bfloat162_rn(dv_acc[j][2 * h], dv_acc[j][2 * h + 1]);
-    }
-  }
+  cp_async_wait<0>();   // a key tile no q tile visits loaded K and V only
+  store_partials<D>(dk_acc, dv_acc, pk, pv, blk.bh, mk.Sk, key0, quad_col);
 }
 
 // ---------------------------------------------------------------------------
-// 3. dQ (bf16: tensor cores)
+// 3. dQ per (b, head, q tile) (bf16 inputs)
 // ---------------------------------------------------------------------------
 
+// dS of a (64 q rows x 64 keys) tile pair in place from the fragments of S
+// and dP (fragment (j, e): row row0 + 8 (e / 2), key k0 + 8 j + quad_col +
+// e % 2)
+__device__ __forceinline__ void ds_of(float (&s)[8][4], const float (&dp)[8][4],
+                                      const float (&l2)[2], const float (&dl)[2],
+                                      const Mask& mk, int q0, int k0,
+                                      int row0, int quad_col, float c2) {
+  const bool part = mk.partial(q0, k0);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      float p = exp2f(fmaf(s[j][e], c2, -l2[h]));
+      if (part && !mk.visible(row0 + 8 * h, k0 + 8 * j + quad_col + (e & 1)))
+        p = 0.0f;
+      s[j][e] = p * (dp[j][e] - dl[h]);
+    }
+}
+
+// dK, dV from the per-head partials (bf16 inputs): the blocks of the dQ
+// launch past its q tiles.
+struct Combine {
+  static constexpr int kIters = 8;             // float4s a thread
+  const float* pk;                             // (B, H, Sk, D)
+  const float* pv;                             // (B, H, Sk, D)
+  bf16* dk;                                    // (B, K, Sk, D)
+  bf16* dv;                                    // (B, K, Sk, D)
+  long long per_head, n4;                      // Sk D; B K Sk D / 4
+  int H, K;
+  float scale;
+
+  // the grid rows (of B H blocks) the combine takes
+  int rows(int BH) const {
+    const long long blocks = (n4 + kIters * kThreadsTC - 1) /
+                             (kIters * kThreadsTC);
+    return static_cast<int>((blocks + BH - 1) / BH);
+  }
+  // four consecutive elements: the G query heads of the kv head summed in
+  // head order, dK scaled, both rounded to bf16
+  __device__ __forceinline__ void four(long long i) const {
+    const long long e = 4 * i;                 // element of (B, K, Sk, D)
+    const long long bkv = e / per_head, rem = e % per_head;
+    const int G = H / K;
+    const long long h0 = (bkv / K) * H + (bkv % K) * G;
+    float4 sk = make_float4(0.0f, 0.0f, 0.0f, 0.0f), sv = sk;
+    for (int g = 0; g < G; ++g) {
+      const long long src = (h0 + g) * per_head + rem;
+      const float4 a = *reinterpret_cast<const float4*>(pk + src);
+      const float4 b = *reinterpret_cast<const float4*>(pv + src);
+      sk.x += a.x, sk.y += a.y, sk.z += a.z, sk.w += a.w;
+      sv.x += b.x, sv.y += b.y, sv.z += b.z, sv.w += b.w;
+    }
+    *reinterpret_cast<uint2*>(dk + e) = make_uint2(
+        pack_bf16(sk.x * scale, sk.y * scale),
+        pack_bf16(sk.z * scale, sk.w * scale));
+    *reinterpret_cast<uint2*>(dv + e) =
+        make_uint2(pack_bf16(sv.x, sv.y), pack_bf16(sv.z, sv.w));
+  }
+  // the block's slice of the float4s
+  __device__ __forceinline__ void slice(long long blk) const {
+#pragma unroll
+    for (int r = 0; r < kIters; ++r) {
+      const long long i = (blk * kIters + r) * kThreadsTC + threadIdx.x;
+      if (i < n4) four(i);
+    }
+  }
+};
+
+// what both dQ kernels share: the block's head and q tile (the last q tile
+// first), its rows' lse * log2(e) and Delta, and the bf16 store
+struct QBlock {
+  int bh, kvh, q0;
+  __device__ __forceinline__ QBlock(int H, int K, int row, int n_qt) {
+    bh = blockIdx.x;                                 // b * H + h
+    kvh = (bh / H) * K + (bh % H) / (H / K);
+    q0 = (n_qt - 1 - row) * kBQ;
+  }
+  __device__ __forceinline__ void rows(const float* lse, const float* delta,
+                                       int row0, int S, float (&l2)[2],
+                                       float (&dl)[2]) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      const long long i = static_cast<long long>(bh) * S + r;
+      l2[h] = r < S ? lse[i] * kLog2e : inf();
+      dl[h] = r < S ? delta[i] : 0.0f;
+    }
+  }
+  template <int D>
+  __device__ __forceinline__ void store(const float (&acc)[D / 8][4], bf16* dq,
+                                        int row0, int quad_col, int S,
+                                        float scale) const {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= S) continue;
+      bf16* dst = dq + (static_cast<long long>(bh) * S + row) * D + quad_col;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(acc[j][2 * h] * scale,
+                                  acc[j][2 * h + 1] * scale);
+    }
+  }
+};
+
+// wgmma, D = 64: S = Q K^T and dP = dO V^T (K-major), dQ += dS K (K
+// MN-major), dS as register A operands
+__global__ void __launch_bounds__(kThreadsTC)
+dq_kernel_wg(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, const bf16* __restrict__ dO,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             bf16* __restrict__ dq, int H, int K, int S, Mask mk,
+             float scale, int n_qt, Combine cb) {
+  constexpr int D = 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base, do_s = base + kTileBytes;
+  const uint32_t k_s = base + 2 * kTileBytes;    // 2 tiles
+  const uint32_t v_s = base + 4 * kTileBytes;    // 2 tiles
+
+  const int row = blockIdx.y;
+  if (row >= n_qt) {                  // the combine's rows
+    cb.slice(static_cast<long long>(row - n_qt) * gridDim.x + blockIdx.x);
+    return;
+  }
+  const QBlock blk(H, K, row, n_qt);
+  const int Sk = mk.Sk;
+  const long long q_off = static_cast<long long>(blk.bh) * S * D;
+  const bf16* kp = k + static_cast<long long>(blk.kvh) * Sk * D;
+  const bf16* vp = v + static_cast<long long>(blk.kvh) * Sk * D;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int row0 = blk.q0 + warp * 16 + (lane >> 2);   // rows row0, row0 + 8
+  const int quad_col = 2 * (lane & 3);
+
+  const Tiles tiles = tiles_of(mk, blk.q0, S);
+  load_tile_sw(q_s, q + q_off, blk.q0, S, tid);
+  load_tile_sw(do_s, dO + q_off, blk.q0, S, tid);
+  if (tiles.n > 0) {
+    load_tile_sw(k_s, kp, tiles[0] * kBK, Sk, tid);
+    load_tile_sw(v_s, vp, tiles[0] * kBK, Sk, tid);
+  }
+  cp_async_commit();
+  float l2[2], dl[2];
+  blk.rows(lse, delta, row0, S, l2, dl);
+  const float c2 = scale * kLog2e;
+  const uint64_t dQ = desc_sw128(q_s), dD = desc_sw128(do_s);
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+
+  for (int i = 0; i < tiles.n; ++i) {
+    const int buf = i & 1;
+    if (i + 1 < tiles.n) {
+      const int k1 = tiles[i + 1] * kBK;
+      load_tile_sw(k_s + (buf ^ 1) * kTileBytes, kp, k1, Sk, tid);
+      load_tile_sw(v_s + (buf ^ 1) * kTileBytes, vp, k1, Sk, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_smem();
+    __syncthreads();
+    const int k0 = tiles[i] * kBK;
+    const uint32_t kt_s = k_s + buf * kTileBytes;
+    const uint32_t vt_s = v_s + buf * kTileBytes;
+    const uint64_t dK = desc_sw128(kt_s), dV = desc_sw128(vt_s);
+
+    float s[8][4], dp[8][4];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<0>(s, dQ + 2 * kk, dK + 2 * kk, kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<0>(dp, dD + 2 * kk, dV + 2 * kk, kk);
+    wg_commit();
+    wg_wait_all();
+    wg_fence_acc(s);
+    wg_fence_acc(dp);
+    ds_of(s, dp, l2, dl, mk, blk.q0, k0, row0, quad_col, c2);
+
+    uint32_t sh[4][4], sl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      acc_to_a<true>(s, kk, sh[kk], sl[kk]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t bk = desc_sw128(kt_s + kk * 2048);
+      wgmma_rs<1>(acc, sh[kk], bk, 1);
+      wgmma_rs<1>(acc, sl[kk], bk, 1);
+    }
+    wg_commit();
+    wg_wait_all();
+    wg_fence_acc(acc);
+    __syncthreads();  // every warp is done with buf before it is refilled
+  }
+  blk.store<D>(acc, dq, row0, quad_col, S, scale);
+}
+
+// mma.sync, any D
 template <int D>
 constexpr size_t smem_bytes_dq_tc() {
   // Q and dO tiles, a double buffer of K and V tiles
@@ -274,7 +791,7 @@ dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ dO,
              const float* __restrict__ lse, const float* __restrict__ delta,
              bf16* __restrict__ dq, int H, int K, int S, Mask mk,
-             float scale) {
+             float scale, int n_qt, Combine cb) {
   constexpr int LD = D + kPad;
   constexpr int NT = kBK / 8;    // n-tiles of 8 keys
   constexpr int KQ = D / 16;     // k-steps over D
@@ -285,21 +802,24 @@ dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* k_s = do_s + kBQ * LD;           // 2 x kBK x LD
   bf16* v_s = k_s + 2 * kBK * LD;        // 2 x kBK x LD
 
-  const int bh = blockIdx.y;             // b * H + h
-  const int kvh = (bh / H) * K + (bh % H) / (H / K);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int row = blockIdx.y;
+  if (row >= n_qt) {                  // the combine's rows
+    cb.slice(static_cast<long long>(row - n_qt) * gridDim.x + blockIdx.x);
+    return;
+  }
+  const QBlock blk(H, K, row, n_qt);
   const int Sk = mk.Sk;
-  const long long q_off = static_cast<long long>(bh) * S * D;
-  const bf16* kp = k + static_cast<long long>(kvh) * Sk * D;
-  const bf16* vp = v + static_cast<long long>(kvh) * Sk * D;
+  const long long q_off = static_cast<long long>(blk.bh) * S * D;
+  const bf16* kp = k + static_cast<long long>(blk.kvh) * Sk * D;
+  const bf16* vp = v + static_cast<long long>(blk.kvh) * Sk * D;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int row0 = q0 + warp * 16 + (lane >> 2);   // rows row0, row0 + 8
+  const int row0 = blk.q0 + warp * 16 + (lane >> 2);   // rows row0, row0 + 8
   const int quad_col = 2 * (lane & 3);
 
-  const Tiles tiles = tiles_of(mk, q0, S);
-  load_tile<D>(q_s, q + q_off, q0, S, tid);
-  load_tile<D>(do_s, dO + q_off, q0, S, tid);
+  const Tiles tiles = tiles_of(mk, blk.q0, S);
+  load_tile<D>(q_s, q + q_off, blk.q0, S, tid);
+  load_tile<D>(do_s, dO + q_off, blk.q0, S, tid);
   cp_async_commit();
   if (tiles.n > 0) {
     load_tile<D>(k_s, kp, tiles[0] * kBK, Sk, tid);
@@ -316,12 +836,7 @@ dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     ldsm_a<LD>(df[kk], do_s, warp * 16, kk, lane);
   }
   float l2[2], dl[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row0 + 8 * h;
-    l2[h] = r < S ? lse[static_cast<long long>(bh) * S + r] * kLog2e : inf();
-    dl[h] = r < S ? delta[static_cast<long long>(bh) * S + r] : 0.0f;
-  }
+  blk.rows(lse, delta, row0, S, l2, dl);
   const float c2 = scale * kLog2e;
   float acc[NO][4];
 #pragma unroll
@@ -364,19 +879,7 @@ dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         mma_bf16(dp[j + 1], df[kk], b[2], b[3]);
       }
     }
-    // fragment (j, e): row row0 + 8 (e / 2), key k0 + 8 j + quad_col + e % 2;
-    // s becomes dS
-    const bool part = mk.partial(q0, k0);
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        float p = exp2f(fmaf(s[j][e], c2, -l2[h]));
-        if (part && !mk.visible(row0 + 8 * h, k0 + 8 * j + quad_col + (e & 1)))
-          p = 0.0f;
-        s[j][e] = p * (dp[j][e] - dl[h]);
-      }
+    ds_of(s, dp, l2, dl, mk, blk.q0, k0, row0, quad_col, c2);
     // dQ += dS K, 16 keys a k-step
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
@@ -394,18 +897,7 @@ dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();  // every warp is done with buf before it is refilled
   }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = row0 + 8 * h;
-    if (row >= S) continue;
-#pragma unroll
-    for (int j = 0; j < NO; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(
-          dq + q_off + static_cast<long long>(row) * D + 8 * j + quad_col) =
-          __floats2bfloat162_rn(acc[j][2 * h] * scale,
-                                acc[j][2 * h + 1] * scale);
-  }
+  blk.store<D>(acc, dq, row0, quad_col, S, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -604,6 +1096,7 @@ dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
@@ -615,47 +1108,91 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// the scratch, in floats: Delta (B H S), then, for bf16, the fp32 dK and dV
+// partials of every query head (B H Sk D each), from a multiple of 4
+struct Scratch {
+  long long delta, part;
+  long long part_at() const { return (delta + 3) & ~3LL; }
+  long long floats() const { return part_at() + 2 * part; }
+};
+
+Scratch scratch_of(int B, int H, int S, int Sk, int D, int bf16_in) {
+  return Scratch{static_cast<long long>(B) * H * S,
+                 bf16_in ? static_cast<long long>(B) * H * Sk * D : 0};
+}
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
-                   const void* dO, const float* lse, float* delta, void* dq,
-                   void* dk, void* dv, int B, int H, int K, int S, Mask mk,
-                   float scale, int bf16_in, cudaStream_t stream) {
+                   const void* dO, const float* lse, float* scratch,
+                   long long scratch_floats, void* dq, void* dk, void* dv,
+                   int B, int H, int K, int S, Mask mk, float scale,
+                   int bf16_in, cudaStream_t stream) {
+  const Scratch sc = scratch_of(B, H, S, mk.Sk, D, bf16_in);
+  if (sc.floats() > scratch_floats) return cudaErrorInvalidValue;
+  float* delta = scratch;
   const long long rows = static_cast<long long>(B) * H * S;
-  const dim3 grid_rows(static_cast<unsigned>((rows + 7) / 8));
-  const dim3 grid_kv((mk.Sk + kBK - 1) / kBK, B * K);
-  const dim3 grid_q((S + kBQ - 1) / kBQ, B * H);
+  const int n_kt = (mk.Sk + kBK - 1) / kBK, n_qt = (S + kBQ - 1) / kBQ;
   cudaError_t err;
   if (bf16_in) {
     const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
                *vb = static_cast<const bf16*>(v), *ob = static_cast<const bf16*>(o),
                *db = static_cast<const bf16*>(dO);
-    delta_kernel<bf16><<<grid_rows, 256, 0, stream>>>(ob, db, delta, rows, D);
+    float* pk = scratch + sc.part_at();
+    float* pv = pk + sc.part;
+    // the key tile (dK/dV) and the q tile (dQ) are the slow grid axes, so
+    // the blocks with the most tiles to visit start first
+    const dim3 grid_kv(B * H, n_kt);
+    delta_kernel_bf16<<<static_cast<unsigned>((rows + 31) / 32), 256, 0,
+                        stream>>>(ob, db, delta, rows, D);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    constexpr size_t s_kv = smem_bytes_dkdv_tc<D>(), s_q = smem_bytes_dq_tc<D>();
-    if ((err = allow_smem(dkdv_kernel_tc<D>, s_kv)) != cudaSuccess) return err;
-    if ((err = allow_smem(dq_kernel_tc<D>, s_q)) != cudaSuccess) return err;
-    dkdv_kernel_tc<D><<<grid_kv, kThreadsTC, s_kv, stream>>>(
-        qb, kb, vb, db, lse, delta, static_cast<bf16*>(dk),
-        static_cast<bf16*>(dv), H, K, S, mk, scale);
+    if constexpr (D == 64) {
+      constexpr size_t s_kv = smem_bytes_wg();
+      if ((err = allow_smem(dkdv_kernel_wg, s_kv)) != cudaSuccess) return err;
+      dkdv_kernel_wg<<<grid_kv, kThreadsTC, s_kv, stream>>>(
+          qb, kb, vb, db, lse, delta, pk, pv, H, K, S, mk, scale);
+    } else {
+      constexpr size_t s_kv = smem_bytes_dkdv_tc<D>();
+      if ((err = allow_smem(dkdv_kernel_tc<D>, s_kv)) != cudaSuccess)
+        return err;
+      dkdv_kernel_tc<D><<<grid_kv, kThreadsTC, s_kv, stream>>>(
+          qb, kb, vb, db, lse, delta, pk, pv, H, K, S, mk, scale);
+    }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    dq_kernel_tc<D><<<grid_q, kThreadsTC, s_q, stream>>>(
-        qb, kb, vb, db, lse, delta, static_cast<bf16*>(dq), H, K, S, mk,
-        scale);
+    // dQ and the combine: one launch, the combine's rows after the q tiles
+    const Combine cb{pk, pv, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                     static_cast<long long>(mk.Sk) * D,
+                     static_cast<long long>(B) * K * mk.Sk * D / 4, H, K,
+                     scale};
+    const dim3 grid_q(B * H, n_qt + cb.rows(B * H));
+    bf16* dqb = static_cast<bf16*>(dq);
+    if constexpr (D == 64) {
+      constexpr size_t s_q = smem_bytes_wg();
+      if ((err = allow_smem(dq_kernel_wg, s_q)) != cudaSuccess) return err;
+      dq_kernel_wg<<<grid_q, kThreadsTC, s_q, stream>>>(
+          qb, kb, vb, db, lse, delta, dqb, H, K, S, mk, scale, n_qt, cb);
+    } else {
+      constexpr size_t s_q = smem_bytes_dq_tc<D>();
+      if ((err = allow_smem(dq_kernel_tc<D>, s_q)) != cudaSuccess) return err;
+      dq_kernel_tc<D><<<grid_q, kThreadsTC, s_q, stream>>>(
+          qb, kb, vb, db, lse, delta, dqb, H, K, S, mk, scale, n_qt, cb);
+    }
     return cudaGetLastError();
   }
   const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
               *vf = static_cast<const float*>(v), *of = static_cast<const float*>(o),
               *df = static_cast<const float*>(dO);
-  delta_kernel<float><<<grid_rows, 256, 0, stream>>>(of, df, delta, rows, D);
+  delta_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
+      of, df, delta, rows, D);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  constexpr size_t s_kv = smem_bytes_dkdv_f32<D>(), s_q = smem_bytes_dq_f32<D>();
+  constexpr size_t s_kv = smem_bytes_dkdv_f32<D>();
   if ((err = allow_smem(dkdv_kernel_f32<D>, s_kv)) != cudaSuccess) return err;
-  if ((err = allow_smem(dq_kernel_f32<D>, s_q)) != cudaSuccess) return err;
-  dkdv_kernel_f32<D><<<grid_kv, kThreadsF, s_kv, stream>>>(
+  dkdv_kernel_f32<D><<<dim3(n_kt, B * K), kThreadsF, s_kv, stream>>>(
       qf, kf, vf, df, lse, delta, static_cast<float*>(dk),
       static_cast<float*>(dv), H, K, S, mk, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  dq_kernel_f32<D><<<grid_q, kThreadsF, s_q, stream>>>(
+  constexpr size_t s_q = smem_bytes_dq_f32<D>();
+  if ((err = allow_smem(dq_kernel_f32<D>, s_q)) != cudaSuccess) return err;
+  dq_kernel_f32<D><<<dim3(n_qt, B * H), kThreadsF, s_q, stream>>>(
       qf, kf, vf, df, lse, delta, static_cast<float*>(dq), H, K, S, mk,
       scale);
   return cudaGetLastError();
@@ -663,28 +1200,43 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
+// The floats of scratch a launch at this shape needs (0: a D not taken).
+extern "C" long long flash_attention_bwd_scratch_floats(int B, int H, int K,
+                                                        int S, int Sk, int D,
+                                                        int bf16_in) {
+  if (B <= 0 || H <= 0 || K <= 0 || S < 0 || Sk < 0) return 0;
+  switch (D) {
+    case 16: case 32: case 64: case 96: case 128:
+      return scratch_of(B, H, S, Sk, D, bf16_in).floats();
+    default: return 0;
+  }
+}
+
 // Launch on `stream`; returns the cudaError_t of the first launch that
 // failed (0 = success). Same layouts, D, mask arguments and dtype switch as
 // flash_attention_launch (window <= 0: no window); o and lse are the
 // forward's outputs (lse from a launch that asked for it), dO has o's
-// layout and dtype, delta is a (B, H, S) fp32 scratch, and dq, dk, dv take
-// q's, k's and v's layouts and dtype. p is taken in fp32 (round_p = 0).
+// layout and dtype (bf16: o and dO 16-byte aligned), scratch holds
+// scratch_floats floats, at least flash_attention_bwd_scratch_floats(...),
+// and dq, dk, dv take q's, k's and v's layouts and dtype. p is taken in
+// fp32 (round_p = 0).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dO, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int B, int H, int K, int S, int Sk, int D, float scale,
-    int bf16_in, int causal, int window, int sink, void* stream) {
+    const void* dO, const float* lse, float* scratch, long long scratch_floats,
+    void* dq, void* dk, void* dv, int B, int H, int K, int S, int Sk, int D,
+    float scale, int bf16_in, int causal, int window, int sink,
+    void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return 0;
   if (K <= 0 || H % K != 0 || Sk <= 0 || sink < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Mask mk{Sk, causal, window, sink};
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
-    case 32: return launch<32>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
-    case 64: return launch<64>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
-    case 96: return launch<96>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
-    case 128: return launch<128>(q, k, v, o, dO, lse, delta, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
+    case 16: return launch<16>(q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
+    case 32: return launch<32>(q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
+    case 64: return launch<64>(q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
+    case 96: return launch<96>(q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
+    case 128: return launch<128>(q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -66,26 +66,6 @@ constexpr int kChunk = 32;          // timesteps staged per round
 constexpr int kBatch = 8;           // timesteps a batch of loads and exps
 static_assert(kStateEvery % kChunk == 0, "a saved state starts a round");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 4 bytes global -> shared, asynchronously; in = false writes a zero
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // NL consecutive floats of shared memory into registers, 16 bytes a load
 // where NL allows it
 template <int NL>

@@ -1,7 +1,8 @@
 // What the selective-scan forward (ssm_scan.cu) and backward
 // (ssm_scan_bwd.cu) kernels share: the split of a channel's states over
-// lanes, the interval of the saved states, and the step's arithmetic, so
-// that the backward's recomputed states are the forward's bit for bit.
+// lanes, the interval of the saved states, the cp.async staging helpers and
+// the step's arithmetic, so that the backward's recomputed states are the
+// forward's bit for bit.
 
 #pragma once
 
@@ -27,6 +28,26 @@ __device__ __forceinline__ float exp_of(float x) {
   float r;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(x));
   return r;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 4 bytes global -> shared, asynchronously; in = false writes a zero
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // h <- e h + (dt x) b, one rounding for the sum (an explicit FMA, so the

@@ -137,22 +137,26 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=None,
             or lse.shape != q.shape[:3] or lse.dtype != torch.float32:
         raise ValueError("flash_attention_bwd takes o and do of q's shape and "
                          "dtype and a float32 (B, H, S) lse")
-    do, o = do.contiguous(), o.contiguous()
-    if q.dtype == torch.bfloat16 and do.data_ptr() % 16:
-        do = do.clone()     # the bf16 kernel loads 16-byte rows of do
     B, H, S, D = q.shape
     K, Sk = k.shape[1], k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
+    do, o = do.contiguous(), o.contiguous()
+    if bf16:    # the bf16 kernels load 16-byte rows of o and do
+        do, o = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (do, o))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    scratch = torch.empty(
+        build.scratch_floats("flash_attention_bwd", B, H, K, S, Sk, D,
+                             int(bf16)), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         build.launch("flash_attention_bwd", q.data_ptr(), k.data_ptr(),
                      v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                     dk.data_ptr(), dv.data_ptr(), B, H, K, S, Sk, D,
-                     1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
-                     int(causal), 0 if window is None else int(window),
-                     int(sink), stream)
+                     lse.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, K, S,
+                     Sk, D, 1.0 / math.sqrt(D), int(bf16), int(causal),
+                     0 if window is None else int(window), int(sink), stream)
     flash_attention_bwd.launches += 1
     _C_BWD.inc()
     sanitize.check_kernel("flash_attention_bwd", (q, k, v, o, do, lse),

@@ -25,7 +25,6 @@ from repro_torch.kernels.ref import ssm_scan_ref
 
 STATE_SIZES = (4, 8, 16, 32)    # the n the kernels are instantiated for
 STATE_EVERY = 64                # steps between saved states (ssm_scan.cuh)
-BWD_CHANNELS = 32               # channels a backward block (ssm_scan.cuh)
 
 _C_CUDA = obs.counter("kernels.dispatch.ssm_scan.cuda")
 _C_PLAIN = obs.counter("kernels.dispatch.ssm_scan.plain")
@@ -103,8 +102,7 @@ def ssm_scan_bwd(x, dt, A, Bc, Cc, D, states, dy, dh_final=None):
     """The gradient of ``ssm_scan`` on the card: (dx, ddt, dA, dBc, dCc, dD)
     from the forward's inputs, the ``states`` its training launch saved,
     the upstream gradient ``dy`` (B,S,di) and ``dh_final`` (B,di,n) or
-    None. One launch of the backward kernel (its main kernel and the
-    ordered reduction over blocks); the plain version is
+    None. One launch of the backward kernel; the plain version is
     ``ref.ssm_scan_ref_grads``."""
     _check(x, dt, A, Bc, Cc, D)
     if x.device.type != "cuda":
@@ -130,8 +128,7 @@ def ssm_scan_bwd(x, dt, A, Bc, Cc, D, states, dy, dh_final=None):
     dB, dC = torch.empty_like(Bc), torch.empty_like(Cc)
     if dx.numel() == 0:
         return dx, ddt, dA.zero_(), dB, dC, dD.zero_()
-    nblk = -(-di // BWD_CHANNELS)
-    scratch = torch.empty(2 * nblk * B * S * n + B * di * n + B * di,
+    scratch = torch.empty(build.scratch_floats("ssm_scan_bwd", B, S, di, n),
                           dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

@@ -533,6 +533,64 @@ def test_ssm_scan_bwd_kernel_matches_plain_gradients(cuda, shape, with_dh):
     assert max(gaps) <= RTOL_SSM_BWD, gaps
 
 
+def _scan_case(shape, device, seed=6):
+    """(inputs, dy, dh_final) of a scan backward at ``shape``."""
+    B, S, di, n = shape
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    xs = (t(rng.normal(size=(B, S, di))),
+          t(rng.uniform(0.001, 0.1, size=(B, S, di))),
+          t(-rng.uniform(0.5, 2.0, size=(di, n))),
+          t(rng.normal(size=(B, S, n))), t(rng.normal(size=(B, S, n))),
+          t(rng.normal(size=(di,))))
+    return xs, t(rng.normal(size=(B, S, di))), t(rng.normal(size=(B, di, n)))
+
+
+# the scan backward's split at the saved states (64 steps): S one short of
+# a chunk, one chunk, one past it, three chunks and a piece
+SSM_BWD_SPLIT_SHAPES = [(2, 63, 96, 16), (2, 64, 96, 16), (2, 65, 96, 16),
+                        (2, 193, 72, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSM_BWD_SPLIT_SHAPES, ids=str)
+def test_ssm_scan_bwd_chunk_split_matches_plain_gradients(cuda, shape):
+    """The chunk adjoints, their carries and the per-chunk gradients
+    (``ssm_scan_bwd.cu``) against autograd of ``ssm_scan_ref`` where S meets
+    the 64-step chunks in each way."""
+    xs, dy, dh = _scan_case(shape, cuda)
+    _, _, states = kssm._forward(*xs, with_states=True)
+    got = kssm.ssm_scan_bwd(*xs, states, dy, dh)
+    want = ref.ssm_scan_ref_grads(*xs, dy, dh)
+    gaps = _rel_gaps(got, want)
+    assert max(gaps) <= RTOL_SSM_BWD, gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["ssm_scan", "flash_attention_bf16",
+                                   "flash_attention_f32"])
+def test_backward_kernels_are_deterministic(cuda, which):
+    """Two backward launches on the same inputs give bit-equal gradients:
+    no atomics, and no sum depends on the order blocks run in."""
+    if which == "ssm_scan":
+        xs, dy, dh = _scan_case((2, 193, 200, 16), cuda)
+        _, _, states = kssm._forward(*xs, with_states=True)
+        runs = [kssm.ssm_scan_bwd(*xs, states, dy, dh) for _ in range(2)]
+    else:
+        dtype = torch.bfloat16 if which.endswith("bf16") else torch.float32
+        rng = np.random.default_rng(8)
+        q, k, v, do = (torch.from_numpy(rng.normal(
+            size=(2, h, 300, 64)).astype(np.float32)).to(cuda, dtype)
+            for h in (6, 2, 2, 6))
+        o, lse = kflash._forward(q, k, v, True, 100, 20, False, with_lse=True)
+        runs = [kflash.flash_attention_bwd(q, k, v, o, do, lse, True, 100, 20)
+                for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 @pytest.mark.cuda
 def test_dispatch_counters_count_kernel_launches(cuda):
     """On the card each wrapper counts its kernel in

@@ -30,6 +30,10 @@ sink, several q chunks), float32, within ``RTOL_GRAD`` of max|jax|.
 ``python tests/test_torch_flash_attention.py`` prints the measured gaps.
 """
 import dataclasses
+import re
+import sys
+from collections import Counter
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -398,6 +402,110 @@ def _global_layer_gaps():
     return {round_p: bf16_ulp_gaps(
         ref.attention_ref(*heads, round_p=round_p).transpose(1, 2)
         .float().numpy(), want) for round_p in (False, True)}
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's work split (kernels/csrc/flash_attention_bwd.cu)
+# ---------------------------------------------------------------------------
+
+_CSRC = Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc"
+
+
+def _cuh_int(name):
+    """A ``constexpr int`` of ``flash_attention.cuh``, read from the source
+    the kernels are built from."""
+    text = (_CSRC / "flash_attention.cuh").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+BQ, BK = _cuh_int("kBQ"), _cuh_int("kBK")   # q rows, keys a tile
+
+
+def _tiles_of(S, Sk, window, sink, q0):
+    """flash_attention.cuh ``tiles_of`` (causal): (n_sink, first, n) of the
+    kv tiles the forward's walk of the q tile from row q0 visits."""
+    hi = min(-(-Sk // BK) - 1, (min(q0 + BQ, S) - 1) // BK)
+    first = n_sink = 0
+    if window:
+        first = max(0, q0 - window + 1) // BK
+        n_sink = min(-(-sink // BK), first)
+    return n_sink, first, n_sink + max(hi - first + 1, 0)
+
+
+def _walk(tiles):
+    """``Tiles::operator[]`` over i < n: the tiles in the walk's order."""
+    n_sink, first, n = tiles
+    return [i if i < n_sink else first + (i - n_sink) for i in range(n)]
+
+
+def _visits(tiles, t):
+    """``Tiles::visits``: whether kv tile t is in the walk."""
+    n_sink, first, n = tiles
+    return t < n_sink or first <= t < first + (n - n_sink)
+
+
+def _bwd_split(B, H, S, window, sink):
+    """The blocks of the backward's dK/dV and dQ kernels in launch order
+    (the grid's x axis, b * H + h, fastest), each with the (head, q tile,
+    kv tile) pairs it takes, as ``flash_attention_bwd.cu`` forms them:
+    dK/dV one block per (head, key tile ``blockIdx.y``) over the q tiles
+    ``KvBlock::next`` yields (``Tiles::visits``); dQ one block per (head,
+    ``QBlock`` q tile ``n_qt - 1 - blockIdx.y``) over its walk
+    (``Tiles::operator[]``)."""
+    n_qt, n_kt = -(-S // BQ), -(-S // BK)
+    tiles = [_tiles_of(S, S, window, sink, qt * BQ) for qt in range(n_qt)]
+    dkdv = [[(bh, qt, t) for qt in range(n_qt) if _visits(tiles[qt], t)]
+            for t in range(n_kt) for bh in range(B * H)]
+    dq = [[(bh, n_qt - 1 - row, t) for t in _walk(tiles[n_qt - 1 - row])]
+          for row in range(n_qt) for bh in range(B * H)]
+    return tiles, dkdv, dq
+
+
+def _visible_tile_pairs(S, window, sink):
+    """(q tile, kv tile) pairs holding a (row, key) the mask leaves visible:
+    key c visible to row r when c <= r and (no window, r - c < window or
+    c < sink)."""
+    r, c = np.arange(S)[:, None], np.arange(S)[None, :]
+    vis = c <= r
+    if window is not None:
+        vis &= (r - c < window) | (c < sink)
+    n_qt, n_kt = -(-S // BQ), -(-S // BK)
+    pad = np.zeros((n_qt * BQ, n_kt * BK), bool)
+    pad[:S, :S] = vis
+    any_ = pad.reshape(n_qt, BQ, n_kt, BK).any(axis=(1, 3))
+    return {(int(qt), int(t)) for qt, t in zip(*np.nonzero(any_))}
+
+
+def _attn_bwd_cases():
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke.ATTN_BWD_CASES
+
+
+@pytest.mark.parametrize("case", _attn_bwd_cases(), ids=str)
+def test_backward_work_split_takes_each_visited_tile_pair_once(case):
+    """The forward's walk (``Tiles::operator[]``) visits exactly the tile
+    pairs the mask leaves a visible score in, each once; the dK/dV blocks
+    (``KvBlock::next`` through ``Tiles::visits``) and the dQ blocks each take
+    every such (head, q tile, kv tile) pair exactly once and no other; no
+    dK/dV block takes more than the S / 64 q tiles of one head (the first
+    port's block took G heads' worth, up to 90 at hymba's shape), and they
+    start longest first. The tile sizes are read from the kernel's header;
+    the grid's formulas are restated from ``flash_attention_bwd.cu``."""
+    B, H, K, S, D, window, sink, _ = case
+    tiles, dkdv, dq = _bwd_split(B, H, S, window, sink)
+    walks = [_walk(t) for t in tiles]
+    assert all(len(set(w)) == len(w) for w in walks)
+    assert {(qt, t) for qt, w in enumerate(walks) for t in w} \
+        == _visible_tile_pairs(S, window, sink)
+    visited = Counter((bh, qt, t) for bh in range(B * H)
+                      for qt, walk in enumerate(walks) for t in walk)
+    for blocks in (dkdv, dq):
+        taken = Counter(pair for block in blocks for pair in block)
+        assert taken == visited
+    items = [len(block) for block in dkdv]
+    assert max(items) <= len(walks)
+    assert items == sorted(items, reverse=True)
 
 
 if __name__ == "__main__":

@@ -215,7 +215,184 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         kssm.ssm_scan(*(t.to("meta") for t in good))
 
 
+# ---------------------------------------------------------------------------
+# the backward kernel's order of operations (kernels/csrc/ssm_scan_bwd.cu)
+# ---------------------------------------------------------------------------
+
+KT = 64          # steps a chunk: the forward saves the state entering each
+BWD_LANES = 4    # lanes a channel in the gradient stage
+WARP_CH = 8      # channels a warp there; 4 warps a block of 32 channels
+BLOCK_WARPS = 4
+
+
+def _fma(a, b, c):
+    """fmaf in float32: the product exact in float64, one rounding there,
+    then to float32 (a double rounding the card's FMA does not make, rarely
+    one ulp apart)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _lane_sums(terms, coef):
+    """sum_j coef_j terms_j as the kernel forms it: each of the 4 lanes of a
+    channel an FMA chain over its n/4 states in order from 0, then the
+    butterfly over the lanes, (l0 + l1) + (l2 + l3). terms (B, di, n), coef
+    broadcast to it."""
+    n = terms.shape[-1]
+    coef = coef.expand_as(terms)
+    lanes = []
+    for lane in range(BWD_LANES):
+        acc = torch.zeros(terms.shape[:-1], dtype=torch.float32)
+        for j in range(lane * n // BWD_LANES, (lane + 1) * n // BWD_LANES):
+            acc = _fma(coef[..., j], terms[..., j], acc)
+        lanes.append(acc)
+    return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+
+
+def _channel_sums(v):
+    """sum over the channels (axis 2) as the kernel forms it: zero-padded to
+    blocks of 32; in a warp's 8 channels c = 4 b2 + 2 b1 + b0 a tree over
+    b2, then b1, then b0 (warp_channel_sum); the block's 4 warps in order;
+    the blocks in order from a zero."""
+    B, S, di, n = v.shape
+    width = BLOCK_WARPS * WARP_CH
+    nblk = -(-di // width)
+    v = torch.cat([v, v.new_zeros((B, S, nblk * width - di, n))], 2)
+    v = v.view(B, S, nblk, BLOCK_WARPS, 2, 2, 2, n)   # block, warp, b2 b1 b0
+    for _ in range(3):
+        v = v[:, :, :, :, 0] + v[:, :, :, :, 1]
+    total = torch.zeros((B, S, n), dtype=torch.float32)
+    for blk in range(nblk):
+        acc = v[:, :, blk, 0]
+        for w in range(1, BLOCK_WARPS):
+            acc = acc + v[:, :, blk, w]
+        total = total + acc
+    return total
+
+
+def _bwd_kernel_order(x, dt, A, Bc, Cc, D, dy, dh=None):
+    """ssm_scan_bwd.cu's gradients in float32 on the CPU, in its order of
+    operations: (1) per chunk k >= 1 of KT steps the adjoint walk from zero
+    and the product of its factors, L_k and P_k; (2) the carries r_{k-1} =
+    fma(P_k, r_k, L_k) from dh_final; (3) per chunk the walk from r_k over
+    the forward's states (exp2 factors, the forward's FMA), dx and ddt from
+    the four lanes' sums, dA and dD partials per (b, chunk), dB and dC terms
+    per step; (4) dB, dC summed over the channels (``_channel_sums``), dA,
+    dD over b, then chunk, in order."""
+    Bsz, S, di = x.shape
+    n = A.shape[1]
+    K = -(-S // KT)
+    a2 = A * LOG2E
+
+    def factor(t):
+        return torch.exp2(dt[:, t, :, None] * a2)        # (B, di, n)
+
+    chunks = [range(k * KT, min(S, (k + 1) * KT)) for k in range(K)]
+    L = torch.zeros((Bsz, K, di, n), dtype=torch.float32)
+    P = torch.ones((Bsz, K, di, n), dtype=torch.float32)
+    for k in range(1, K):
+        g, p = L[:, k].clone(), P[:, k].clone()
+        for t in reversed(chunks[k]):
+            e = factor(t)
+            g = _fma(Cc[:, t, None, :], dy[:, t, :, None], g) * e
+            p = p * e
+        L[:, k], P[:, k] = g, p
+    R = torch.zeros((Bsz, K, di, n), dtype=torch.float32)
+    r = torch.zeros((Bsz, di, n)) if dh is None else dh.clone()
+    for k in range(K - 1, 0, -1):
+        R[:, k] = r
+        r = _fma(P[:, k], r, L[:, k])
+    R[:, 0] = r
+
+    dtx = dt * x
+    h = torch.zeros((Bsz, di, n), dtype=torch.float32)
+    states = []                       # the state entering each step
+    for t in range(S):
+        states.append(h)
+        h = _fma(factor(t), h, dtx[:, t, :, None] * Bc[:, t, None, :])
+    states.append(h)
+
+    dx, ddt = torch.zeros_like(x), torch.zeros_like(x)
+    tb, tc = torch.zeros((2, Bsz, S, di, n), dtype=torch.float32)
+    pA = torch.zeros((Bsz, K, di, n), dtype=torch.float32)
+    pD = torch.zeros((Bsz, K, di), dtype=torch.float32)
+    for k in range(K):
+        g, dA_k, dD_k = R[:, k].clone(), pA[:, k], pD[:, k]
+        for t in reversed(chunks[k]):
+            e, dy_t = factor(t), dy[:, t]
+            g = _fma(Cc[:, t, None, :], dy_t[..., None], g)
+            q = g * (e * states[t])
+            pq = _lane_sums(q, A[None])
+            dA_k = _fma(dt[:, t, :, None], q, dA_k)
+            px = _lane_sums(g, Bc[:, t, None, :])
+            tb[:, t] = g * dtx[:, t, :, None]
+            tc[:, t] = dy_t[..., None] * states[t + 1]
+            g = g * e
+            dx[:, t] = _fma(D, dy_t, dt[:, t] * px)
+            ddt[:, t] = _fma(x[:, t], px, pq)
+            dD_k = _fma(dy_t, x[:, t], dD_k)
+        pA[:, k], pD[:, k] = dA_k, dD_k
+    dA = torch.zeros((di, n), dtype=torch.float32)
+    dD = torch.zeros((di,), dtype=torch.float32)
+    for b in range(Bsz):
+        for k in range(K):
+            dA, dD = dA + pA[b, k], dD + pD[b, k]
+    return dx, ddt, dA, _channel_sums(tb), _channel_sums(tc), dD
+
+
+# max|mirror - want| / max|want| per gradient against the plain version
+# under autograd and against jax.grad of the JAX model's chunked scan;
+# measured worst 4.1e-7 (``python tests/test_torch_ssm_scan.py``)
+RTOL_BWD_ORDER = 5e-6
+# (B, S, di, n, with dh_final): several chunks with a short last one; S
+# below one chunk; S a whole number of chunks; di no 32-channel block
+# divides (a warp of a block only partly used); n = 4, 8 and 16
+BWD_ORDER_SHAPES = [(2, 150, 40, 16, True), (1, 40, 48, 8, False),
+                    (2, 128, 32, 4, True), (1, 193, 70, 16, False)]
+
+
+def bwd_order_gaps(shape, seed=12):
+    """[plain, jax] lists of the six gradients' relative gaps of the
+    mirror, for the loss sum(y * dy) (+ sum(h_final * dh))."""
+    B, S, di, n, with_dh = shape
+    arrays = _inputs(B, S, di, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    dy = rng.normal(size=(B, S, di)).astype(np.float32)
+    dh = rng.normal(size=(B, di, n)).astype(np.float32) if with_dh else None
+    ts = [torch.from_numpy(a) for a in arrays]
+    got = _bwd_kernel_order(*ts, torch.from_numpy(dy),
+                            None if dh is None else torch.from_numpy(dh))
+    plain = ref.ssm_scan_ref_grads(*ts, torch.from_numpy(dy),
+                                   None if dh is None else torch.from_numpy(dh))
+
+    def jax_loss(*xs):
+        y, h = ssm_scan_chunked(*xs, jnp.zeros((B, di, n), jnp.float32),
+                                chunk=64)
+        return jnp.sum(y * dy) + (0.0 if dh is None else jnp.sum(h * dh))
+    want = jax.grad(jax_loss, argnums=tuple(range(6)))(
+        *(jnp.asarray(a) for a in arrays))
+
+    def gaps(ref_grads):
+        return [float(np.abs(g.numpy() - np.asarray(w)).max()
+                      / np.abs(np.asarray(w)).max())
+                for g, w in zip(got, ref_grads)]
+    return gaps([p.detach() for p in plain]), gaps(want)
+
+
+@pytest.mark.parametrize("shape", BWD_ORDER_SHAPES, ids=str)
+def test_backward_kernel_order_matches_plain_gradients_and_jax_grad(shape):
+    """The backward kernel's chunk split (L_k + P_k r_k), lane split and
+    channel-sum tree hold the gradients of the plain version and of
+    jax.grad of the model scan before they reach the card."""
+    plain, jax_gaps = bwd_order_gaps(shape)
+    assert max(plain) <= RTOL_BWD_ORDER, plain
+    assert max(jax_gaps) <= RTOL_BWD_ORDER, jax_gaps
+
+
 if __name__ == "__main__":
+    print("backward kernel order vs plain gradients and jax.grad, worst "
+          "of the six: " + ", ".join(
+              f"{s}: {max(max(g) for g in bwd_order_gaps(s)):.2e}"
+              for s in BWD_ORDER_SHAPES) + f" (RTOL {RTOL_BWD_ORDER})")
     print("gradients vs jax.grad of the model scan, worst of the six: "
           f"{max(max(scan_grad_gaps(s)) for s in GRAD_SHAPES):.2e} "
           f"(RTOL_GRAD {RTOL_GRAD})")
