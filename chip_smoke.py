@@ -131,9 +131,12 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             beside its bound, the plain backward's time and (attention)
             SDPA's backward's, pinned to one backend (``SDPA_BACKENDS``: the
             first that runs, named); each launch's kernels' device times
-            from one ``torch.profiler`` window over ``TIME_REPEATS`` whole
+            from one ``torch.profiler`` window over ``SPLIT_CALLS`` whole
             launches (attention: delta, dK/dV, dQ with the dK/dV combine;
-            the scan: chunk adjoints, carries, gradients, reduction);
+            the scan: chunk adjoints, carries, gradients, reduction), the
+            window run again, up to ``SPLIT_WINDOWS`` in all, while its
+            trace lacks one of them, and a kernel none recorded is written
+            down as not measured;
 20. train  hymba-1.5b at full width in bf16 (1,655,198,400 parameters from
             ``--seed``): ``make_train_step(remat="full")`` with AdamW, lr
             1e-3, warmup 2, on ``SyntheticLMData(cfg, 4, 1128, seed)``
@@ -149,7 +152,36 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             ``RTOL_TRAIN_CPU``; a ``Supervisor`` run of 6 steps (checkpoints
             every 2) with a failure injected at step 4, restored from its
             checkpoint: parameters bit-equal to an uninjected run, the same
-            losses and the data stream at the same state.
+            losses and the data stream at the same state;
+22. moe-attn the flash-attention kernel against its plain version at the
+            MoE and dense families' shapes (``MOE_ATTN_SHAPES``): moonshot-
+            v1-16b-a3b's prefill (4, 16, 16, 1,000, 128), granite-34b's MQA
+            (1, 48, 1, 512, 128), deepseek-v3's MLA with query/key 192 and
+            value 128 at (4, 128, 128, 1,000) and on a ragged S, and the
+            reduced MLA's 24 / 16 (q and k padded to 32), float32 and bf16,
+            both treatments of p, phase 8's gates; at the full-width shapes
+            the kernel's time (``median_ms``), bound (2 Dqk + 2 Dv flops a
+            visible score), the plain version's and SDPA's where SDPA takes
+            the call;
+23. moonshot moonshot-v1-16b-a3b at full width and depth (48 layers: 1
+            dense, 47 MoE of 64 experts top-6 + 1 shared; 27.98 B bf16
+            parameters from ``--seed``, each stacked leaf filled a layer at
+            a time), served as phase 9 twice: 48 flash-attention launches a
+            generate (one a prefill layer) and no plain dispatch, tokens in
+            the vocabulary, logits finite, the two calls' tokens identical;
+            init seconds and peak memory, prefill seconds, decode tokens/s,
+            peak memory of a generate, and the least time of a decode
+            step's expert stream (every expert's weights read once); the
+            model is freed after;
+24. deepseek deepseek-v3-671b at full width cut to 4 layers (3 dense, 1 MoE
+            of 256 experts top-8 + 1 shared; MLA; the MTP module in the
+            tree: 26.72 B parameters), served the same way: 4 launches a
+            generate (MLA at (192, 128)), and the absorbed decode's latent
+            cache written row by row;
+25. parity the reduced moonshot and deepseek (float32) on the card and the
+            CPU with the same weights, as phase 10: identical greedy tokens,
+            the prefill's and every decode step's logits within
+            ``RTOL_SERVE_CPU``.
 
 Each phase prints its seconds. It prints one ``{"kernels": [...]}`` line,
 then, last, the ``{"ok": true, "device": {...}}`` line.
@@ -259,17 +291,18 @@ SSM_SHAPES = [(1, 128, 256, 16), (2, 256, 512, 8), (1, 64, 1024, 16),
 # Bounds of the two serve kernels, counted from their function (not from
 # what the kernels do):
 # - flash attention: the scores the mask leaves (causal: S(S+1)/2 per
-#   (batch, head), fewer with a window); 2D flops for q.k and 2D for p.v
-#   each, on the bf16 tensor-core peak (the same count with p in float32:
-#   the function is the same, its precision is not work); 5 fp32 ops per
-#   score (scale, mask, max, exp, sum) on the fp32 peak; bytes: q, k, v read
-#   once and o written once. The least time is the largest of the three.
+#   (batch, head), fewer with a window); 2 Dqk flops for q.k and 2 Dv for
+#   p.v each (Dqk = Dv but in MLA), on the bf16 tensor-core peak (the same
+#   count with p in float32: the function is the same, its precision is not
+#   work); 5 fp32 ops per score (scale, mask, max, exp, sum) on the fp32
+#   peak; bytes: q, k, v read once and o written once. The least time is
+#   the largest of the three.
 # - selective scan: per (b, t, channel) and state, 7 fp32 ops (dt*A, exp,
 #   a*h, dt*x*B as 2, the add, h*C and its sum, each transcendental counted
 #   as one) and one exponential, plus 3 per (b, t, channel)
 #   (dt*x, D*x, the add); bytes: x, dt, B, C, A, D read once, y and h_final
 #   written once.
-ATTN_FLOPS_PER_SCORE_DIM = 4
+ATTN_FLOPS_PER_SCORE_DIM = 2
 ATTN_ELEM_OPS_PER_SCORE = 5
 SSM_OPS_PER_STATE, SSM_OPS_PER_CHANNEL = 7, 3
 # ... and of the two backward kernels:
@@ -312,6 +345,10 @@ SSM_BWD_SHAPES = [(4, 1128, 3200, 16), (4, 68, 128, 8), (2, 193, 200, 16)]
 # calls queued behind a sleep of QUEUE_CYCLES card cycles (~10 ms, longer
 # than the host takes to queue them)
 TIME_REPEATS = 5
+# kernel_split_ms: the calls in a profiled window, and the windows tried
+# before a kernel's device time is written down as not measured (a window
+# of a few ms has come back holding no device record of its kernels)
+SPLIT_CALLS, SPLIT_WINDOWS = 20, 3
 QUEUE_CYCLES = 20_000_000
 # SDPA's backward as the yardstick, pinned to the first of these backends
 # that runs (names of torch.nn.attention.SDPBackend)
@@ -324,6 +361,21 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 1128, 8, 1e-3
 # tests/test_torch_train.py), and a supervised 6-step run with a failure
 # injected at step 4
 RTOL_TRAIN_CPU = {"loss": 1e-5, "grads": 2e-3}
+# phase 22: (B, H, K, S, Dqk, Dv) for the flash-attention checks of the MoE
+# family and the rest of the dense family: moonshot-v1-16b-a3b's prefill
+# (16 heads of 128, as many kv heads), granite-34b's MQA (48 q heads on one
+# kv head), deepseek-v3's MLA (128 heads, query/key 192 = nope 128 + rope
+# 64, value 128) at the serving prompt and on a ragged S, and the reduced
+# deepseek's (24 / 16: the wrapper pads q and k to 32); the first four are
+# full-width shapes, timed
+MOE_ATTN_SHAPES = [(4, 16, 16, 1000, 128, 128), (1, 48, 1, 512, 128, 128),
+                   (4, 128, 128, 1000, 192, 128), (1, 16, 16, 333, 192, 128),
+                   (2, 4, 4, 40, 24, 16)]
+# phases 23-24: the MoE models served at full width, (arch, layers kept;
+# None = all): moonshot-v1-16b-a3b whole (27.98 B parameters, 52.1 GiB in
+# bf16) and deepseek-v3-671b cut to its 3 dense layers and 1 MoE layer, the
+# MTP module in the tree (26.72 B of its 682.6 B parameters)
+MOE_SERVE = (("moonshot-v1-16b-a3b", None), ("deepseek-v3-671b", 4))
 
 
 def fail(msg: str) -> None:
@@ -497,14 +549,16 @@ def visible_scores(S, window=None, sink=0):
                 + np.clip(np.minimum(sink, r - window + 1), 0, None)).sum())
 
 
-def attn_bound(B, H, K, S, D, itemsize, window=None, sink=0):
+def attn_bound(B, H, K, S, D, itemsize, window=None, sink=0, Dv=None):
     """(bound ms, 'bytes' | 'operations') of causal attention, (B,H,S,D)
-    queries on (B,K,S,D) keys and values, counting only the scores the mask
-    leaves."""
+    queries on (B,K,S,D) keys and (B,K,S,Dv) values (Dv = D unless given),
+    counting only the scores the mask leaves."""
+    Dv = D if Dv is None else Dv
     scores = B * H * visible_scores(S, window, sink)
-    t_mm = scores * ATTN_FLOPS_PER_SCORE_DIM * D / PEAK_BF16_TC
+    t_mm = scores * ATTN_FLOPS_PER_SCORE_DIM * (D + Dv) / PEAK_BF16_TC
     t_elem = scores * ATTN_ELEM_OPS_PER_SCORE / PEAK_FP32_OPS
-    t_bytes = (2 * B * H * S * D + 2 * B * K * S * D) * itemsize / PEAK_BYTES
+    t_bytes = (B * H * S * (D + Dv) + B * K * S * (D + Dv)) * itemsize \
+        / PEAK_BYTES
     t_ops = max(t_mm, t_elem)
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -518,12 +572,15 @@ def ssm_bound(B, S, di, n):
 
 
 def attn_inputs(shape, dtype, seed, device):
+    """q (B,H,S,D), k (B,K,S,D), v (B,K,S,Dv) unit normal from ``seed``;
+    ``shape`` (B, H, K, S, D) or (B, H, K, S, D, Dv)."""
     import numpy as np
     import torch
-    B, H, K, S, D = shape
+    B, H, K, S, D = shape[:5]
+    Dv = shape[5] if len(shape) > 5 else D
     rng = np.random.default_rng(seed)
-    return tuple(torch.from_numpy(rng.normal(size=(B, h, S, D)).astype(
-        np.float32)).to(device, dtype) for h in (H, K, K))
+    return tuple(torch.from_numpy(rng.normal(size=(B, h, S, d)).astype(
+        np.float32)).to(device, dtype) for h, d in ((H, D), (K, D), (K, Dv)))
 
 
 def ssm_inputs(shape, seed, device):
@@ -542,10 +599,11 @@ def ssm_inputs(shape, seed, device):
 
 def record_steps(engine):
     """Wrap an engine's prefill and decode steps so that a ``generate``
-    records the prefill's seconds (host clock between two synchronizes) and
-    every step's logits; what the steps compute is unchanged."""
+    records the prefill's seconds (host clock between two synchronizes),
+    every step's logits and the last decode step's cache; what the steps
+    compute is unchanged."""
     import torch
-    rec = {"prefill_s": [], "logits": []}
+    rec = {"prefill_s": [], "logits": [], "cache": None}
     prefill, decode = engine._prefill, engine._decode
 
     def sync():
@@ -563,6 +621,7 @@ def record_steps(engine):
     def recorded_decode(params, cache, batch):
         logits, cache = decode(params, cache, batch)
         rec["logits"].append(logits)
+        rec["cache"] = cache
         return logits, cache
 
     engine._prefill, engine._decode = timed_prefill, recorded_decode
@@ -1216,32 +1275,50 @@ SSM_BWD_KERNELS = {name: f"ssm_scan_bwd_{name}" for name in (
 
 
 def kernel_split_ms(fn, kernels) -> dict:
-    """{name: device ms a call} of each of ``kernels`` ({name: a piece of
-    the kernel's name}): ``fn`` run ``TIME_REPEATS`` times, after one warm
-    call, under one ``torch.profiler`` window: each kernel's device time
-    over the records the trace holds of it. Fails if one has none."""
+    """{name: device ms a call, or None} of each of ``kernels`` ({name: a
+    piece of the kernel's name}): ``fn`` run ``SPLIT_CALLS`` times, after
+    one warm call, under one ``torch.profiler`` window: each kernel's device
+    time over the records the trace holds of it. A window whose trace holds
+    no record of a kernel is run again, up to ``SPLIT_WINDOWS`` in all; a
+    kernel no window recorded is None (not measured), and said so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(TIME_REPEATS):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
     out = {}
-    for name, piece in kernels.items():
-        hits = [e for e in events if piece in e.key]
-        records = sum(e.count for e in hits)
-        if not records:
-            fail(f"profiler: no device record of {name} ({piece}) in "
-                 f"{TIME_REPEATS} launches")
-        out[name] = sum(e.self_device_time_total for e in hits) \
-            / records / 1e3
-    return out
+    for window in range(1, SPLIT_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(SPLIT_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        for name, piece in kernels.items():
+            hits = [e for e in events if piece in e.key]
+            records = sum(e.count for e in hits)
+            if name not in out and records:
+                out[name] = sum(e.self_device_time_total for e in hits) \
+                    / records / 1e3
+        missing = [name for name in kernels if name not in out]
+        if not missing:
+            break
+        print(f"profiler: window {window} of {SPLIT_WINDOWS} holds no device "
+              f"record of {missing} in {SPLIT_CALLS} calls", flush=True)
+    return {name: out.get(name) for name in kernels}
+
+
+def fmt_ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f}"
+
+
+def device_share(part_ms, whole_ms) -> str:
+    """``part_ms`` as a percentage of ``whole_ms``; "not measured" when the
+    trace held no device time."""
+    if not whole_ms:
+        return "not measured"
+    return f"{100 * part_ms / whole_ms:.2f} %"
 
 
 def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1393,7 +1470,7 @@ def backward_kernels_phase(seed: int):
         print(f"timing flash_attention_bwd {(B, H, K, S, D)} bf16 {label} "
               f"(window {window}, sink {sink}): kernel {ms:.4f} ms (un-"
               f"queued {unqueued_ms:.4f}; on the device: "
-              + ", ".join(f"{n} {t:.4f}" for n, t in stages_ms.items())
+              + ", ".join(f"{n} {fmt_ms(t)}" for n, t in stages_ms.items())
               + f"), plain "
               f"{plain_ms:.4f} ms, SDPA backward on {backend} (causal, GQA; "
               f"the mask is the same at this S) {lib_ms:.4f} ms, bound "
@@ -1423,7 +1500,7 @@ def backward_kernels_phase(seed: int):
                                 "shape": list(shape)})
     print(f"timing ssm_scan_bwd {shape}: kernel {ms:.4f} ms (un-queued "
           f"{unqueued_ms:.4f}; on the device: "
-          + ", ".join(f"{n} {t:.4f}" for n, t in stages_ms.items())
+          + ", ".join(f"{n} {fmt_ms(t)}" for n, t in stages_ms.items())
           + f"), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
           f"bytes {terms['bytes']:.4f}, operations "
           f"{terms['operations']:.4f}); no single PyTorch call computes it",
@@ -1585,7 +1662,7 @@ def training_phase(seed: int, smi: str):
         stats["profile"][label] = own_ms
         print(f"profile: train step {label} {own_ms:.3f} ms in "
               f"{sum(e.count for e in own)} launches, "
-              f"{100 * own_ms / busy:.2f} % of the device time", flush=True)
+              f"{device_share(own_ms, busy)} of the device time", flush=True)
     del params, opt, step
     torch.cuda.empty_cache()
     return stats
@@ -1667,6 +1744,238 @@ def training_parity_phase(seed: int):
             "losses": clean_rep.losses}
 
 
+def reduced_card_vs_cpu(rcfg, seed: int):
+    """The reduced ``rcfg`` (float32) served on the card and on the CPU with
+    the same weights (drawn on the CPU from ``seed``, carried to the card by
+    ``convert``), 4 x 40-token prompts, 24 greedy steps: fails unless the
+    tokens are identical and every step's logits (the prefill's and each
+    decode step's) are within ``RTOL_SERVE_CPU``. Returns the worst gap."""
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.models import LM
+    from repro_torch.serve.engine import Engine
+    cpu_params = LM(rcfg, device="cpu").init(
+        torch.Generator().manual_seed(seed))
+    card_params = convert.lm_params_from_numpy(
+        rcfg, tree_map(lambda t: t.numpy(), cpu_params), device="cuda")
+    rprompt = np.random.default_rng(seed).integers(
+        0, rcfg.vocab_size, (4, 40)).astype(np.int32)
+    runs = {}
+    for where, p_ in (("cuda", card_params), ("cpu", cpu_params)):
+        eng = Engine(rcfg, p_, max_seq=64, device=where)
+        r = record_steps(eng)
+        runs[where] = (eng.generate({"tokens": rprompt}, steps=24),
+                       [t.float().cpu() for t in r["logits"]])
+    (tok_g, log_g), (tok_c, log_c) = runs["cuda"], runs["cpu"]
+    parity = max(((g - c).abs().max() / c.abs().max()).item()
+                 for g, c in zip(log_g, log_c))
+    if not np.array_equal(tok_g, tok_c) or parity > RTOL_SERVE_CPU:
+        fail(f"reduced {rcfg.name} card vs CPU: tokens equal "
+             f"{np.array_equal(tok_g, tok_c)}, logits max rel {parity:.3e} "
+             f"(gate {RTOL_SERVE_CPU})")
+    print(f"parity: reduced {rcfg.name} card vs CPU, 4 x 40-token prompts, "
+          f"24 steps: tokens identical, logits max rel {parity:.3e} (gate "
+          f"{RTOL_SERVE_CPU})", flush=True)
+    return parity
+
+
+def moe_kernels_phase(seed: int):
+    """Phase 22: the flash-attention kernel against its plain version at
+    ``MOE_ATTN_SHAPES`` (causal; float32 and bf16, p rounded and in float32;
+    the gates of phase 8), and at the four full-width shapes its time (the
+    model's call: bf16, p in float32; ``median_ms``), its bound, the plain
+    version's time and SDPA's, where SDPA takes the call. Returns stats."""
+    import torch
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    stats = {"max_abs_err": 0.0, "max_ulps": 0.0, "max_share": 0.0,
+             "timing": {}}
+    for shape in MOE_ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attn_inputs(shape, dtype, seed, dev)
+            for round_p in (True, False):
+                got = kflash.flash_attention(q, k, v, round_p=round_p)
+                want = ref.attention_ref(q, k, v, round_p=round_p)
+                torch.cuda.synchronize()
+                label = (f"flash_attention {shape} {dtype} causal "
+                         f"round_p={round_p}")
+                if not torch.isfinite(got).all() or got.shape != want.shape:
+                    fail(f"{label}: output not finite or of shape "
+                         f"{tuple(got.shape)}")
+                err = (got.float() - want.float()).abs().max().item()
+                stats["max_abs_err"] = max(stats["max_abs_err"], err)
+                if dtype == torch.bfloat16 and not round_p:
+                    ulps, share = ref.bf16_ulp_gaps(got, want)
+                    stats["max_ulps"] = max(stats["max_ulps"], ulps)
+                    stats["max_share"] = max(stats["max_share"], share)
+                    print(f"kernel {label}: max abs err {err:.3e}, {ulps:.3g} "
+                          f"ulp, {100 * share:.4f} % of elements differ "
+                          f"(gates {MAX_ULPS_P_F32} ulp, "
+                          f"{100 * MAX_SHARE_P_F32} %)")
+                    if ulps > MAX_ULPS_P_F32 or share > MAX_SHARE_P_F32:
+                        fail(f"{label}: {ulps} ulp, share {share}")
+                    continue
+                tol = TOL_ATTN[str(dtype).split(".")[1]]
+                print(f"kernel {label}: max abs err {err:.3e} (tol {tol})")
+                if err > tol:
+                    fail(f"{label}: max abs err {err:.3e} > {tol}")
+    for shape in MOE_ATTN_SHAPES[:4]:
+        B, H, K, S, D, Dv = shape
+        q, k, v = attn_inputs(shape, torch.bfloat16, seed, dev)
+        b_ms, b_by = attn_bound(B, H, K, S, D, 2, Dv=Dv)
+        t = {"ms": median_ms(lambda: kflash.flash_attention(
+                 q, k, v, round_p=False)),
+             "plain_ms": time_ms(lambda: ref.attention_ref(
+                 q, k, v, round_p=False), 5, 1),
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        try:
+            t["library_ms"] = median_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                                     enable_gqa=True))
+        except RuntimeError as err:
+            print(f"SDPA does not take {shape}: {str(err).splitlines()[0]}")
+        stats["timing"][str(shape)] = t
+        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+        print(f"timing flash_attention {shape} bf16 causal, p float32: "
+              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA "
+              f"{lib} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{100 * b_ms / t['ms']:.1f} % of it", flush=True)
+    return stats
+
+
+def expert_stream_ms(cfg) -> float:
+    """The least time of a decode step's expert weights: every MoE layer
+    reads each expert's three matrices once (bf16) at the memory rate."""
+    n_moe = cfg.num_layers - cfg.first_dense_layers
+    nbytes = n_moe * cfg.num_experts * 3 * cfg.d_model * cfg.moe_d_ff * 2
+    return nbytes / PEAK_BYTES * 1e3
+
+
+def serve_moe_phase(arch: str, n_layers, seed: int):
+    """Phases 23-24: ``arch`` at full width (``n_layers`` layers kept, None
+    = all), bf16 weights from ``seed``, served by ``Engine.generate`` (4 x
+    1,000-token prompts, 32 greedy steps, max_seq 1,040) twice: one
+    flash-attention launch a layer a prefill and no plain dispatch, tokens
+    in the vocabulary, logits finite, the two calls' tokens identical; with
+    MLA the decode cache is the latent one and each step wrote its row.
+    Prints init and generate seconds and peak memory, warm prefill seconds,
+    decode tokens/s and the expert stream's least time a step. Frees the
+    model. Profiles a warm prefill and decode step. Returns stats."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.models import LM
+    from repro_torch.serve.engine import Engine
+    dev = torch.device("cuda")
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(num_layers=n_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = LM(cfg, dev).init(torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gib = 2 ** 30
+    stats = {"layers": cfg.num_layers, "init_s": init_s,
+             "params": sum(t.numel() for t in to_leaves(params)),
+             "params_gib": sum(t.numel() * t.element_size()
+                               for t in to_leaves(params)) / gib,
+             "init_peak_gib": torch.cuda.max_memory_allocated() / gib,
+             "expert_stream_ms": expert_stream_ms(cfg)}
+    print(f"serve: {arch} at full width, {cfg.num_layers} layers (d_model "
+          f"{cfg.d_model}, {cfg.num_experts} experts top-{cfg.top_k}"
+          f"{', MLA' if cfg.mla else ''}{', MTP' if cfg.mtp else ''}): "
+          f"{stats['params']:,} parameters ({stats['params_gib']:.2f} GiB), "
+          f"initialized on the card in {init_s:.2f} s, peak "
+          f"{stats['init_peak_gib']:.2f} GiB", flush=True)
+    prompt = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT)).astype(np.int32)
+    engine = Engine(cfg, params, max_seq=SERVE_MAX_SEQ, device=dev)
+    rec = record_steps(engine)
+    outs = []
+    for call in ("first", "warm"):
+        n_logits = len(rec["logits"])
+        plain0 = obs.value("kernels.dispatch.flash_attention.plain")
+        cuda0 = obs.value("kernels.dispatch.flash_attention.cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kflash.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        outs.append(engine.generate({"tokens": prompt}, steps=SERVE_STEPS))
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = kflash.flash_attention.launches
+        plain = obs.value("kernels.dispatch.flash_attention.plain") - plain0
+        dispatched = obs.value("kernels.dispatch.flash_attention.cuda") \
+            - cuda0
+        run = {"generate_s": total_s, "prefill_s": rec["prefill_s"][-1],
+               "decode_tok_s": SERVE_REQUESTS * SERVE_STEPS
+               / (total_s - rec["prefill_s"][-1]),
+               "decode_step_s": (total_s - rec["prefill_s"][-1]) / SERVE_STEPS,
+               "launches": launches, "plain_dispatches": plain,
+               "peak_gib": torch.cuda.max_memory_allocated() / gib}
+        stats[call] = run
+        logits = rec["logits"][n_logits:]
+        if not all(torch.isfinite(t).all().item() for t in logits):
+            fail(f"{arch} ({call} call): non-finite logits")
+        if outs[-1].shape != (SERVE_REQUESTS, SERVE_STEPS) or \
+                outs[-1].min() < 0 or outs[-1].max() >= cfg.vocab_size:
+            fail(f"{arch} ({call} call): tokens {outs[-1].shape} outside "
+                 f"the vocabulary")
+        if launches != cfg.num_layers or dispatched != launches or plain:
+            fail(f"{arch} ({call} call): {launches} flash_attention launches "
+                 f"(expected {cfg.num_layers}, one a layer), {dispatched} "
+                 f"counted by kernels.dispatch.flash_attention.cuda, {plain} "
+                 f"plain dispatches")
+        print(f"serve {arch} ({call} call): generate {total_s:.4f} s, prefill "
+              f"{run['prefill_s']:.4f} s, decode {run['decode_tok_s']:.1f} "
+              f"tokens/s ({1e3 * run['decode_step_s']:.2f} ms a step; the "
+              f"expert stream's least time {stats['expert_stream_ms']:.2f} "
+              f"ms), {launches} flash_attention launches, {plain} plain, "
+              f"peak {run['peak_gib']:.2f} GiB, {len(logits)} logit sets "
+              f"finite", flush=True)
+    if not np.array_equal(outs[0], outs[1]):
+        fail(f"{arch}: two generate calls gave different tokens")
+    if cfg.mla:     # the absorbed decode wrote the latent cache, row by row
+        written = SERVE_PROMPT + SERVE_STEPS
+        for seg, (ckv, kr) in ((k, v) for k, v in rec["cache"].items()
+                               if k != "pos"):
+            if ckv.shape[-1] != cfg.kv_lora_rank or \
+                    kr.shape[-1] != cfg.qk_rope_dim or \
+                    not bool((ckv[:, :, :written].abs().amax(-1) > 0).all()) \
+                    or bool(ckv[:, :, written:].any()):
+                fail(f"{arch}: the latent decode cache of {seg} "
+                     f"{tuple(ckv.shape)}, {tuple(kr.shape)} is not the "
+                     f"absorbed decode's ({written} rows written)")
+        print(f"serve {arch}: latent decode cache (kv_lora "
+              f"{cfg.kv_lora_rank} + rope {cfg.qk_rope_dim} a token) written "
+              f"through row {written - 1}", flush=True)
+    with torch.inference_mode():     # where a warm prefill's and decode
+        lm, box = engine.lm, {}       # step's device time goes
+        prof = profile_report(f"{arch} prefill", lambda: box.update(zip(
+            ("cache", "logits"), lm.prefill(params, {"tokens": prompt},
+                                            max_seq=SERVE_MAX_SEQ))))
+        stats["prefill_profile"] = {k: prof[k] for k in
+                                    ("wall_s", "device_ms", "launches")}
+        tok = {"tokens": box["logits"].argmax(-1)}
+        lm.decode(params, box["cache"], tok)
+        prof = profile_report(f"{arch} warm decode step", lambda: lm.decode(
+            params, box["cache"], tok))
+        stats["decode_profile"] = {k: prof[k] for k in
+                                   ("wall_s", "device_ms", "launches")}
+    del engine, params, rec, box, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -1681,7 +1990,6 @@ def main() -> int:
     from repro_torch import api, hetero
     from repro_torch.core import bitcells, gainsight, retention
     from repro_torch.core import corners as corners_mod
-    from repro_torch import convert
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import flash_attention as kflash
@@ -1946,29 +2254,7 @@ def main() -> int:
 
     # 10. reduced hymba: the card against the CPU ---------------------------
     t_phase = time.perf_counter()
-    rcfg = reduce_config(cfg)
-    cpu_params = LM(rcfg, device="cpu").init(
-        torch.Generator().manual_seed(args.seed))
-    card_params = convert.lm_params_from_numpy(
-        rcfg, tree_map(lambda t: t.numpy(), cpu_params), device=dev)
-    rprompt = np.random.default_rng(args.seed).integers(
-        0, rcfg.vocab_size, (4, 40)).astype(np.int32)
-    runs = {}
-    for where, p_ in (("cuda", card_params), ("cpu", cpu_params)):
-        eng = Engine(rcfg, p_, max_seq=64, device=where)
-        r = record_steps(eng)
-        runs[where] = (eng.generate({"tokens": rprompt}, steps=24),
-                       [t.float().cpu() for t in r["logits"]])
-    (tok_g, log_g), (tok_c, log_c) = runs["cuda"], runs["cpu"]
-    parity = max(((g - c).abs().max() / c.abs().max()).item()
-                 for g, c in zip(log_g, log_c))
-    if not np.array_equal(tok_g, tok_c) or parity > RTOL_SERVE_CPU:
-        fail(f"reduced hymba card vs CPU: tokens equal "
-             f"{np.array_equal(tok_g, tok_c)}, logits max rel {parity:.3e} "
-             f"(gate {RTOL_SERVE_CPU})")
-    print(f"parity: reduced hymba card vs CPU, 4 x 40-token prompts, 24 "
-          f"steps: tokens identical, logits max rel {parity:.3e} (gate "
-          f"{RTOL_SERVE_CPU})", flush=True)
+    reduced_card_vs_cpu(reduce_config(cfg), args.seed)
     phase_done(10, "parity", t_phase)
 
     # 11. timing of the serve kernels ---------------------------------------
@@ -2029,8 +2315,8 @@ def main() -> int:
             own_ms = sum(e.self_device_time_total for e in own) / 1e3
             print(f"profile: prefill {label} kernel {own_ms:.4f} ms in "
                   f"{sum(e.count for e in own)} launches, "
-                  f"{100 * own_ms / prof['device_ms']:.2f} % of the device "
-                  f"time", flush=True)
+                  f"{device_share(own_ms, prof['device_ms'])} of the "
+                  f"device time", flush=True)
         tok = {"tokens": box["logits"].argmax(-1)}
         lm.decode(params, box["cache"], tok)            # warm the step
         profile_report("warm decode step",
@@ -2286,6 +2572,25 @@ def main() -> int:
     train_parity = training_parity_phase(args.seed)
     phase_done(21, "train parity, supervisor", t_phase)
 
+    # 22. the flash-attention kernel at the MoE family's shapes -------------
+    t_phase = time.perf_counter()
+    moe_kernels = moe_kernels_phase(args.seed)
+    phase_done(22, "MoE-family attention", t_phase)
+
+    # 23-24. serve moonshot-v1-16b-a3b and deepseek-v3-671b at full width --
+    moe_serve = {}
+    for n, (arch, n_layers) in enumerate(MOE_SERVE, start=23):
+        t_phase = time.perf_counter()
+        moe_serve[arch] = serve_moe_phase(arch, n_layers, args.seed)
+        phase_done(n, f"serve {arch}", t_phase)
+
+    # 25. the reduced MoE models on the card against the CPU ----------------
+    t_phase = time.perf_counter()
+    moe_parity = {arch: reduced_card_vs_cpu(reduce_config(get_config(arch)),
+                                            args.seed)
+                  for arch, _ in MOE_SERVE}
+    phase_done(25, "MoE parity", t_phase)
+
     main_shape = shapes["main"]
     warm = serve["warm"]
     print(f"end-to-end: serve {cfg.name} {SERVE_REQUESTS} x {SERVE_PROMPT} "
@@ -2293,6 +2598,13 @@ def main() -> int:
           f"{serve['first']['prefill_s']:.4f} s first, {warm['prefill_s']:.4f}"
           f" s warm; decode {serve['first']['decode_tok_s']:.1f} tokens/s "
           f"first, {warm['decode_tok_s']:.1f} tokens/s warm; {smi}")
+    for arch, st in moe_serve.items():
+        print(f"end-to-end: serve {arch} ({st['layers']} layers) "
+              f"{SERVE_REQUESTS} x {SERVE_PROMPT} tokens + {SERVE_STEPS} "
+              f"steps: prefill {st['first']['prefill_s']:.4f} s first, "
+              f"{st['warm']['prefill_s']:.4f} s warm; decode "
+              f"{st['warm']['decode_tok_s']:.1f} tokens/s warm; peak "
+              f"{st['warm']['peak_gib']:.2f} GiB; {smi}")
     print(json.dumps({"kernels": [{
         "name": "retention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/retention.cu",
@@ -2319,7 +2631,15 @@ def main() -> int:
         "bound_by": main_attn["bound_by"], "library_ms": attn_lib_ms,
         "shape": [B, H, K, S, D], "window": cfg.window,
         "sink": cfg.meta_tokens, "modes": attn_timing,
-        "train_launches": train["launches"]["flash_attention"]}, {
+        "train_launches": train["launches"]["flash_attention"],
+        "launches_by_path": {
+            "serve_hymba": serve_launches["flash_attention"],
+            "train_hymba_step": train["launches"]["flash_attention"],
+            **{f"serve_{arch}": st["first"]["launches"]
+               for arch, st in moe_serve.items()}},
+        "moe_family": {"kernel_checks": moe_kernels, "serve": moe_serve,
+                       "reduced_card_vs_cpu": moe_parity,
+                       "rtol_card_vs_cpu": RTOL_SERVE_CPU}}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:50",

@@ -1,0 +1,24 @@
+"""internlm2-1.8b [dense] — 24L d_model=2048 16H (GQA kv=8) d_ff=8192 vocab=92544.
+
+[arXiv:2403.17297; hf]
+"""
+from repro_torch.configs.base import ArchConfig, register
+
+
+@register("internlm2-1.8b")
+def config() -> ArchConfig:
+    return ArchConfig(
+        name="internlm2-1.8b",
+        family="dense",
+        num_layers=24,
+        d_model=2048,
+        num_heads=16,
+        num_kv_heads=8,
+        head_dim=128,
+        d_ff=8192,
+        vocab_size=92544,
+        qk_norm=False,
+        rope_theta=1_000_000.0,
+        mlp_type="swiglu",
+        source="arXiv:2403.17297; hf",
+    )

@@ -99,7 +99,9 @@ def lm_params_from_numpy(cfg, tree: Mapping[str, Any],
     """The reference's ``LM(cfg).init(key)`` tree, as nested dicts of numpy
     arrays (segments stacked on a leading layer axis, as ``jax.vmap`` lays
     them out), as the port's parameters on ``device``. Names, shapes and
-    dtypes must match the port's ``LM(cfg).init`` exactly."""
+    dtypes must match the port's ``LM(cfg).init`` exactly: every family's
+    leaves (MoE experts, MLA projections, the MTP module), a float32 leaf
+    of a bf16 model (the MoE router and routing bias) included."""
     from repro_torch.models import LM
     dev = resolve_device(device)
     spec = LM(cfg, device="meta").init()    # shapes and dtypes, no data

@@ -101,9 +101,9 @@ LAUNCH_ARGTYPES = {
     # x, dt, A, Bc, Cc, D, states, dy, dh_final, dx, ddt, dA, dB, dC, dD,
     # scratch, scratch_floats, B, S, di, n, stream
     "ssm_scan_bwd": [_P] * 16 + [_I64] + [_I] * 4 + [_P],
-    # q, k, v, o, lse, B, H, K, S, Sk, D, scale, bf16, causal, window, sink,
-    # round_p, stream
-    "flash_attention": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 5 + [_P],
+    # q, k, v, o, lse, B, H, K, S, Sk, D, Dv, scale, bf16, causal, window,
+    # sink, round_p, stream
+    "flash_attention": [_P] * 5 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
     # q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S,
     # Sk, D, scale, bf16, causal, window, sink, stream
     "flash_attention_bwd": [_P] * 7 + [_I64] + [_P] * 3 + [_I] * 6 + [_F]

@@ -1,12 +1,17 @@
 // Flash-attention forward (serving prefill), for Hopper (sm_90a).
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention (body
-// _flash_kernel). Same function: o = softmax(q k^T / sqrt(D) + mask) v with
+// _flash_kernel). Same function: o = softmax(q k^T * scale + mask) v with
 // an online softmax over kv tiles, m, l and the accumulator in fp32, masked
 // scores set to -0.7 * FLT_MAX, l summing the unrounded p and clamped to
 // >= 1e-30, output in q's dtype. Beyond the TPU kernel it takes
 //   - grouped-query attention: query head h reads kv head h / (H / K), so K
 //     and V are never repeated in memory;
+//   - a value head dim DV apart from the query/key one D (a template
+//     argument beside D: MLA's (192, 128), and (32, 16) for the reduced
+//     MLA, whose q and k the wrapper pads from 24 with zeros): the V tiles,
+//     the PV product and the output are DV wide. With DV = D the layout and
+//     the arithmetic are those of the one-D kernel it was;
 //   - any sequence length (the ragged last tiles are masked);
 //   - a sliding window with a sink, the mask of the model's
 //     repro/models/attention.py::causal_attention with the queries at
@@ -53,7 +58,7 @@
 // fp32 inputs: IEEE fp32 FMAs out of shared memory (no TF32), so that the
 // 2e-5 gate of the reference's tests holds; there round_p changes nothing.
 //   - one block of 256 threads per (batch * head, 64-row q tile); four
-//     threads share a q row, each owning 16 of the 64 score columns and D/4
+//     threads share a q row, each owning 16 of the 64 score columns and DV/4
 //     of the output columns; q, k and v tiles staged in shared memory, rows
 //     of q and k padded by one word; p goes through shared memory.
 // Both visit only the kv tiles that some row of the q tile can see: the
@@ -75,27 +80,29 @@ namespace {
 
 using namespace fa;
 
-template <int D>
+template <int D, int DV>
 constexpr size_t smem_bytes_tc() {
-  return sizeof(__nv_bfloat16) * (D + kPad) * (kBQ + 4 * kBK);
+  return sizeof(__nv_bfloat16) *
+         ((D + kPad) * (kBQ + 2 * kBK) + (DV + kPad) * 2 * kBK);
 }
 
-template <int D, bool kSplitP>
+template <int D, int DV, bool kSplitP>
 __global__ void __launch_bounds__(kThreadsTC)
 flash_kernel_tc(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
                 const __nv_bfloat16* __restrict__ k,   // (B, K, Sk, D)
-                const __nv_bfloat16* __restrict__ v,   // (B, K, Sk, D)
-                __nv_bfloat16* __restrict__ o,         // (B, H, S, D)
+                const __nv_bfloat16* __restrict__ v,   // (B, K, Sk, DV)
+                __nv_bfloat16* __restrict__ o,         // (B, H, S, DV)
                 float* __restrict__ lse,               // (B, H, S) or null
                 int H, int K, int S, Mask mk, float scale) {
   constexpr int LD = D + kPad;
+  constexpr int LDV = DV + kPad;
   constexpr int NT = kBK / 8;    // score n-tiles of 8 keys
   constexpr int KQ = D / 16;     // k-steps of S = Q K^T
-  constexpr int NO = D / 8;      // output n-tiles of 8 columns
+  constexpr int NO = DV / 8;     // output n-tiles of 8 columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* k_s = q_s + kBQ * LD;          // 2 x kBK x LD
-  __nv_bfloat16* v_s = k_s + 2 * kBK * LD;      // 2 x kBK x LD
+  __nv_bfloat16* v_s = k_s + 2 * kBK * LD;      // 2 x kBK x LDV
 
   const int bh = blockIdx.y;                    // b * H + h
   const int kvh = (bh / H) * K + (bh % H) / (H / K);
@@ -103,8 +110,8 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
   const int Sk = mk.Sk;
   const __nv_bfloat16* qp = q + static_cast<long long>(bh) * S * D;
   const __nv_bfloat16* kp = k + static_cast<long long>(kvh) * Sk * D;
-  const __nv_bfloat16* vp = v + static_cast<long long>(kvh) * Sk * D;
-  __nv_bfloat16* op = o + static_cast<long long>(bh) * S * D;
+  const __nv_bfloat16* vp = v + static_cast<long long>(kvh) * Sk * DV;
+  __nv_bfloat16* op = o + static_cast<long long>(bh) * S * DV;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -115,7 +122,7 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
   load_tile<D>(q_s, qp, q0, S, tid);
   cp_async_commit();
   load_tile<D>(k_s, kp, tiles[0] * kBK, Sk, tid);
-  load_tile<D>(v_s, vp, tiles[0] * kBK, Sk, tid);
+  load_tile<DV>(v_s, vp, tiles[0] * kBK, Sk, tid);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -140,7 +147,7 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
     if (i + 1 < tiles.n) {
       const int k1 = tiles[i + 1] * kBK;
       load_tile<D>(k_s + (buf ^ 1) * kBK * LD, kp, k1, Sk, tid);
-      load_tile<D>(v_s + (buf ^ 1) * kBK * LD, vp, k1, Sk, tid);
+      load_tile<DV>(v_s + (buf ^ 1) * kBK * LDV, vp, k1, Sk, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -149,7 +156,7 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
     __syncthreads();
     const int k0 = tiles[i] * kBK;
     const __nv_bfloat16* kt = k_s + buf * kBK * LD;
-    const __nv_bfloat16* vt = v_s + buf * kBK * LD;
+    const __nv_bfloat16* vt = v_s + buf * kBK * LDV;
 
     // S = Q K^T (unscaled). ldmatrix x4 gives the B fragments of n-tiles
     // j and j + 1: lane l addresses key 8 (j + l / 16) + l % 8 at column
@@ -232,7 +239,7 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
       for (int j = 0; j < NO; j += 2) {
         uint32_t b[4];
         ldsm_x4_trans(b, smem_u32(vt + (16 * kk + 8 * ((lane >> 3) & 1) +
-                                        (lane & 7)) * LD +
+                                        (lane & 7)) * LDV +
                                   8 * (j + (lane >> 4))));
         mma_bf16(acc[j], ph, b[0], b[1]);
         mma_bf16(acc[j + 1], ph, b[2], b[3]);
@@ -256,7 +263,7 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
 #pragma unroll
     for (int j = 0; j < NO; ++j)
       *reinterpret_cast<__nv_bfloat162*>(
-          op + static_cast<long long>(row) * D + 8 * j + quad_col) =
+          op + static_cast<long long>(row) * DV + 8 * j + quad_col) =
           __floats2bfloat162_rn(acc[j][2 * h] / denom,
                                 acc[j][2 * h + 1] / denom);
   }
@@ -268,18 +275,18 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
 
 constexpr int kThreadsF = 256;  // 4 threads per q row
 
-template <int D>
+template <int D, int DV>
 constexpr size_t smem_bytes_f32() {
-  return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D +
+  return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * DV +
                           kBQ * (kBK + 1));
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsF)
 flash_kernel_f32(const float* __restrict__ q,   // (B, H, S, D)
                  const float* __restrict__ k,   // (B, K, Sk, D)
-                 const float* __restrict__ v,   // (B, K, Sk, D)
-                 float* __restrict__ o,         // (B, H, S, D)
+                 const float* __restrict__ v,   // (B, K, Sk, DV)
+                 float* __restrict__ o,         // (B, H, S, DV)
                  float* __restrict__ lse,       // (B, H, S) or null
                  int H, int K, int S, Mask mk, float scale) {
   extern __shared__ float smem[];
@@ -287,8 +294,8 @@ flash_kernel_f32(const float* __restrict__ q,   // (B, H, S, D)
   constexpr int LP = kBK + 1;
   float* q_s = smem;                 // kBQ x LD
   float* k_s = q_s + kBQ * LD;       // kBK x LD
-  float* v_s = k_s + kBK * LD;       // kBK x D
-  float* p_s = v_s + kBK * D;        // kBQ x LP
+  float* v_s = k_s + kBK * LD;       // kBK x DV
+  float* p_s = v_s + kBK * DV;       // kBQ x LP
 
   const int bh = blockIdx.y;         // b * H + h
   const int kvh = (bh / H) * K + (bh % H) / (H / K);
@@ -296,8 +303,8 @@ flash_kernel_f32(const float* __restrict__ q,   // (B, H, S, D)
   const int Sk = mk.Sk;
   const float* qp = q + static_cast<long long>(bh) * S * D;
   const float* kp = k + static_cast<long long>(kvh) * Sk * D;
-  const float* vp = v + static_cast<long long>(kvh) * Sk * D;
-  float* op = o + static_cast<long long>(bh) * S * D;
+  const float* vp = v + static_cast<long long>(kvh) * Sk * DV;
+  float* op = o + static_cast<long long>(bh) * S * DV;
 
   const int tid = threadIdx.x;
   const int r = tid >> 2;            // q row within the tile
@@ -312,9 +319,9 @@ flash_kernel_f32(const float* __restrict__ q,   // (B, H, S, D)
   }
 
   float m = kNeg, l = 0.0f;
-  float acc[D / 4];
+  float acc[DV / 4];
 #pragma unroll
-  for (int j = 0; j < D / 4; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < DV / 4; ++j) acc[j] = 0.0f;
 
   const Tiles tiles = tiles_of(mk, q0, S);
   for (int i = 0; i < tiles.n; ++i) {
@@ -322,10 +329,13 @@ flash_kernel_f32(const float* __restrict__ q,   // (B, H, S, D)
     __syncthreads();  // the previous tile's readers are done
     for (int t = tid; t < kBK * D; t += kThreadsF) {
       const int rr = t / D, dd = t % D;
-      const bool in = k0 + rr < Sk;
-      const long long g = static_cast<long long>(k0 + rr) * D + dd;
-      k_s[rr * LD + dd] = in ? kp[g] : 0.0f;
-      v_s[rr * D + dd] = in ? vp[g] : 0.0f;
+      k_s[rr * LD + dd] =
+          k0 + rr < Sk ? kp[static_cast<long long>(k0 + rr) * D + dd] : 0.0f;
+    }
+    for (int t = tid; t < kBK * DV; t += kThreadsF) {
+      const int rr = t / DV, dd = t % DV;
+      v_s[rr * DV + dd] =
+          k0 + rr < Sk ? vp[static_cast<long long>(k0 + rr) * DV + dd] : 0.0f;
     }
     __syncthreads();
 
@@ -364,12 +374,12 @@ flash_kernel_f32(const float* __restrict__ q,   // (B, H, S, D)
     __syncwarp();  // row r's p was written by the lanes that read it
 
 #pragma unroll
-    for (int j = 0; j < D / 4; ++j) acc[j] *= alpha;
+    for (int j = 0; j < DV / 4; ++j) acc[j] *= alpha;
     for (int c = 0; c < kBK; ++c) {
       const float p = p_s[r * LP + c];
 #pragma unroll
-      for (int j = 0; j < D / 4; ++j)
-        acc[j] = fmaf(p, v_s[c * D + c4 + 4 * j], acc[j]);
+      for (int j = 0; j < DV / 4; ++j)
+        acc[j] = fmaf(p, v_s[c * DV + c4 + 4 * j], acc[j]);
     }
   }
 
@@ -379,8 +389,8 @@ flash_kernel_f32(const float* __restrict__ q,   // (B, H, S, D)
     if (lse != nullptr && c4 == 0)
       lse[static_cast<long long>(bh) * S + row] = m + logf(denom);
 #pragma unroll
-    for (int j = 0; j < D / 4; ++j)
-      op[static_cast<long long>(row) * D + c4 + 4 * j] = acc[j] / denom;
+    for (int j = 0; j < DV / 4; ++j)
+      op[static_cast<long long>(row) * DV + c4 + 4 * j] = acc[j] / denom;
   }
 }
 
@@ -388,25 +398,26 @@ flash_kernel_f32(const float* __restrict__ q,   // (B, H, S, D)
 // launch
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int K, int S, Mask mk,
                    float scale, int bf16, int round_p, cudaStream_t stream) {
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
   if (!bf16) {
-    constexpr size_t smem = smem_bytes_f32<D>();
+    constexpr size_t smem = smem_bytes_f32<D, DV>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_kernel_f32<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    flash_kernel_f32<D><<<grid, kThreadsF, smem, stream>>>(
+    flash_kernel_f32<D, DV><<<grid, kThreadsF, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, H, K, S,
         mk, scale);
     return cudaGetLastError();
   }
-  constexpr size_t smem = smem_bytes_tc<D>();
-  auto kernel = round_p ? flash_kernel_tc<D, false> : flash_kernel_tc<D, true>;
+  constexpr size_t smem = smem_bytes_tc<D, DV>();
+  auto kernel = round_p ? flash_kernel_tc<D, DV, false>
+                        : flash_kernel_tc<D, DV, true>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -422,8 +433,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// bf16 != 0: q, k, v, o are bfloat16 (16-byte aligned), else float32. D
-// must be 16, 32, 64, 96 or 128, and H a multiple of K. window <= 0 means
+// bf16 != 0: q, k, v, o are bfloat16 (16-byte aligned), else float32. q and
+// k have head dim D, v and o Dv: (D, Dv) must be (16, 16), (32, 32), (64,
+// 64), (96, 96), (128, 128), (32, 16) or (192, 128); scale multiplies the
+// scores (the wrapper passes 1/sqrt of q's unpadded width). H must be a
+// multiple of K. window <= 0 means
 // no window (and sink is then ignored); window and sink apply only with
 // causal != 0. round_p != 0 rounds p to v's dtype before the PV product.
 // lse (B, H, S) fp32, when not null, receives each row's log-sum-exp of the
@@ -432,7 +446,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       int B, int H,
-                                      int K, int S, int Sk, int D,
+                                      int K, int S, int Sk, int D, int Dv,
                                       float scale, int bf16, int causal,
                                       int window, int sink, int round_p,
                                       void* stream) {
@@ -441,12 +455,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Mask mk{Sk, causal, window, sink};
+  if (D == 192 && Dv == 128)
+    return launch<192, 128>(q, k, v, o, lse, B, H, K, S, mk, scale, bf16, round_p, s);
+  if (D == 32 && Dv == 16)
+    return launch<32, 16>(q, k, v, o, lse, B, H, K, S, mk, scale, bf16, round_p, s);
+  if (Dv != D) return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, lse, B, H, K, S, mk, scale, bf16, round_p, s);
-    case 32: return launch<32>(q, k, v, o, lse, B, H, K, S, mk, scale, bf16, round_p, s);
-    case 64: return launch<64>(q, k, v, o, lse, B, H, K, S, mk, scale, bf16, round_p, s);
-    case 96: return launch<96>(q, k, v, o, lse, B, H, K, S, mk, scale, bf16, round_p, s);
-    case 128: return launch<128>(q, k, v, o, lse, B, H, K, S, mk, scale, bf16, round_p, s);
+    case 16: return launch<16, 16>(q, k, v, o, lse, B, H, K, S, mk, scale, bf16, round_p, s);
+    case 32: return launch<32, 32>(q, k, v, o, lse, B, H, K, S, mk, scale, bf16, round_p, s);
+    case 64: return launch<64, 64>(q, k, v, o, lse, B, H, K, S, mk, scale, bf16, round_p, s);
+    case 96: return launch<96, 96>(q, k, v, o, lse, B, H, K, S, mk, scale, bf16, round_p, s);
+    case 128: return launch<128, 128>(q, k, v, o, lse, B, H, K, S, mk, scale, bf16, round_p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

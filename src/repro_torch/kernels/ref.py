@@ -4,8 +4,9 @@ of ``kernels/csrc/*.cu`` and what the wrappers run for tensors on the CPU.
 - ``retention_ref`` repeats, op for op in float32, what the reference's
   packed oracle (``repro/kernels/ref.py::retention_ref``) computes.
 - ``attention_ref`` is the flash-attention forward with the kernel's kv
-  blocking, causal/window/sink mask and either treatment of ``p`` (rounded
-  to v's dtype, or float32).
+  blocking, causal/window/sink mask, either treatment of ``p`` (rounded
+  to v's dtype, or float32) and a value head dim apart from the query/key
+  one (MLA).
 - ``ssm_scan_ref`` is the sequential selective scan, returning the final
   state as well.
 
@@ -85,12 +86,15 @@ BLOCK_K = 64    # kv tile of kernels/csrc/flash_attention.cu
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True, *, window=None, sink: int = 0,
-                  round_p: bool = True) -> torch.Tensor:
-    """q (B,H,S,D), k/v (B,K,Sk,D) with H % K == 0 -> (B,H,S,D) in q's dtype.
+                  round_p: bool = True, scale=None) -> torch.Tensor:
+    """q (B,H,S,D), k (B,K,Sk,D), v (B,K,Sk,Dv) with H % K == 0 -> (B,H,S,Dv)
+    in q's dtype.
 
     The online softmax of ``repro/kernels/flash_attention.py::_flash_kernel``
     over kv tiles of ``BLOCK_K`` columns: scores in float32 scaled by
-    1/sqrt(D), masked entries set to ``NEG``, running max m, sum l and
+    ``scale`` (None: 1/sqrt(D); a caller that pads q and k with zeros passes
+    the scale of the unpadded D), masked entries set to ``NEG``, running max
+    m, sum l and
     accumulator in float32, l summing the unrounded p and clamped to >=
     1e-30. Query head h reads kv head h // (H/K) (GQA).
 
@@ -108,13 +112,14 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, S, D = q.shape
     K, Sk = k.shape[1], k.shape[2]
     G = H // K
-    scale = 1.0 / math.sqrt(D)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
     qf = q.float()
     kf = k.float().repeat_interleave(G, dim=1)
     vg = v.repeat_interleave(G, dim=1)
     m = torch.full((B, H, S), NEG, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, H, S, D), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, S, v.shape[3]), dtype=torch.float32,
+                      device=q.device)
     rows = torch.arange(S, device=q.device)[:, None]
     for j0 in range(0, Sk, BLOCK_K):
         s = (qf @ kf[:, :, j0:j0 + BLOCK_K].transpose(-1, -2)) * scale

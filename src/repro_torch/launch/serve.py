@@ -2,10 +2,15 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
         --requests 4 --prompt-len 1000 --steps 32 --max-seq 1040
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v3-671b --layers 4 --prompt-len 1000 --max-seq 1040
 
-Runs on the CUDA device unless ``--device cpu`` is given. Weights are random,
-drawn from a ``torch.Generator`` seeded with ``--seed``; the prompts come
-from numpy's generator with the same seed.
+Serves any registered configuration whose family is ported (dense, MoE,
+hybrid). Runs on the CUDA device unless ``--device cpu`` is given;
+``--reduced`` takes the configuration's CPU-scale version and ``--layers``
+keeps its first layers (deepseek-v3-671b whole does not fit one card).
+Weights are random, drawn from a ``torch.Generator`` seeded with
+``--seed``; the prompts come from numpy's generator with the same seed.
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduce_config
+from repro_torch.configs import get_config, list_archs, reduce_config
 from repro_torch.device import resolve_device
 from repro_torch.models import LM
 from repro_torch.serve.engine import Engine
@@ -23,8 +28,10 @@ from repro_torch.serve.engine import Engine
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="hymba-1.5b")
+    ap.add_argument("--arch", default="hymba-1.5b", choices=list_archs())
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the first LAYERS layers (default: all)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--steps", type=int, default=24)
@@ -38,6 +45,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
+    if args.layers is not None:
+        cfg = cfg.replace(num_layers=args.layers)
     device = resolve_device(args.device)
     lm = LM(cfg, device)
     params = lm.init(torch.Generator(device=device).manual_seed(args.seed))

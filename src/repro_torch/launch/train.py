@@ -27,7 +27,7 @@ from repro_torch.train.step import init_train_state, make_train_step
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default=list_archs()[0])
+    ap.add_argument("--arch", default="hymba-1.5b", choices=list_archs())
     ap.add_argument("--reduced", action="store_true",
                     help="reduced config (CPU-scale)")
     ap.add_argument("--device", default=None,

@@ -1,2 +1,3 @@
-"""Language models of the port: the dense and hybrid (hymba) families."""
+"""Language models of the port: the dense, MoE and hybrid (hymba)
+families."""
 from repro_torch.models.lm import LM, Segment, build_plan  # noqa: F401

@@ -73,9 +73,10 @@ def causal_attention(q, k, v, positions, window=None, chunk=2048, sink=0):
     flash-attention kernel, with p kept at float32 precision
     (``round_p=False``), as the reference's blocked computation keeps it.
 
-    q (B,S,K,G,hd), k/v (B,S,K,hd) -> (B,S,H,hd) in q's dtype. The queries
-    sit at ``positions`` = arange(S), the prefill from position 0 (the
-    kernel takes a query's row as its position); keys at arange(S).
+    q (B,S,K,G,hd), k (B,S,K,hd), v (B,S,K,hv) -> (B,S,H,hv) in q's dtype
+    (hv != hd in MLA). The queries sit at ``positions`` = arange(S), the
+    prefill from position 0 (the kernel takes a query's row as its
+    position); keys at arange(S).
     ``chunk``, the reference's blocking, changes only its summation order
     and is not used."""
     B, S, K, G, hd = q.shape
@@ -87,7 +88,7 @@ def causal_attention(q, k, v, positions, window=None, chunk=2048, sink=0):
         q.reshape(B, S, K * G, hd).transpose(1, 2).contiguous(),
         k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous(),
         causal=True, window=window, sink=sink, round_p=False)
-    return o.transpose(1, 2)                                   # (B,S,H,hd)
+    return o.transpose(1, 2)                                   # (B,S,H,hv)
 
 
 def attn_block(p, x, cfg, positions, window=None, sink=0):

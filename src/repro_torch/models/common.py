@@ -19,15 +19,36 @@ def dtype_of(cfg) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
-def _trunc_normal(gen, shape, device, std: float, dtype) -> torch.Tensor:
-    """Standard normal truncated to [-2, 2], times ``std``: inverse-CDF
-    sampling, ``sqrt(2) erfinv(u)`` for u uniform on [erf(-sqrt 2),
-    erf(sqrt 2)], as ``jax.random.truncated_normal`` draws it."""
+# the most float32 elements a draw makes at once: a larger leaf (a
+# full-width embedding or stacked expert weight) is drawn in pieces along
+# its first axis, so that the float32 working copies stay near 1 GiB each
+DRAW_PIECE = 1 << 28
+
+
+def _draw(gen, shape, device, std: float, dtype) -> torch.Tensor:
     bound = math.erf(2.0 / math.sqrt(2.0))
     t = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     t.uniform_(-bound, bound, generator=gen)
     t = torch.clamp(torch.erfinv(t) * math.sqrt(2.0), -2.0, 2.0)
     return (t * std).to(dtype)
+
+
+def _trunc_normal(gen, shape, device, std: float, dtype) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2], times ``std``: inverse-CDF
+    sampling, ``sqrt(2) erfinv(u)`` for u uniform on [erf(-sqrt 2),
+    erf(sqrt 2)], as ``jax.random.truncated_normal`` draws it. A leaf of
+    more than ``DRAW_PIECE`` elements is drawn in consecutive pieces of its
+    first axis."""
+    shape = tuple(shape)
+    n = math.prod(shape)
+    if n <= DRAW_PIECE or len(shape) < 2:
+        return _draw(gen, shape, device, std, dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    rows = max(1, DRAW_PIECE // (n // shape[0]))
+    for r0 in range(0, shape[0], rows):
+        piece = out[r0:r0 + rows]
+        piece.copy_(_draw(gen, piece.shape, device, std, dtype))
+    return out
 
 
 def dense_init(gen: Optional[torch.Generator], shape: Sequence[int], dtype,

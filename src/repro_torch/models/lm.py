@@ -1,4 +1,5 @@
-"""Language-model assembly: the dense and hybrid (hymba) families.
+"""Language-model assembly: the dense, MoE (MoE, MLA, MTP) and hybrid
+(hymba) families.
 
 ``LM(cfg, device=None)`` exposes, as ``repro/models/lm.py`` does:
     init(generator)                    -> params (nested dict of tensors)
@@ -14,10 +15,12 @@ layer's new cache entries into the stacked cache in place and returns it,
 so a step allocates no copy of the cache; ``cache["pos"]`` is a Python int.
 In training each layer runs under the ``remat`` policy (``REMAT_POLICIES``)
 and takes its parameters as ``unbind`` slices of the stacked leaves, so
-the backward stacks each leaf's gradient once.
+the backward stacks each leaf's gradient once. ``init`` fills each stacked
+leaf a layer at a time (the full-width MoE models fill most of a card), in
+the order a per-layer draw would take.
 
-MLA, MoE, xLSTM, vision, audio and cross attention are not ported yet
-(ROADMAP.md) and raise ``NotImplementedError``.
+xLSTM, vision, audio and cross attention are not ported yet (ROADMAP.md)
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,6 +35,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (chunked_cross_entropy, dense_init,
                                        dtype_of, embed_init, rmsnorm,
@@ -77,6 +82,22 @@ def _stack(trees):
     return _tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
+def _init_stacked(n: int, draw):
+    """``_stack([draw() for _ in range(n)])`` without holding the layers
+    twice: the stacked leaves are allocated after the first draw and each
+    layer is copied into its slot as it is drawn (the same draws, in the
+    same order)."""
+    first = draw()
+    if n == 1:
+        return _tree_map(lambda a: a.unsqueeze(0), first)
+    out = _tree_map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
+    for i in range(n):
+        layer = first if i == 0 else draw()
+        _tree_map(lambda o, a: o[i].copy_(a), out, layer)
+        first = layer = None
+    return out
+
+
 def _layer(tree, i: int):
     """Layer ``i``'s slice of a stacked tree: views, no copies."""
     return _tree_map(lambda a: a[i], tree)
@@ -92,6 +113,14 @@ def _unstack(tree):
     return list(tree.unbind(0))
 
 
+def _pad_seq(t: torch.Tensor, total: int) -> torch.Tensor:
+    """A stacked prefill cache leaf (Lseg, B, S', ...) in a zero cache of
+    ``total`` positions."""
+    out = t.new_zeros((t.shape[0], t.shape[1], total) + tuple(t.shape[3:]))
+    out[:, :, :t.shape[2]] = t
+    return out
+
+
 def _store(dst, src) -> None:
     """Write a layer's new cache entry into its slot of the stacked cache,
     unless it already is that slot (updated in place)."""
@@ -105,13 +134,16 @@ def _store(dst, src) -> None:
 
 
 def _init_layer(gen, cfg, dtype, device, *, kind: str):
-    """kind: dense | hymba"""
+    """kind: dense | moe | hymba"""
     d = cfg.d_model
+    init_attn = mla_mod.init_mla if cfg.mla else attn.init_attn
     p: Dict[str, Any] = {"ln1": rmsnorm_init(d, device),
                          "ln2": rmsnorm_init(d, device),
-                         "attn": attn.init_attn(gen, cfg, dtype, device),
-                         "mlp": init_mlp(gen, d, cfg.d_ff, cfg.mlp_type, dtype,
-                                         device)}
+                         "attn": init_attn(gen, cfg, dtype, device)}
+    if kind == "moe":
+        p["moe"] = moe_mod.init_moe(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, cfg.mlp_type, dtype, device)
     if kind == "hymba":
         p["ssm"] = ssm_mod.init_ssm(gen, cfg, dtype, device)
         p["mix_a"] = torch.full((d,), 0.5, dtype=torch.float32, device=device)
@@ -130,15 +162,22 @@ def _mix(p, a, s):
 def _mixer(p, x, cfg, positions, *, kind, window, sink, cache=None, pos=None,
            ssm_state=None):
     """Attention(+SSM) sub-block. Returns (out, new_cache, new_ssm_state)."""
-    if cache is None:  # prefill
-        a, kv = attn.attn_block(p["attn"], x, cfg, positions, window=window,
-                                sink=sink)
+    if cache is None:  # prefill / train
+        if cfg.mla:
+            a, kv = mla_mod.mla_block(p["attn"], x, cfg, positions)
+        else:
+            a, kv = attn.attn_block(p["attn"], x, cfg, positions,
+                                    window=window, sink=sink)
         if kind == "hymba":
             s, ssm_state = ssm_mod.ssm_block(p["ssm"], x, cfg)
             a = _mix(p, a, s)
         return a, kv, ssm_state
-    a, cache = attn.decode_attn_block(p["attn"], x, cfg, cache[0], cache[1],
-                                      pos, window=window)
+    if cfg.mla:
+        a, cache = mla_mod.mla_decode_block(p["attn"], x, cfg, cache[0],
+                                            cache[1], pos)
+    else:
+        a, cache = attn.decode_attn_block(p["attn"], x, cfg, cache[0],
+                                          cache[1], pos, window=window)
     if kind == "hymba":
         s, ssm_state = ssm_mod.ssm_decode_block(p["ssm"], x, cfg, ssm_state[0],
                                                 ssm_state[1])
@@ -146,13 +185,20 @@ def _mixer(p, x, cfg, positions, *, kind, window, sink, cache=None, pos=None,
     return a, cache, ssm_state
 
 
+def _ffn(p, h, cfg, kind):
+    """The feed-forward sub-block: (out, MoE aux dict or None)."""
+    if kind == "moe":
+        return moe_mod.moe_block(p["moe"], h, cfg)
+    return mlp_block(p["mlp"], h), None
+
+
 def _layer_apply(p, x, cfg, positions, *, kind, window, sink):
-    """Prefill layer. Returns (x, cache_entry)."""
+    """Train/prefill layer. Returns (x, cache_entry, aux)."""
     a, kv, ssm_state = _mixer(p, rmsnorm(x, p["ln1"]), cfg, positions,
                               kind=kind, window=window, sink=sink)
     x = x + a
-    m = mlp_block(p["mlp"], rmsnorm(x, p["ln2"]))
-    return x + m, ((kv, ssm_state) if kind == "hymba" else kv)
+    m, aux = _ffn(p, rmsnorm(x, p["ln2"]), cfg, kind)
+    return x + m, ((kv, ssm_state) if kind == "hymba" else kv), aux
 
 
 def _layer_decode(p, x, cfg, cache, pos, *, kind, window):
@@ -163,7 +209,7 @@ def _layer_decode(p, x, cfg, cache, pos, *, kind, window):
                               window=window, sink=0, cache=kv, pos=pos,
                               ssm_state=ssm_state)
     x = x + a
-    m = mlp_block(p["mlp"], rmsnorm(x, p["ln2"]))
+    m, _ = _ffn(p, rmsnorm(x, p["ln2"]), cfg, kind)
     return x + m, ((kv, ssm_state) if kind == "hymba" else kv)
 
 
@@ -208,7 +254,7 @@ def _ring_attend(p, x, cfg, kvc, pos: int):
 @dataclasses.dataclass(frozen=True)
 class Segment:
     name: str
-    kind: str          # dense | hymba
+    kind: str          # dense | moe | hymba
     layers: tuple      # absolute layer indices
     window: Any        # None = full attention
 
@@ -217,6 +263,11 @@ def build_plan(cfg):
     L = cfg.num_layers
     if cfg.family == "dense":
         return [Segment("blocks", "dense", tuple(range(L)), None)]
+    if cfg.family == "moe":
+        nd = cfg.first_dense_layers
+        segs = [Segment("dense", "dense", tuple(range(nd)), None)] if nd \
+            else []
+        return segs + [Segment("moe", "moe", tuple(range(nd, L)), None)]
     if cfg.family != "hybrid":
         raise NotImplementedError(f"family {cfg.family!r} is {_UNPORTED}")
     segs = []
@@ -244,8 +295,8 @@ def build_plan(cfg):
 
 class LM:
     def __init__(self, cfg, device: DeviceLike = None):
-        unported = [f for f in ("mla", "moe", "vision", "cross_attn",
-                                "audio_codebooks", "mtp") if getattr(cfg, f)]
+        unported = [f for f in ("vision", "cross_attn", "audio_codebooks")
+                    if getattr(cfg, f)]
         if unported:
             raise NotImplementedError(f"{cfg.name}: {unported} {_UNPORTED}")
         self.cfg = cfg
@@ -256,7 +307,9 @@ class LM:
     # ------------------------------------------------------------------ init
     def init(self, generator: Optional[torch.Generator] = None):
         """Random parameters drawn from ``generator`` (a ``torch.Generator``
-        on this LM's device; None draws from the device's default one)."""
+        on this LM's device; None draws from the device's default one). A
+        segment's stacked leaves are filled a layer at a time, so the
+        layers are never held twice."""
         cfg, dtype, dev, g = self.cfg, self.dtype, self.device, generator
         d = cfg.d_model
         params: Dict[str, Any] = {
@@ -266,41 +319,85 @@ class LM:
         if cfg.meta_tokens:
             params["meta"] = embed_init(g, (cfg.meta_tokens, d), dtype, dev)
         for seg in self.plan:
-            params[seg.name] = _stack([
-                _init_layer(g, cfg, dtype, dev, kind=seg.kind)
-                for _ in seg.layers])
+            params[seg.name] = _init_stacked(
+                len(seg.layers),
+                lambda seg=seg: _init_layer(g, cfg, dtype, dev, kind=seg.kind))
         params["ln_f"] = rmsnorm_init(d, dev)
+        if cfg.mtp:
+            params["mtp"] = {
+                "proj": dense_init(g, (2 * d, d), dtype, dev),
+                "ln_h": rmsnorm_init(d, dev),
+                "ln_e": rmsnorm_init(d, dev),
+                "layer": _init_layer(g, cfg, dtype, dev, kind="moe"),
+                "ln_f": rmsnorm_init(d, dev),
+            }
         return params
 
     # ------------------------------------------------------------------ loss
     def loss(self, params, batch, remat: str = "full"):
         """Next-token cross entropy of ``batch["tokens"]`` (B, S_text): the
         meta tokens are prepended, every layer runs under ``remat``, and the
-        text positions but the last predict the next token. Returns (loss,
-        {"loss": loss})."""
+        text positions but the last predict the next token. With MoE layers
+        the loss adds the reference's balance penalty (1e-3 E mean_l
+        sum_e load^2, no gradient: the load counts selections) and the
+        metrics carry ``moe_load`` (L_moe, E) and ``moe_dropped``; with MTP
+        it adds 0.3 x the loss of predicting token t+2. Returns (loss,
+        metrics)."""
         if remat not in REMAT_POLICIES:
             raise ValueError(f"remat must be one of {REMAT_POLICIES}, got "
                              f"{remat!r}")
+        cfg = self.cfg
         x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=self.device)
-        x = self._run_train(params, x, positions, remat)
+        x, auxes = self._run_train(params, x, positions, remat)
         x = rmsnorm(x, params["ln_f"])
-        h = x[:, self.cfg.meta_tokens or 0:]
+        h = x[:, cfg.meta_tokens or 0:]
         loss = chunked_cross_entropy(h[:, :-1], self._head(params),
                                      self._tokens(batch)[:, 1:])
-        return loss, {"loss": loss}
+        metrics: Dict[str, Any] = {}
+        if auxes:
+            load = torch.stack([a["load"] for a in auxes])      # (Lmoe, E)
+            metrics["moe_load"] = load
+            metrics["moe_dropped"] = torch.stack(
+                [a["dropped"] for a in auxes]).mean()
+            loss = loss + 1e-3 * cfg.num_experts * torch.mean(
+                torch.sum(load * load, dim=-1))
+        if cfg.mtp:
+            loss = loss + 0.3 * self._mtp_loss(params, x, batch, positions)
+        metrics["loss"] = loss
+        return loss, metrics
+
+    def _mtp_loss(self, params, h, batch, positions):
+        """DeepSeek multi-token prediction: one extra MoE layer over the
+        final hidden state and the next token's embedding predicts t+2."""
+        mp = params["mtp"]
+        toks = self._tokens(batch)
+        emb_next = params["embed"][toks[:, 1:]]                 # (B,S-1,d)
+        hh = torch.cat([rmsnorm(h[:, :-1], mp["ln_h"]),
+                        rmsnorm(emb_next, mp["ln_e"])], dim=-1)
+        x = _layer_apply(mp["layer"], hh @ mp["proj"], self.cfg,
+                         positions[:-1], kind="moe", window=None, sink=0)[0]
+        x = rmsnorm(x, mp["ln_f"])
+        return chunked_cross_entropy(x[:, :-1], self._head(params),
+                                     toks[:, 2:])
 
     def _run_train(self, params, x, positions, remat: str):
-        """Every layer, its caches dropped, under the ``remat`` policy."""
+        """Every layer, its caches dropped, under the ``remat`` policy.
+        Returns (x, the MoE layers' aux dicts in layer order)."""
         cfg = self.cfg
+        auxes = []
         for seg in self.plan:
             sink = cfg.meta_tokens if seg.window is not None else 0
             for lp in _unstack(params[seg.name]):
                 def layer(h, lp=lp, seg=seg, sink=sink):
-                    return _layer_apply(lp, h, cfg, positions, kind=seg.kind,
-                                        window=seg.window, sink=sink)[0]
-                x = _remat(layer, x, remat)
-        return x
+                    out, _, aux = _layer_apply(lp, h, cfg, positions,
+                                               kind=seg.kind,
+                                               window=seg.window, sink=sink)
+                    return out, aux
+                x, aux = _remat(layer, x, remat)
+                if aux is not None:
+                    auxes.append(aux)
+        return x, auxes
 
     # -------------------------------------------------------------- embedding
     def _tokens(self, batch) -> torch.Tensor:
@@ -329,9 +426,9 @@ class LM:
             sink = cfg.meta_tokens if seg.window is not None else 0
             entries = []
             for i in range(len(seg.layers)):
-                x, cache = _layer_apply(_layer(params[seg.name], i), x, cfg,
-                                        positions, kind=seg.kind,
-                                        window=seg.window, sink=sink)
+                x, cache, _ = _layer_apply(_layer(params[seg.name], i), x, cfg,
+                                           positions, kind=seg.kind,
+                                           window=seg.window, sink=sink)
                 entries.append(cache)
             caches[seg.name] = _stack(entries)
         return x, caches
@@ -355,17 +452,10 @@ class LM:
         for seg in self.plan:
             kv, ssm_state = caches[seg.name] if seg.kind == "hymba" else (
                 caches[seg.name], None)
-            k, v = kv                                       # (Lseg,B,S',K,hd)
             if seg.window is not None:
-                out[seg.name] = self._ring_from_prefill(k, v)
-            else:
-                Ls, B, Sp, K, hd = k.shape
-                kc = torch.zeros((Ls, B, total, K, hd), dtype=k.dtype,
-                                 device=k.device)
-                vc = torch.zeros_like(kc)
-                kc[:, :, :Sp] = k
-                vc[:, :, :Sp] = v
-                out[seg.name] = (kc, vc)
+                out[seg.name] = self._ring_from_prefill(*kv)
+            else:   # (k, v) (Lseg,B,S',K,hd), or MLA's (ckv, kr) (Lseg,B,S',r)
+                out[seg.name] = tuple(_pad_seq(t, total) for t in kv)
             if ssm_state is not None:
                 out[seg.name] = (out[seg.name], ssm_state)
         return out
@@ -409,7 +499,10 @@ class LM:
 
             def zeros(*shape, dt=dtype):
                 return torch.zeros(shape, dtype=dt, device=dev)
-            if seg.window is not None:
+            if cfg.mla:
+                kv = (zeros(Ls, B, total, cfg.kv_lora_rank),
+                      zeros(Ls, B, total, cfg.qk_rope_dim))
+            elif seg.window is not None:
                 kv = {"meta_k": zeros(Ls, B, meta, K, hd),
                       "meta_v": zeros(Ls, B, meta, K, hd),
                       "ring_k": zeros(Ls, B, cfg.window, K, hd),

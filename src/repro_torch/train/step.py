@@ -1,14 +1,18 @@
-"""Train-step factory: loss, gradients (accumulated over microbatches) and
-AdamW, as the reference's ``repro/train/step.py``.
+"""Train-step factory: loss, gradients (accumulated over microbatches),
+AdamW and the MoE routing-bias update, as the reference's
+``repro/train/step.py``.
 
 ``make_train_step(cfg, ...)`` returns ``(lm, step)`` with
     step(params, opt_state, batch, stepno) -> (params, opt_state, metrics)
 where ``params`` and ``opt_state`` are updated in place (``adamw_update``)
 and returned. The gradients go through the model's hand-written kernels on
 the card (``kernels.flash_attention``, ``kernels.ssm_scan``: their backward
-kernels) and through their plain versions on the CPU. MoE configurations,
-whose step also nudges the routing bias (the reference's
-``update_moe_bias``), wait for the MoE family (ROADMAP.md, queue 1, item 6).
+kernels) and through their plain versions on the CPU. A MoE configuration's
+step then nudges each layer's routing bias against the load it saw
+(``update_moe_bias``) and reports ``moe_balance``. MLA's attention has a
+value head dim apart from its query/key one, which the backward kernel
+does not take yet: training an MLA configuration runs on the CPU only
+(ROADMAP.md, queue 2).
 """
 from __future__ import annotations
 
@@ -17,17 +21,30 @@ from typing import Optional
 import torch
 
 from repro_torch.device import DeviceLike
-from repro_torch.models import LM
+from repro_torch.models import LM, build_plan
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
                                      cosine_schedule, leaves, tree_map)
 
+MOE_BIAS_LR = 1e-3
 
-def _check_trainable(cfg) -> None:
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: training a MoE configuration (the routing-bias "
-            f"update, update_moe_bias) is not ported yet (ROADMAP.md, queue "
-            f"1, item 6)")
+
+@torch.no_grad()
+def update_moe_bias(cfg, params, load):
+    """DeepSeek's aux-loss-free balancing: each MoE layer's routing bias
+    moves by ``MOE_BIAS_LR`` against the sign of its load's deviation from
+    the layer's mean. ``load`` (L_moe, E) stacks the MoE layers in plan
+    order (``LM.loss``'s ``moe_load``). Updates ``params`` in place and
+    returns it."""
+    row = 0
+    for seg in build_plan(cfg):
+        if seg.kind != "moe":
+            continue
+        seg_load = load[row:row + len(seg.layers)]
+        row += len(seg.layers)
+        mean = seg_load.mean(dim=-1, keepdim=True)
+        params[seg.name]["moe"]["bias"].add_(
+            MOE_BIAS_LR * torch.sign(mean - seg_load))
+    return params
 
 
 def _split(batch, n: int):
@@ -47,7 +64,6 @@ def make_train_step(cfg, *, base_lr: float = 3e-4, warmup: int = 200,
     ``"cpu"``). With ``microbatch``, the batch is split into B / microbatch
     parts whose gradients are summed in float32 and divided by their
     number, and the loss is their mean."""
-    _check_trainable(cfg)
     lm = LM(cfg, device)
     lr_fn = cosine_schedule(base_lr, warmup, total_steps)
 
@@ -56,7 +72,9 @@ def make_train_step(cfg, *, base_lr: float = 3e-4, warmup: int = 200,
         for t in flat:
             t.requires_grad_(True)
         loss, metrics = lm.loss(params, batch, remat=remat)
-        grads = torch.autograd.grad(loss, flat)
+        # the MoE routing bias only selects (top-k): its gradient is zero
+        grads = torch.autograd.grad(loss, flat, allow_unused=True,
+                                    materialize_grads=True)
         it = iter(grads)
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), \
             tree_map(lambda _: next(it), params)
@@ -81,6 +99,10 @@ def make_train_step(cfg, *, base_lr: float = 3e-4, warmup: int = 200,
         lr = lr_fn(stepno)
         params, opt_state, gnorm = adamw_update(grads, opt_state, params, lr,
                                                 acfg)
+        if "moe_load" in metrics:
+            load = metrics.pop("moe_load")
+            update_moe_bias(cfg, params, load)
+            metrics["moe_balance"] = torch.std(load.mean(0), correction=0)
         return params, opt_state, {**metrics, "grad_norm": gnorm, "lr": lr}
 
     return lm, step
@@ -91,7 +113,6 @@ def init_train_state(cfg, generator: Optional[torch.Generator] = None,
                      device: DeviceLike = None):
     """(params, opt_state): parameters drawn from ``generator`` (a
     ``torch.Generator`` on ``device``) and zero AdamW moments."""
-    _check_trainable(cfg)
     params = LM(cfg, device).init(generator)
     return params, adamw_init(params, acfg)
 

@@ -492,6 +492,57 @@ def test_flash_attention_on_the_card_refuses_to_train_with_p_rounded(cuda):
         kflash.flash_attention(q, q, q)
 
 
+# (B, H, K, S, Dqk, Dv): deepseek-v3's MLA (query/key 192, value 128) at
+# its serving prompt and on a ragged S, the reduced MLA's 24 / 16 (the
+# wrapper pads q and k to 32) with a ragged S, and the MoE and dense
+# families' other new shapes: moonshot-v1-16b-a3b's prefill and
+# granite-34b's MQA
+MLA_CASES = [(4, 128, 128, 1000, 192, 128), (1, 16, 16, 333, 192, 128),
+             (2, 4, 4, 40, 24, 16), (3, 4, 4, 77, 24, 16),
+             (4, 16, 16, 1000, 128, 128), (1, 48, 1, 512, 128, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MLA_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("round_p", [True, False], ids=["p-rounded", "p-f32"])
+def test_flash_attention_kernel_takes_mla_head_dims(cuda, case, dtype,
+                                                    round_p):
+    """A value head dim apart from the query/key one, and a query/key dim
+    padded to the kernel's: one launch, output (B, H, S, Dv), the gates of
+    ``test_flash_attention_kernel_window_sink_and_p_modes``."""
+    B, H, K, S, D, Dv = case
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, h, S, d)).astype(
+        np.float32)).to(cuda, dtype) for h, d in ((H, D), (K, D), (K, Dv)))
+    before = kflash.flash_attention.launches
+    got = kflash.flash_attention(q, k, v, round_p=round_p)
+    want = ref.attention_ref(q, k, v, round_p=round_p)
+    torch.cuda.synchronize()
+    assert kflash.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, S, Dv)
+    if dtype == torch.bfloat16 and not round_p:
+        ulps, share = ref.bf16_ulp_gaps(got, want)
+        assert ulps <= 1.0 and share <= 0.01, (ulps, share)
+    else:
+        tol = TOL_ATTN[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_on_the_card_refuses_an_mla_gradient(cuda):
+    """The backward kernel takes one head dim: a gradient with Dv != D
+    raises, naming ROADMAP.md; without one the forward runs."""
+    q = torch.ones((1, 2, 8, 192), device=cuda, requires_grad=True)
+    v = torch.ones((1, 2, 8, 128), device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kflash.flash_attention(q, q, v, round_p=False)
+    with torch.no_grad():
+        assert kflash.flash_attention(q, q, v).shape == (1, 2, 8, 128)
+
+
 # (B, S, di, n): the reference's shapes, S and di no block or chunk divides,
 # n = 4, 8 (the reduced hymba) and 32, S below one saved-state interval, and
 # hymba-1.5b's full width

@@ -218,6 +218,40 @@ def test_port_causal_attention_matches_the_jax_model(case):
                       _jax_model_attention(q, k, v, "bf16", window, sink))
 
 
+# (B, S, H, Dqk, Dv): MLA's value head dim apart from its query/key one:
+# the reduced deepseek-v3's (24, 16), whose q and k the kernel wrapper pads
+# to 32 (``kernel_dim``), and the full width's (192, 128) on a ragged S
+MLA_CASES = [(2, 40, 4, 24, 16), (1, 130, 3, 192, 128)]
+
+
+@pytest.mark.parametrize("case", MLA_CASES, ids=str)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_mla_head_dims_and_padding_match_the_jax_model(case, dtype):
+    """The plain version with Dv != Dqk, and again with q and k padded with
+    zeros to the kernel's D and the unpadded Dqk's scale passed, against the
+    JAX model's ``causal_attention`` (MLA calls it with K = H, G = 1): the
+    gates of ``test_float32_p_matches_the_jax_model_attention``."""
+    B, S, H, Dqk, Dv = case
+    rng = np.random.default_rng(8)
+    q, k = (rng.normal(size=(B, S, H, Dqk)).astype(np.float32)
+            for _ in range(2))
+    v = rng.normal(size=(B, S, H, Dv)).astype(np.float32)
+    want = _jax_model_attention(q[:, :, :, None], k, v, dtype, None, 0)
+    tq, tk, tv = (torch.from_numpy(a).to(TORCH[dtype]).transpose(1, 2)
+                  .contiguous() for a in (q, k, v))
+    D = kflash.kernel_dim(Dqk, Dv)
+    assert (D, Dv) in kflash.HEAD_DIM_PAIRS and D >= Dqk
+    pad = (0, D - Dqk)
+    for got in (ref.attention_ref(tq, tk, tv, round_p=False),
+                ref.attention_ref(torch.nn.functional.pad(tq, pad),
+                                  torch.nn.functional.pad(tk, pad), tv,
+                                  round_p=False,
+                                  scale=1.0 / np.sqrt(Dqk))):
+        assert got.shape == (B, H, S, Dv)
+        got = got.transpose(1, 2).float().numpy()
+        (assert_f32_close if dtype == "f32" else assert_bf16_close)(got, want)
+
+
 def _hymba_heads_layer(S, seed=6):
     """(cfg, params, x) of a global layer with hymba-1.5b's attention heads
     (25 q on 5 kv, hd 64) and d_model = 25 * 64, bf16: wq, wk, wv normal

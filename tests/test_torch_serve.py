@@ -223,32 +223,49 @@ def test_full_width_parameter_tree_matches_jax():
 
 
 def test_config_registry_and_unported_families():
-    """hymba-1.5b is registered, field for field the reference's config
-    (full and reduced); other names raise a KeyError naming what is
-    registered; families and features not ported raise
-    NotImplementedError pointing at ROADMAP.md: the other families, and
-    training a MoE configuration; ``LM.loss`` of hymba returns a loss."""
+    """The reference's 10 architectures are registered, each field for
+    field its config (full and reduced); other names raise a KeyError
+    naming what is registered; ``LM`` builds for every dense, MoE and
+    hybrid config and raises NotImplementedError pointing at ROADMAP.md for
+    the families and features not ported (vision, audio, cross attention,
+    the xLSTM family), as does a gradient through MLA's attention on the
+    card (its value head dim apart from the query/key one; meta tensors
+    stand in for the card's here); ``LM.loss`` of hymba returns a loss, and
+    a MoE configuration builds a train step."""
     import dataclasses
+    from repro.configs import ALL_ARCHS
     from repro_torch.configs import list_archs
-    assert list_archs() == ["hymba-1.5b"]
-    cfg, jcfg = get_config("hymba-1.5b"), jax_get_config("hymba-1.5b")
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
-    assert dataclasses.asdict(reduce_config(cfg)) == dataclasses.asdict(
-        jax_reduce_config(jcfg))
+    from repro_torch.kernels.flash_attention import flash_attention
+    assert list_archs() == ALL_ARCHS and len(ALL_ARCHS) == 10
+    for arch in ALL_ARCHS:
+        cfg, jcfg = get_config(arch), jax_get_config(arch)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg), arch
+        assert dataclasses.asdict(reduce_config(cfg)) == dataclasses.asdict(
+            jax_reduce_config(jcfg)), arch
+        if cfg.family in ("dense", "moe", "hybrid"):
+            LM(reduce_config(cfg), device="meta")
+        else:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                LM(reduce_config(cfg), device="meta")
     with pytest.raises(KeyError, match="hymba-1.5b"):
-        get_config("qwen3-8b")
-    small = reduce_config(cfg)
-    for unported in (dict(moe=True), dict(mla=True), dict(vision=True),
-                     dict(audio_codebooks=4), dict(family="ssm")):
+        get_config("qwen3-9b")
+    small = reduce_config(get_config("hymba-1.5b"))
+    for unported in (dict(vision=True), dict(audio_codebooks=4),
+                     dict(cross_attn=True), dict(family="ssm")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             LM(small.replace(**unported), device="cpu")
+    q, k = (torch.zeros((1, 4, 8, 24), device="meta", requires_grad=True)
+            for _ in range(2))
+    v = torch.zeros((1, 4, 8, 16), device="meta", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention(q, k, v, round_p=False)
     lm = LM(small, device="cpu")
     loss, _ = lm.loss(lm.init(torch.Generator().manual_seed(0)),
                       {"tokens": np.zeros((1, 8), np.int32)})
     assert torch.isfinite(loss)
     from repro_torch.train.step import make_train_step
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(small.replace(moe=True), device="cpu")
+    make_train_step(reduce_config(get_config("moonshot-v1-16b-a3b")),
+                    device="cpu")
 
 
 def test_launcher_serves_the_reduced_model_on_the_cpu(capsys):

@@ -269,6 +269,11 @@ def test_three_train_steps_match_jax(ref4, microbatch):
 
 
 def test_init_train_state_and_moe_refusal():
+    """The state of hymba and, since the MoE family is ported (the refusal
+    this test once checked is gone), of a MoE configuration: AdamW moments
+    for every leaf, the float32 router and routing bias included (the
+    bias's gradient is zero; tests/test_torch_moe.py holds its steps to
+    JAX's)."""
     cfg = reduce_config(get_config("hymba-1.5b"))
     params, opt = init_train_state(cfg, torch.Generator().manual_seed(0),
                                    device="cpu")
@@ -276,11 +281,13 @@ def test_init_train_state_and_moe_refusal():
     assert all(m.dtype == torch.float32 for m in adamw.leaves(opt["m"]))
     assert [t.shape for t in adamw.leaves(opt["v"])] == \
         [t.shape for t in adamw.leaves(params)]
-    moe = cfg.replace(moe=True, num_experts=8, top_k=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_train_step(moe, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        init_train_state(moe, device="cpu")
+    moe = reduce_config(get_config("moonshot-v1-16b-a3b"))
+    make_train_step(moe, device="cpu")
+    params, opt = init_train_state(moe, torch.Generator().manual_seed(0),
+                                   device="cpu")
+    assert opt["m"]["moe"]["moe"]["bias"].shape == (3, moe.num_experts)
+    assert [t.shape for t in adamw.leaves(opt["m"])] == \
+        [t.shape for t in adamw.leaves(params)]
 
 
 def test_adamw_state_carries_across_both_ways(ref2):
