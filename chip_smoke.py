@@ -181,7 +181,33 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
 25. parity the reduced moonshot and deepseek (float32) on the card and the
             CPU with the same weights, as phase 10: identical greedy tokens,
             the prefill's and every decode step's logits within
-            ``RTOL_SERVE_CPU``.
+            ``RTOL_SERVE_CPU``;
+26. vis-attn the flash-attention kernel against its plain version at
+            phi-3-vision-4.2b's prefill (4, 32, 32, 1,000, 96) and
+            musicgen-medium's (4, 24, 24, 1,000, 64), as phase 22: float32
+            and bf16, both treatments of p, phase 8's gates; each one's
+            time, bound, the plain version's and SDPA's;
+27. vision phi-3-vision-4.2b, nothing cut (32 layers, d_model 3,072, 32
+            heads of 96; 3,833,662,464 bf16 parameters from ``--seed``),
+            served as phase 23 on 4 prompts of 576 patches of 1,024 (unit
+            normal) + 424 text tokens: 32 attention launches a generate,
+            no plain dispatch, no other kernel; the decode step's least
+            time is every bf16 weight read once;
+28. audio  musicgen-medium, nothing cut (48 layers, 24 heads of 64, 4
+            codebooks, cross attention over 64 condition tokens of 768;
+            1,838,507,520 parameters), served the same way on 4 x 1,000
+            frames: 48 launches a generate, tokens (4, 32, 4) in the 2,048
+            codes;
+29. xlstm  xlstm-125m, nothing cut (12 layers: mLSTM and sLSTM at layers 2
+            and 8; 198,916,688 parameters), served the same way on 4 x
+            1,000 tokens: no kernel launch at all (the recurrence is a
+            per-step torch loop), the states finite; the launches of a
+            profiled prefill (its first ``XLSTM_PROFILE_PROMPT`` positions)
+            and decode step;
+30. parity the reduced xLSTM, vision and audio models (float32) on the card
+            and the CPU, as phase 25, and their loss and every gradient leaf
+            as phase 21 (``RTOL_TRAIN_CPU``): one attention backward launch
+            a layer for vision and audio, none for the xLSTM.
 
 Each phase prints its seconds. It prints one ``{"kernels": [...]}`` line,
 then, last, the ``{"ok": true, "device": {...}}`` line.
@@ -264,7 +290,8 @@ RTOL_SERVE_CPU = 1e-4
 # full-width decode vs prefill, float32, depth <= 2: max|decode - prefill| /
 # max|prefill| of the last logits (measured 1.5e-5; a cache fault is O(1))
 RTOL_DECODE_PREFILL = 1e-3
-# hymba-1.5b serving cell of this smoke run
+# the serving cell of phases 9 and 23-29: 4 prompts of 1,000 positions (a
+# vision model's 576 patches among them), 32 greedy steps
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX_SEQ = 4, 1000, 32, 1040
 # (B, H, K, S, D) for the attention checks: the reference's shapes
 # (tests/test_kernels.py), a ragged S, GQA, and hymba's prefill (25 q heads
@@ -376,6 +403,16 @@ MOE_ATTN_SHAPES = [(4, 16, 16, 1000, 128, 128), (1, 48, 1, 512, 128, 128),
 # bf16) and deepseek-v3-671b cut to its 3 dense layers and 1 MoE layer, the
 # MTP module in the tree (26.72 B of its 682.6 B parameters)
 MOE_SERVE = (("moonshot-v1-16b-a3b", None), ("deepseek-v3-671b", 4))
+# phase 26: (B, H, K, S, D) of the attention kernel at phi-3-vision-4.2b's
+# prefill (576 patches + 424 text tokens; 32 heads of 96, as many kv heads)
+# and musicgen-medium's (1,000 frames; 24 heads of 64), both timed
+FAMILY_ATTN_SHAPES = [(4, 32, 32, 1000, 96), (4, 24, 24, 1000, 64)]
+# phases 27-29: the last three families served at full width and depth
+FAMILY_SERVE = ("phi-3-vision-4.2b", "musicgen-medium", "xlstm-125m")
+# the xLSTM prefill makes ~257 launches a position (its per-step loop):
+# tracing all 1,000 positions (256,650 launches) takes ~150 s, so its
+# profiled prefill is the first XLSTM_PROFILE_PROMPT positions
+XLSTM_PROFILE_PROMPT = 100
 
 
 def fail(msg: str) -> None:
@@ -647,6 +684,8 @@ def decode_vs_prefill(lm, params, toks, n_prompt, max_seq):
 def to_leaves(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in to_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in to_leaves(v)]
     return [tree]
 
 
@@ -1668,22 +1707,19 @@ def training_phase(seed: int, smi: str):
     return stats
 
 
-def training_parity_phase(seed: int):
-    """Phase 21: the reduced hymba's loss and gradients on the card against
-    the CPU, and a supervised run restarted from its checkpoint (see the
-    module docstring). Returns its stats."""
-    import tempfile
-    import numpy as np
+def train_card_vs_cpu(rcfg, seed: int):
+    """The reduced ``rcfg``'s (float32) loss and every gradient leaf on the
+    card against the CPU, the same weights (drawn on the CPU from ``seed``)
+    and ``SyntheticLMData(rcfg, 4, 68, seed)``'s first batch: fails beyond
+    ``RTOL_TRAIN_CPU``. Returns (loss gap, worst gradient gap, backward
+    kernel launches on the card)."""
     import torch
     from repro_torch import convert
-    from repro_torch.checkpoint.ckpt import Checkpointer
-    from repro_torch.configs import get_config, reduce_config
     from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ssm_scan as kssm
     from repro_torch.models import LM
     from repro_torch.optim.adamw import leaves
-    from repro_torch.runtime.supervisor import Supervisor, SupervisorConfig
-    from repro_torch.train.step import init_train_state, make_train_step
-    rcfg = reduce_config(get_config("hymba-1.5b"))
     cpu_params = LM(rcfg, device="cpu").init(
         torch.Generator().manual_seed(seed))
     batch = SyntheticLMData(rcfg, 4, 68, seed).next_batch()
@@ -1694,18 +1730,42 @@ def training_parity_phase(seed: int):
         flat = leaves(p)
         for t in flat:
             t.requires_grad_(True)
+        bwd0 = (kflash.flash_attention_bwd.launches,
+                kssm.ssm_scan_bwd.launches)
         loss, _ = LM(rcfg, device=where).loss(p, batch)
         runs[where] = (loss.item(), [g.cpu() for g in torch.autograd.grad(
             loss, flat)])
+        if where == "cuda":
+            bwd = {"flash_attention_bwd":
+                   kflash.flash_attention_bwd.launches - bwd0[0],
+                   "ssm_scan_bwd": kssm.ssm_scan_bwd.launches - bwd0[1]}
     loss_gap = abs(runs["cuda"][0] - runs["cpu"][0]) / abs(runs["cpu"][0])
     grad_gap = max(rel_gaps(runs["cuda"][1], runs["cpu"][1]))
-    print(f"train parity: reduced hymba (float32, 4 x 68 tokens) card vs "
-          f"CPU: loss {loss_gap:.3e} (gate {RTOL_TRAIN_CPU['loss']}), worst "
-          f"of {len(runs['cpu'][1])} gradient leaves {grad_gap:.3e} (gate "
-          f"{RTOL_TRAIN_CPU['grads']})", flush=True)
+    print(f"train parity: reduced {rcfg.name} (float32, 4 x 68 positions) "
+          f"card vs CPU: loss {loss_gap:.3e} (gate {RTOL_TRAIN_CPU['loss']}),"
+          f" worst of {len(runs['cpu'][1])} gradient leaves {grad_gap:.3e} "
+          f"(gate {RTOL_TRAIN_CPU['grads']}); backward kernel launches "
+          f"{bwd}", flush=True)
     if loss_gap > RTOL_TRAIN_CPU["loss"] or grad_gap > RTOL_TRAIN_CPU["grads"]:
-        fail(f"reduced hymba training card vs CPU: loss {loss_gap:.3e}, "
-             f"gradients {grad_gap:.3e}")
+        fail(f"reduced {rcfg.name} training card vs CPU: loss "
+             f"{loss_gap:.3e}, gradients {grad_gap:.3e}")
+    return loss_gap, grad_gap, bwd
+
+
+def training_parity_phase(seed: int):
+    """Phase 21: the reduced hymba's loss and gradients on the card against
+    the CPU, and a supervised run restarted from its checkpoint (see the
+    module docstring). Returns its stats."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.ckpt import Checkpointer
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.runtime.supervisor import Supervisor, SupervisorConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    rcfg = reduce_config(get_config("hymba-1.5b"))
+    loss_gap, grad_gap, _ = train_card_vs_cpu(rcfg, seed)
 
     def supervised(directory, fail_at=None, steps=6):
         _, step = make_train_step(rcfg, base_lr=1e-3, warmup=2,
@@ -1744,12 +1804,34 @@ def training_parity_phase(seed: int):
             "losses": clean_rep.losses}
 
 
+def serve_batch(cfg, requests: int, positions: int, seed: int):
+    """The prompts of a serve phase as numpy arrays from ``seed``: tokens
+    (requests, positions); a vision model's patches (unit normal) fill the
+    first ``num_patches`` positions, the tokens the rest; an audio model's
+    codes (requests, nq, positions) and its condition (unit normal)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    if cfg.audio_codebooks:
+        return {"codes": rng.integers(0, cfg.vocab_size, (
+                    requests, cfg.audio_codebooks, positions)).astype(np.int32),
+                "cond": rng.normal(size=(requests, cfg.cond_len,
+                                         cfg.cond_dim)).astype(np.float32)}
+    text = positions - (cfg.num_patches if cfg.vision else 0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                    (requests, text)).astype(np.int32)}
+    if cfg.vision:
+        batch["patches"] = rng.normal(size=(
+            requests, cfg.num_patches, cfg.vision_dim)).astype(np.float32)
+    return batch
+
+
 def reduced_card_vs_cpu(rcfg, seed: int):
     """The reduced ``rcfg`` (float32) served on the card and on the CPU with
     the same weights (drawn on the CPU from ``seed``, carried to the card by
-    ``convert``), 4 x 40-token prompts, 24 greedy steps: fails unless the
-    tokens are identical and every step's logits (the prefill's and each
-    decode step's) are within ``RTOL_SERVE_CPU``. Returns the worst gap."""
+    ``convert``), 4 x 40-position prompts (``serve_batch``), 24 greedy
+    steps: fails unless the tokens are identical and every step's logits
+    (the prefill's and each decode step's) are within ``RTOL_SERVE_CPU``.
+    Returns the worst gap."""
     import numpy as np
     import torch
     from repro_torch import convert
@@ -1759,13 +1841,12 @@ def reduced_card_vs_cpu(rcfg, seed: int):
         torch.Generator().manual_seed(seed))
     card_params = convert.lm_params_from_numpy(
         rcfg, tree_map(lambda t: t.numpy(), cpu_params), device="cuda")
-    rprompt = np.random.default_rng(seed).integers(
-        0, rcfg.vocab_size, (4, 40)).astype(np.int32)
+    rbatch = serve_batch(rcfg, 4, 40, seed)
     runs = {}
     for where, p_ in (("cuda", card_params), ("cpu", cpu_params)):
         eng = Engine(rcfg, p_, max_seq=64, device=where)
         r = record_steps(eng)
-        runs[where] = (eng.generate({"tokens": rprompt}, steps=24),
+        runs[where] = (eng.generate(rbatch, steps=24),
                        [t.float().cpu() for t in r["logits"]])
     (tok_g, log_g), (tok_c, log_c) = runs["cuda"], runs["cpu"]
     parity = max(((g - c).abs().max() / c.abs().max()).item()
@@ -1774,17 +1855,18 @@ def reduced_card_vs_cpu(rcfg, seed: int):
         fail(f"reduced {rcfg.name} card vs CPU: tokens equal "
              f"{np.array_equal(tok_g, tok_c)}, logits max rel {parity:.3e} "
              f"(gate {RTOL_SERVE_CPU})")
-    print(f"parity: reduced {rcfg.name} card vs CPU, 4 x 40-token prompts, "
+    print(f"parity: reduced {rcfg.name} card vs CPU, 4 x 40-position prompts, "
           f"24 steps: tokens identical, logits max rel {parity:.3e} (gate "
           f"{RTOL_SERVE_CPU})", flush=True)
     return parity
 
 
-def moe_kernels_phase(seed: int):
-    """Phase 22: the flash-attention kernel against its plain version at
-    ``MOE_ATTN_SHAPES`` (causal; float32 and bf16, p rounded and in float32;
-    the gates of phase 8), and at the four full-width shapes its time (the
-    model's call: bf16, p in float32; ``median_ms``), its bound, the plain
+def attention_shapes_phase(shapes, n_timed: int, seed: int):
+    """Phases 22 and 26: the flash-attention kernel against its plain
+    version at ``shapes`` ((B, H, K, S, D) or (B, H, K, S, Dqk, Dv); causal;
+    float32 and bf16, p rounded and in float32; the gates of phase 8), and
+    at the first ``n_timed`` (full-width) shapes its time (the model's
+    call: bf16, p in float32; ``median_ms``), its bound, the plain
     version's time and SDPA's, where SDPA takes the call. Returns stats."""
     import torch
     from repro_torch.kernels import flash_attention as kflash
@@ -1793,7 +1875,7 @@ def moe_kernels_phase(seed: int):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     stats = {"max_abs_err": 0.0, "max_ulps": 0.0, "max_share": 0.0,
              "timing": {}}
-    for shape in MOE_ATTN_SHAPES:
+    for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = attn_inputs(shape, dtype, seed, dev)
             for round_p in (True, False):
@@ -1822,8 +1904,9 @@ def moe_kernels_phase(seed: int):
                 print(f"kernel {label}: max abs err {err:.3e} (tol {tol})")
                 if err > tol:
                     fail(f"{label}: max abs err {err:.3e} > {tol}")
-    for shape in MOE_ATTN_SHAPES[:4]:
-        B, H, K, S, D, Dv = shape
+    for shape in shapes[:n_timed]:
+        B, H, K, S, D = shape[:5]
+        Dv = shape[5] if len(shape) > 5 else D
         q, k, v = attn_inputs(shape, torch.bfloat16, seed, dev)
         b_ms, b_by = attn_bound(B, H, K, S, D, 2, Dv=Dv)
         t = {"ms": median_ms(lambda: kflash.flash_attention(
@@ -1853,28 +1936,44 @@ def expert_stream_ms(cfg) -> float:
     return nbytes / PEAK_BYTES * 1e3
 
 
-def serve_moe_phase(arch: str, n_layers, seed: int):
-    """Phases 23-24: ``arch`` at full width (``n_layers`` layers kept, None
-    = all), bf16 weights from ``seed``, served by ``Engine.generate`` (4 x
-    1,000-token prompts, 32 greedy steps, max_seq 1,040) twice: one
-    flash-attention launch a layer a prefill and no plain dispatch, tokens
-    in the vocabulary, logits finite, the two calls' tokens identical; with
-    MLA the decode cache is the latent one and each step wrote its row.
-    Prints init and generate seconds and peak memory, warm prefill seconds,
-    decode tokens/s and the expert stream's least time a step. Frees the
-    model. Profiles a warm prefill and decode step. Returns stats."""
+def kernel_launches():
+    """Every kernel wrapper's launch count."""
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import retention as kretention
+    from repro_torch.kernels import ssm_scan as kssm
+    return {"flash_attention": kflash.flash_attention.launches,
+            "flash_attention_bwd": kflash.flash_attention_bwd.launches,
+            "ssm_scan": kssm.ssm_scan.launches,
+            "ssm_scan_bwd": kssm.ssm_scan_bwd.launches,
+            "retention": kretention.retention_batch.launches}
+
+
+def serve_full_phase(arch: str, n_layers, seed: int):
+    """Phases 23-24 and 27-29: ``arch`` at full width (``n_layers`` layers
+    kept, None = all), bf16 weights from ``seed``, served by
+    ``Engine.generate`` (4 x 1,000-position prompts from ``serve_batch``,
+    32 greedy steps, max_seq 1,040) twice: one flash-attention launch a
+    layer a prefill (none for the xLSTM) and no other kernel launch or
+    plain dispatch, tokens (codes) in the vocabulary, logits and the last
+    decode cache (the xLSTM states) finite, the two calls' tokens
+    identical; with MLA the decode cache is the latent one and each step
+    wrote its row. Prints init and generate seconds and peak memory, warm
+    prefill seconds, decode tokens/s and a decode step's least time (a MoE
+    model's expert stream; else every bf16 weight read once). Profiles a
+    warm prefill (the xLSTM's over ``XLSTM_PROFILE_PROMPT`` positions) and
+    decode step. Frees the model. Returns stats."""
     import gc
     import numpy as np
     import torch
     from repro_torch import obs
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as kflash
     from repro_torch.models import LM
     from repro_torch.serve.engine import Engine
     dev = torch.device("cuda")
     cfg = get_config(arch)
     if n_layers is not None:
         cfg = cfg.replace(num_layers=n_layers)
+    attn_layers = 0 if cfg.family == "ssm" else cfg.num_layers
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1883,20 +1982,29 @@ def serve_moe_phase(arch: str, n_layers, seed: int):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     gib = 2 ** 30
+    nbytes = sum(t.numel() * t.element_size() for t in to_leaves(params))
     stats = {"layers": cfg.num_layers, "init_s": init_s,
              "params": sum(t.numel() for t in to_leaves(params)),
-             "params_gib": sum(t.numel() * t.element_size()
-                               for t in to_leaves(params)) / gib,
-             "init_peak_gib": torch.cuda.max_memory_allocated() / gib,
-             "expert_stream_ms": expert_stream_ms(cfg)}
+             "params_gib": nbytes / gib,
+             "init_peak_gib": torch.cuda.max_memory_allocated() / gib}
+    if cfg.moe:
+        stats["step_least_ms"] = stats["expert_stream_ms"] = \
+            expert_stream_ms(cfg)
+        least = "the expert stream's least time"
+    else:
+        stats["step_least_ms"] = nbytes / PEAK_BYTES * 1e3
+        least = "every weight read once"
+    shape = (f"{cfg.num_experts} experts top-{cfg.top_k}"
+             f"{', MLA' if cfg.mla else ''}{', MTP' if cfg.mtp else ''}"
+             if cfg.moe else f"{cfg.family}")
     print(f"serve: {arch} at full width, {cfg.num_layers} layers (d_model "
-          f"{cfg.d_model}, {cfg.num_experts} experts top-{cfg.top_k}"
-          f"{', MLA' if cfg.mla else ''}{', MTP' if cfg.mtp else ''}): "
-          f"{stats['params']:,} parameters ({stats['params_gib']:.2f} GiB), "
-          f"initialized on the card in {init_s:.2f} s, peak "
-          f"{stats['init_peak_gib']:.2f} GiB", flush=True)
-    prompt = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_PROMPT)).astype(np.int32)
+          f"{cfg.d_model}, {shape}): {stats['params']:,} parameters "
+          f"({stats['params_gib']:.2f} GiB), initialized on the card in "
+          f"{init_s:.2f} s, peak {stats['init_peak_gib']:.2f} GiB",
+          flush=True)
+    batch = serve_batch(cfg, SERVE_REQUESTS, SERVE_PROMPT, seed)
+    want_shape = (SERVE_REQUESTS, SERVE_STEPS) + (
+        (cfg.audio_codebooks,) if cfg.audio_codebooks else ())
     engine = Engine(cfg, params, max_seq=SERVE_MAX_SEQ, device=dev)
     rec = record_steps(engine)
     outs = []
@@ -1906,12 +2014,13 @@ def serve_moe_phase(arch: str, n_layers, seed: int):
         cuda0 = obs.value("kernels.dispatch.flash_attention.cuda")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        kflash.flash_attention.launches = 0
+        launches0 = kernel_launches()
         t0 = time.perf_counter()
-        outs.append(engine.generate({"tokens": prompt}, steps=SERVE_STEPS))
+        outs.append(engine.generate(batch, steps=SERVE_STEPS))
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
-        launches = kflash.flash_attention.launches
+        launched = {k: v - launches0[k] for k, v in kernel_launches().items()}
+        launches = launched.pop("flash_attention")
         plain = obs.value("kernels.dispatch.flash_attention.plain") - plain0
         dispatched = obs.value("kernels.dispatch.flash_attention.cuda") \
             - cuda0
@@ -1925,22 +2034,27 @@ def serve_moe_phase(arch: str, n_layers, seed: int):
         logits = rec["logits"][n_logits:]
         if not all(torch.isfinite(t).all().item() for t in logits):
             fail(f"{arch} ({call} call): non-finite logits")
-        if outs[-1].shape != (SERVE_REQUESTS, SERVE_STEPS) or \
+        if not all(torch.isfinite(t).all().item()
+                   for t in to_leaves(rec["cache"])
+                   if isinstance(t, torch.Tensor) and t.is_floating_point()):
+            fail(f"{arch} ({call} call): a decode cache leaf is not finite")
+        if outs[-1].shape != want_shape or \
                 outs[-1].min() < 0 or outs[-1].max() >= cfg.vocab_size:
             fail(f"{arch} ({call} call): tokens {outs[-1].shape} outside "
-                 f"the vocabulary")
-        if launches != cfg.num_layers or dispatched != launches or plain:
+                 f"the vocabulary (expected {want_shape})")
+        if launches != attn_layers or dispatched != launches or plain or \
+                any(launched.values()):
             fail(f"{arch} ({call} call): {launches} flash_attention launches "
-                 f"(expected {cfg.num_layers}, one a layer), {dispatched} "
-                 f"counted by kernels.dispatch.flash_attention.cuda, {plain} "
-                 f"plain dispatches")
+                 f"(expected {attn_layers}, one an attention layer), "
+                 f"{dispatched} counted by kernels.dispatch.flash_attention."
+                 f"cuda, {plain} plain dispatches, other kernels {launched}")
         print(f"serve {arch} ({call} call): generate {total_s:.4f} s, prefill "
               f"{run['prefill_s']:.4f} s, decode {run['decode_tok_s']:.1f} "
-              f"tokens/s ({1e3 * run['decode_step_s']:.2f} ms a step; the "
-              f"expert stream's least time {stats['expert_stream_ms']:.2f} "
-              f"ms), {launches} flash_attention launches, {plain} plain, "
-              f"peak {run['peak_gib']:.2f} GiB, {len(logits)} logit sets "
-              f"finite", flush=True)
+              f"tokens/s ({1e3 * run['decode_step_s']:.2f} ms a step; {least}"
+              f" {stats['step_least_ms']:.3f} ms), {launches} flash_attention "
+              f"launches, {plain} plain, no other kernel, peak "
+              f"{run['peak_gib']:.2f} GiB, {len(logits)} logit sets and the "
+              f"decode cache finite", flush=True)
     if not np.array_equal(outs[0], outs[1]):
         fail(f"{arch}: two generate calls gave different tokens")
     if cfg.mla:     # the absorbed decode wrote the latent cache, row by row
@@ -1957,14 +2071,20 @@ def serve_moe_phase(arch: str, n_layers, seed: int):
         print(f"serve {arch}: latent decode cache (kv_lora "
               f"{cfg.kv_lora_rank} + rope {cfg.qk_rope_dim} a token) written "
               f"through row {written - 1}", flush=True)
+    positions = XLSTM_PROFILE_PROMPT if cfg.family == "ssm" else SERVE_PROMPT
+    pbatch = serve_batch(cfg, SERVE_REQUESTS, positions, seed)
     with torch.inference_mode():     # where a warm prefill's and decode
         lm, box = engine.lm, {}       # step's device time goes
-        prof = profile_report(f"{arch} prefill", lambda: box.update(zip(
-            ("cache", "logits"), lm.prefill(params, {"tokens": prompt},
-                                            max_seq=SERVE_MAX_SEQ))))
+        prof = profile_report(
+            f"{arch} prefill ({positions} positions)",
+            lambda: box.update(zip(("cache", "logits"), lm.prefill(
+                params, pbatch, max_seq=SERVE_MAX_SEQ))))
         stats["prefill_profile"] = {k: prof[k] for k in
                                     ("wall_s", "device_ms", "launches")}
+        stats["prefill_profile"]["positions"] = positions
         tok = {"tokens": box["logits"].argmax(-1)}
+        if "cond" in pbatch:          # an audio model's condition
+            tok["cond"] = pbatch["cond"]
         lm.decode(params, box["cache"], tok)
         prof = profile_report(f"{arch} warm decode step", lambda: lm.decode(
             params, box["cache"], tok))
@@ -2574,15 +2694,15 @@ def main() -> int:
 
     # 22. the flash-attention kernel at the MoE family's shapes -------------
     t_phase = time.perf_counter()
-    moe_kernels = moe_kernels_phase(args.seed)
+    moe_kernels = attention_shapes_phase(MOE_ATTN_SHAPES, 4, args.seed)
     phase_done(22, "MoE-family attention", t_phase)
 
     # 23-24. serve moonshot-v1-16b-a3b and deepseek-v3-671b at full width --
     moe_serve = {}
-    for n, (arch, n_layers) in enumerate(MOE_SERVE, start=23):
+    for phase_no, (arch, n_layers) in enumerate(MOE_SERVE, start=23):
         t_phase = time.perf_counter()
-        moe_serve[arch] = serve_moe_phase(arch, n_layers, args.seed)
-        phase_done(n, f"serve {arch}", t_phase)
+        moe_serve[arch] = serve_full_phase(arch, n_layers, args.seed)
+        phase_done(phase_no, f"serve {arch}", t_phase)
 
     # 25. the reduced MoE models on the card against the CPU ----------------
     t_phase = time.perf_counter()
@@ -2591,6 +2711,36 @@ def main() -> int:
                   for arch, _ in MOE_SERVE}
     phase_done(25, "MoE parity", t_phase)
 
+    # 26. the flash-attention kernel at the vision and audio prefill -------
+    t_phase = time.perf_counter()
+    family_kernels = attention_shapes_phase(FAMILY_ATTN_SHAPES, 2, args.seed)
+    phase_done(26, "vision and audio attention", t_phase)
+
+    # 27-29. serve phi-3-vision-4.2b, musicgen-medium and xlstm-125m -------
+    family_serve = {}
+    for phase_no, arch in enumerate(FAMILY_SERVE, start=27):
+        t_phase = time.perf_counter()
+        family_serve[arch] = serve_full_phase(arch, None, args.seed)
+        phase_done(phase_no, f"serve {arch}", t_phase)
+
+    # 30. the reduced families on the card against the CPU ----------------
+    t_phase = time.perf_counter()
+    family_parity = {}
+    for arch in FAMILY_SERVE:
+        rcfg = reduce_config(get_config(arch))
+        serve_gap = reduced_card_vs_cpu(rcfg, args.seed)
+        loss_gap, grad_gap, bwd_launches = train_card_vs_cpu(rcfg, args.seed)
+        attn_layers = 0 if rcfg.family == "ssm" else rcfg.num_layers
+        if bwd_launches != {"flash_attention_bwd": attn_layers,
+                            "ssm_scan_bwd": 0}:
+            fail(f"reduced {arch} training on the card: backward launches "
+                 f"{bwd_launches}, expected {attn_layers} of the attention "
+                 f"backward")
+        family_parity[arch] = {"serve": serve_gap, "loss": loss_gap,
+                               "grads": grad_gap,
+                               "bwd_launches": bwd_launches}
+    phase_done(30, "vision, audio and xLSTM parity", t_phase)
+
     main_shape = shapes["main"]
     warm = serve["warm"]
     print(f"end-to-end: serve {cfg.name} {SERVE_REQUESTS} x {SERVE_PROMPT} "
@@ -2598,7 +2748,7 @@ def main() -> int:
           f"{serve['first']['prefill_s']:.4f} s first, {warm['prefill_s']:.4f}"
           f" s warm; decode {serve['first']['decode_tok_s']:.1f} tokens/s "
           f"first, {warm['decode_tok_s']:.1f} tokens/s warm; {smi}")
-    for arch, st in moe_serve.items():
+    for arch, st in {**moe_serve, **family_serve}.items():
         print(f"end-to-end: serve {arch} ({st['layers']} layers) "
               f"{SERVE_REQUESTS} x {SERVE_PROMPT} tokens + {SERVE_STEPS} "
               f"steps: prefill {st['first']['prefill_s']:.4f} s first, "
@@ -2636,10 +2786,14 @@ def main() -> int:
             "serve_hymba": serve_launches["flash_attention"],
             "train_hymba_step": train["launches"]["flash_attention"],
             **{f"serve_{arch}": st["first"]["launches"]
-               for arch, st in moe_serve.items()}},
+               for arch, st in {**moe_serve, **family_serve}.items()}},
         "moe_family": {"kernel_checks": moe_kernels, "serve": moe_serve,
                        "reduced_card_vs_cpu": moe_parity,
-                       "rtol_card_vs_cpu": RTOL_SERVE_CPU}}, {
+                       "rtol_card_vs_cpu": RTOL_SERVE_CPU},
+        "vision_audio_xlstm": {"kernel_checks": family_kernels,
+                               "serve": family_serve,
+                               "reduced_card_vs_cpu": family_parity,
+                               "rtol_train_card_vs_cpu": RTOL_TRAIN_CPU}}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:50",

@@ -173,7 +173,7 @@ class BucketPick:
     bucket: Bucket
     family: object            # str | None
     config_idx: int
-    # set by the vdd-sweep compose path (not ported yet): the operating
+    # set by the vdd-sweep compose path (``hetero.compose``): the operating
     # point (a core.corners.OperatingPoint) and scheduled refresh margin the
     # pick is priced at; None = the table's base point / analytic default
     op: object = None

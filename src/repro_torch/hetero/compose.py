@@ -17,8 +17,9 @@ power-then-area order as ``select_bucket_idx``); the other
 objectives — and the optional system area/power budgets — are where joint
 evaluation earns its keep, trading technologies across levels against a
 shared constraint. ``refine="simulate"`` re-ranks the analytic top-K by
-trace replay (``repro_torch.sim``) on the same device. Sharded scoring is
-not ported yet and raises ``NotImplementedError``.
+trace replay (``repro_torch.sim``) on the same device. ``sharded=True``
+splits the scoring across the visible CUDA devices
+(``repro_torch.parallel.grid``).
 """
 from __future__ import annotations
 

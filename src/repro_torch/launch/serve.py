@@ -4,13 +4,18 @@
         --requests 4 --prompt-len 1000 --steps 32 --max-seq 1040
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v3-671b --layers 4 --prompt-len 1000 --max-seq 1040
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-medium \
+        --reduced --device cpu
 
-Serves any registered configuration whose family is ported (dense, MoE,
-hybrid). Runs on the CUDA device unless ``--device cpu`` is given;
-``--reduced`` takes the configuration's CPU-scale version and ``--layers``
-keeps its first layers (deepseek-v3-671b whole does not fit one card).
-Weights are random, drawn from a ``torch.Generator`` seeded with
-``--seed``; the prompts come from numpy's generator with the same seed.
+Serves any registered configuration but a vision one, which takes image
+patches the launcher does not make (as the reference's launcher makes
+none): serve it through ``Engine.generate`` with a ``patches`` batch. Runs
+on the CUDA device unless ``--device cpu`` is given; ``--reduced`` takes
+the configuration's CPU-scale version and ``--layers`` keeps its first
+layers (deepseek-v3-671b whole does not fit one card). Weights are random,
+drawn from a ``torch.Generator`` seeded with ``--seed``; the prompts (an
+audio model's codes and its normal condition) come from numpy's generator
+with the same seed.
 """
 from __future__ import annotations
 
@@ -43,6 +48,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if cfg.vision:
+        ap.error(f"{args.arch} takes image patches, which this launcher does "
+                 f"not make (nor does the reference's): serve it through "
+                 f"Engine.generate with a batch holding 'patches'")
     if args.reduced:
         cfg = reduce_config(cfg)
     if args.layers is not None:
@@ -52,9 +61,16 @@ def main(argv=None):
     params = lm.init(torch.Generator(device=device).manual_seed(args.seed))
     eng = Engine(cfg, params, max_seq=args.max_seq, device=device)
     rng = np.random.default_rng(args.seed)
-    batch = {"tokens": rng.integers(0, cfg.vocab_size,
-                                    (args.requests, args.prompt_len)
-                                    ).astype(np.int32)}
+    if cfg.audio_codebooks:
+        batch = {"codes": rng.integers(0, cfg.vocab_size,
+                                       (args.requests, cfg.audio_codebooks,
+                                        args.prompt_len)).astype(np.int32),
+                 "cond": rng.normal(size=(args.requests, cfg.cond_len,
+                                          cfg.cond_dim)).astype(np.float32)}
+    else:
+        batch = {"tokens": rng.integers(0, cfg.vocab_size,
+                                        (args.requests, args.prompt_len)
+                                        ).astype(np.int32)}
 
     def sync():
         if device.type == "cuda":

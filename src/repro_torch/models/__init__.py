@@ -1,3 +1,3 @@
-"""Language models of the port: the dense, MoE and hybrid (hymba)
-families."""
+"""Language models of the port: every registered architecture (the dense,
+MoE, hybrid, xLSTM, vision and audio families)."""
 from repro_torch.models.lm import LM, Segment, build_plan  # noqa: F401

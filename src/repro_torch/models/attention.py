@@ -1,6 +1,7 @@
 """Attention: GQA/MQA/MHA with optional qk-norm and rope; causal and
-sliding-window (+ sink) prefill through the flash-attention kernel, and the
-KV-cache decode step.
+sliding-window (+ sink) prefill through the flash-attention kernel, the
+KV-cache decode step, and musicgen's non-causal cross attention over a
+condition (plain torch products, as the reference's einsums).
 
 Layouts (those of ``repro/models/attention.py``):
   q            (B, S, K, G, hd)   K = kv heads, G = q heads per kv head
@@ -129,3 +130,32 @@ def decode_attn_block(p, x, cfg, k_cache, v_cache, pos: int,
     o = attend_cache(q, k_cache, v_cache, valid)
     return _out(o.to(x.dtype), p["wo"]), (k_cache, v_cache)
 
+
+
+# ---------------------------------------------------------------------------
+# cross attention (musicgen conditioning)
+# ---------------------------------------------------------------------------
+
+
+def init_cross_attn(gen, cfg, dtype, device):
+    d, H, hd = cfg.d_model, cfg.num_heads, cfg.head_dim
+    return {
+        "wq": dense_init(gen, (d, H, hd), dtype, device),
+        "wk": dense_init(gen, (d, H, hd), dtype, device),
+        "wv": dense_init(gen, (d, H, hd), dtype, device),
+        "wo": dense_init(gen, (H, hd, d), dtype, device),
+    }
+
+
+def cross_attn_block(p, x, cond):
+    """Non-causal attention of x (B,S,d) over cond (B,T,d). q, k and v are
+    in the model dtype; the scores are float32 products (exact for bf16
+    inputs, as ``preferred_element_type=float32``), scaled afterwards; the
+    softmax and its product with v are float32; o is cast back before
+    ``wo``."""
+    q = _proj(x, p["wq"]).float().transpose(1, 2)             # (B,H,S,hd)
+    k = _proj(cond, p["wk"]).float().transpose(1, 2)          # (B,H,T,hd)
+    v = _proj(cond, p["wv"]).float().transpose(1, 2)
+    s = (q @ k.transpose(-1, -2)) * _scale(p["wq"].shape[-1])  # (B,H,S,T)
+    o = torch.softmax(s, dim=-1) @ v                           # (B,H,S,hd)
+    return _out(o.transpose(1, 2).to(x.dtype), p["wo"])

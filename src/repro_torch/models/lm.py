@@ -1,5 +1,7 @@
-"""Language-model assembly: the dense, MoE (MoE, MLA, MTP) and hybrid
-(hymba) families.
+"""Language-model assembly for every registered architecture: the dense,
+MoE (MoE, MLA, MTP), hybrid (hymba), xLSTM, vision (patches through a
+projector in front of the text) and audio (summed codebook embeddings,
+per-codebook heads, cross attention over a condition) families.
 
 ``LM(cfg, device=None)`` exposes, as ``repro/models/lm.py`` does:
     init(generator)                    -> params (nested dict of tensors)
@@ -18,9 +20,6 @@ and takes its parameters as ``unbind`` slices of the stacked leaves, so
 the backward stacks each leaf's gradient once. ``init`` fills each stacked
 leaf a layer at a time (the full-width MoE models fill most of a card), in
 the order a per-layer draw would take.
-
-xLSTM, vision, audio and cross attention are not ported yet (ROADMAP.md)
-and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -30,6 +29,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -38,12 +38,17 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import (chunked_cross_entropy, dense_init,
                                        dtype_of, embed_init, rmsnorm,
                                        rmsnorm_init)
 from repro_torch.models.mlp import init_mlp, mlp_block
 
-_UNPORTED = "not ported yet (ROADMAP.md, queue 1: the other LM families)"
+# the xLSTM layer kinds: (init, block, decode) of their core
+_XLSTM = {"mlstm": (xlstm_mod.init_mlstm, xlstm_mod.mlstm_block,
+                    xlstm_mod.mlstm_decode),
+          "slstm": (xlstm_mod.init_slstm, xlstm_mod.slstm_block,
+                    xlstm_mod.slstm_decode)}
 
 # what a training layer keeps for its backward, as the reference's
 # ``REMAT_POLICIES``: everything; only the outputs of matrix products
@@ -134,8 +139,11 @@ def _store(dst, src) -> None:
 
 
 def _init_layer(gen, cfg, dtype, device, *, kind: str):
-    """kind: dense | moe | hymba"""
+    """kind: dense | moe | hymba | mlstm | slstm"""
     d = cfg.d_model
+    if kind in _XLSTM:
+        return {"ln": rmsnorm_init(d, device),
+                "core": _XLSTM[kind][0](gen, cfg, dtype, device)}
     init_attn = mla_mod.init_mla if cfg.mla else attn.init_attn
     p: Dict[str, Any] = {"ln1": rmsnorm_init(d, device),
                          "ln2": rmsnorm_init(d, device),
@@ -150,6 +158,9 @@ def _init_layer(gen, cfg, dtype, device, *, kind: str):
         p["mix_s"] = torch.full((d,), 0.5, dtype=torch.float32, device=device)
         p["norm_a"] = rmsnorm_init(d, device)
         p["norm_s"] = rmsnorm_init(d, device)
+    if cfg.cross_attn:
+        p["ln_x"] = rmsnorm_init(d, device)
+        p["cross"] = attn.init_cross_attn(gen, cfg, dtype, device)
     return p
 
 
@@ -192,23 +203,35 @@ def _ffn(p, h, cfg, kind):
     return mlp_block(p["mlp"], h), None
 
 
-def _layer_apply(p, x, cfg, positions, *, kind, window, sink):
-    """Train/prefill layer. Returns (x, cache_entry, aux)."""
+def _layer_apply(p, x, cfg, positions, *, kind, window, sink, cond=None):
+    """Train/prefill layer; ``cond`` (B,T,d), the projected condition of a
+    cross-attention model. Returns (x, cache_entry, aux)."""
+    if kind in _XLSTM:
+        h, state = _XLSTM[kind][1](p["core"], rmsnorm(x, p["ln"]), cfg)
+        return x + h, state, None
     a, kv, ssm_state = _mixer(p, rmsnorm(x, p["ln1"]), cfg, positions,
                               kind=kind, window=window, sink=sink)
     x = x + a
+    if cond is not None:
+        x = x + attn.cross_attn_block(p["cross"], rmsnorm(x, p["ln_x"]), cond)
     m, aux = _ffn(p, rmsnorm(x, p["ln2"]), cfg, kind)
     return x + m, ((kv, ssm_state) if kind == "hymba" else kv), aux
 
 
-def _layer_decode(p, x, cfg, cache, pos, *, kind, window):
-    """Decode layer against full KV caches. Returns (x, new_cache)."""
+def _layer_decode(p, x, cfg, cache, pos, *, kind, window, cond=None):
+    """Decode layer against full KV caches (an xLSTM layer: its states).
+    Returns (x, new_cache)."""
+    if kind in _XLSTM:
+        h, state = _XLSTM[kind][2](p["core"], rmsnorm(x, p["ln"]), cfg, cache)
+        return x + h, state
     kv = cache[0] if kind == "hymba" else cache
     ssm_state = cache[1] if kind == "hymba" else None
     a, kv, ssm_state = _mixer(p, rmsnorm(x, p["ln1"]), cfg, None, kind=kind,
                               window=window, sink=0, cache=kv, pos=pos,
                               ssm_state=ssm_state)
     x = x + a
+    if cond is not None:
+        x = x + attn.cross_attn_block(p["cross"], rmsnorm(x, p["ln_x"]), cond)
     m, _ = _ffn(p, rmsnorm(x, p["ln2"]), cfg, kind)
     return x + m, ((kv, ssm_state) if kind == "hymba" else kv)
 
@@ -254,38 +277,48 @@ def _ring_attend(p, x, cfg, kvc, pos: int):
 @dataclasses.dataclass(frozen=True)
 class Segment:
     name: str
-    kind: str          # dense | moe | hymba
+    kind: str          # dense | moe | hymba | mlstm | slstm
     layers: tuple      # absolute layer indices
     window: Any        # None = full attention
 
 
+def _runs(L: int, single, one_name: str, one_kind: str, run_name: str,
+          run_kind: str, window):
+    """Layers in ``single`` each a segment of their own (``<one_name><i>``);
+    the runs between them ``<run_name><k>``, k counting the runs."""
+    segs = []
+    i = k = 0
+    while i < L:
+        if i in single:
+            segs.append(Segment(f"{one_name}{i}", one_kind, (i,), None))
+            i += 1
+        else:
+            j = i
+            while j < L and j not in single:
+                j += 1
+            segs.append(Segment(f"{run_name}{k}", run_kind,
+                                tuple(range(i, j)), window))
+            k += 1
+            i = j
+    return segs
+
+
 def build_plan(cfg):
     L = cfg.num_layers
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm", "audio"):
         return [Segment("blocks", "dense", tuple(range(L)), None)]
     if cfg.family == "moe":
         nd = cfg.first_dense_layers
         segs = [Segment("dense", "dense", tuple(range(nd)), None)] if nd \
             else []
         return segs + [Segment("moe", "moe", tuple(range(nd, L)), None)]
-    if cfg.family != "hybrid":
-        raise NotImplementedError(f"family {cfg.family!r} is {_UNPORTED}")
-    segs = []
-    full = set(cfg.full_attn_every)
-    i = si = 0
-    while i < L:
-        if i in full:
-            segs.append(Segment(f"full{i}", "hymba", (i,), None))
-            i += 1
-        else:
-            j = i
-            while j < L and j not in full:
-                j += 1
-            segs.append(Segment(f"swa{si}", "hymba", tuple(range(i, j)),
-                                cfg.window))
-            si += 1
-            i = j
-    return segs
+    if cfg.family == "hybrid":
+        return _runs(L, set(cfg.full_attn_every), "full", "hymba", "swa",
+                     "hymba", cfg.window)
+    if cfg.family == "ssm":
+        return _runs(L, set(cfg.slstm_layers), "slstm", "slstm", "mlstm",
+                     "mlstm", None)
+    raise ValueError(cfg.family)
 
 
 # ===========================================================================
@@ -295,10 +328,6 @@ def build_plan(cfg):
 
 class LM:
     def __init__(self, cfg, device: DeviceLike = None):
-        unported = [f for f in ("vision", "cross_attn", "audio_codebooks")
-                    if getattr(cfg, f)]
-        if unported:
-            raise NotImplementedError(f"{cfg.name}: {unported} {_UNPORTED}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.plan = build_plan(cfg)
@@ -311,11 +340,21 @@ class LM:
         segment's stacked leaves are filled a layer at a time, so the
         layers are never held twice."""
         cfg, dtype, dev, g = self.cfg, self.dtype, self.device, generator
-        d = cfg.d_model
-        params: Dict[str, Any] = {
-            "embed": embed_init(g, (cfg.vocab_size, d), dtype, dev)}
-        if not cfg.tie_embeddings:
-            params["head"] = dense_init(g, (d, cfg.vocab_size), dtype, dev)
+        d, V, nq = cfg.d_model, cfg.vocab_size, cfg.audio_codebooks
+        params: Dict[str, Any] = {}
+        if nq:
+            params["embed"] = embed_init(g, (nq, V, d), dtype, dev)
+            params["heads"] = dense_init(g, (nq, d, V), dtype, dev)
+        else:
+            params["embed"] = embed_init(g, (V, d), dtype, dev)
+            if not cfg.tie_embeddings:
+                params["head"] = dense_init(g, (d, V), dtype, dev)
+        if cfg.vision:
+            params["vis_proj"] = {
+                "w1": dense_init(g, (cfg.vision_dim, d), dtype, dev),
+                "w2": dense_init(g, (d, d), dtype, dev)}
+        if cfg.cross_attn:
+            params["cond_proj"] = dense_init(g, (cfg.cond_dim, d), dtype, dev)
         if cfg.meta_tokens:
             params["meta"] = embed_init(g, (cfg.meta_tokens, d), dtype, dev)
         for seg in self.plan:
@@ -336,8 +375,12 @@ class LM:
     # ------------------------------------------------------------------ loss
     def loss(self, params, batch, remat: str = "full"):
         """Next-token cross entropy of ``batch["tokens"]`` (B, S_text): the
-        meta tokens are prepended, every layer runs under ``remat``, and the
-        text positions but the last predict the next token. With MoE layers
+        meta tokens (and a vision model's projected ``patches``) are
+        prepended, every layer runs under ``remat``, and the text positions
+        but the last predict the next token. An audio model's loss is the
+        mean over its codebooks of the cross entropy of ``batch["codes"]``
+        (B, nq, S), each through its own head, with ``batch["cond"]``
+        attended by every layer. With MoE layers
         the loss adds the reference's balance penalty (1e-3 E mean_l
         sum_e load^2, no gradient: the load counts selections) and the
         metrics carry ``moe_load`` (L_moe, E) and ``moe_dropped``; with MTP
@@ -347,13 +390,20 @@ class LM:
             raise ValueError(f"remat must be one of {REMAT_POLICIES}, got "
                              f"{remat!r}")
         cfg = self.cfg
-        x = self._embed_inputs(params, batch)
+        x, cond = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=self.device)
-        x, auxes = self._run_train(params, x, positions, remat)
+        x, auxes = self._run_train(params, x, positions, remat, cond)
         x = rmsnorm(x, params["ln_f"])
-        h = x[:, cfg.meta_tokens or 0:]
-        loss = chunked_cross_entropy(h[:, :-1], self._head(params),
-                                     self._tokens(batch)[:, 1:])
+        if cfg.audio_codebooks:
+            codes = self._tokens(batch, "codes")                  # (B, nq, S)
+            loss = sum(chunked_cross_entropy(x[:, :-1], params["heads"][k],
+                                             codes[:, k, 1:])
+                       for k in range(cfg.audio_codebooks)
+                       ) / cfg.audio_codebooks
+        else:
+            h = x[:, self._prefix():]
+            loss = chunked_cross_entropy(h[:, :-1], self._head(params),
+                                         self._tokens(batch)[:, 1:])
         metrics: Dict[str, Any] = {}
         if auxes:
             load = torch.stack([a["load"] for a in auxes])      # (Lmoe, E)
@@ -381,7 +431,7 @@ class LM:
         return chunked_cross_entropy(x[:, :-1], self._head(params),
                                      toks[:, 2:])
 
-    def _run_train(self, params, x, positions, remat: str):
+    def _run_train(self, params, x, positions, remat: str, cond=None):
         """Every layer, its caches dropped, under the ``remat`` policy.
         Returns (x, the MoE layers' aux dicts in layer order)."""
         cfg = self.cfg
@@ -392,7 +442,8 @@ class LM:
                 def layer(h, lp=lp, seg=seg, sink=sink):
                     out, _, aux = _layer_apply(lp, h, cfg, positions,
                                                kind=seg.kind,
-                                               window=seg.window, sink=sink)
+                                               window=seg.window, sink=sink,
+                                               cond=cond)
                     return out, aux
                 x, aux = _remat(layer, x, remat)
                 if aux is not None:
@@ -400,24 +451,67 @@ class LM:
         return x, auxes
 
     # -------------------------------------------------------------- embedding
-    def _tokens(self, batch) -> torch.Tensor:
-        toks = batch["tokens"]
-        if not isinstance(toks, torch.Tensor):
-            toks = torch.from_numpy(np.asarray(toks))
-        return toks.to(self.device, torch.long)
+    def _tokens(self, batch, key: str = "tokens") -> torch.Tensor:
+        t = batch[key]
+        if not isinstance(t, torch.Tensor):
+            t = torch.from_numpy(np.asarray(t))
+        return t.to(self.device, torch.long)
+
+    def _floats(self, batch, key: str) -> torch.Tensor:
+        """``batch[key]`` (float32) cast to the model dtype, on the device."""
+        t = batch[key]
+        if not isinstance(t, torch.Tensor):
+            t = torch.from_numpy(np.asarray(t))
+        return t.to(self.device).to(self.dtype)
+
+    def _prefix(self) -> int:
+        """Positions in front of the text: the patches and the meta tokens."""
+        cfg = self.cfg
+        return (cfg.num_patches if cfg.vision else 0) + (cfg.meta_tokens or 0)
+
+    def _embed_codes(self, params, codes):
+        """codes (B, nq, ...) -> the codebooks' embeddings summed in the
+        reference's order and dtype (``sum``: 0 + e_0 + e_1 + ...)."""
+        return sum(params["embed"][k][codes[:, k]]
+                   for k in range(self.cfg.audio_codebooks))
+
+    def _cond(self, params, batch):
+        """The condition (B, T, cond_dim) projected to (B, T, d)."""
+        return self._floats(batch, "cond") @ params["cond_proj"]
 
     def _embed_inputs(self, params, batch):
-        """(B, S_text) tokens -> x (B, meta + S_text, d)."""
+        """Returns (x (B, S, d), cond (B, T, d) or None). Text: x is the
+        meta tokens, a vision model's projected patches (``w1``, tanh GELU
+        in float32, ``w2``), then the token embeddings; audio: the summed
+        codebook embeddings of ``codes`` (B, nq, S), with ``cond``."""
+        cfg = self.cfg
+        if cfg.audio_codebooks:
+            return (self._embed_codes(params, self._tokens(batch, "codes")),
+                    self._cond(params, batch))
         x = params["embed"][self._tokens(batch)]
-        if self.cfg.meta_tokens:
+        if cfg.vision:
+            pv = params["vis_proj"]
+            h = self._floats(batch, "patches") @ pv["w1"]
+            h = F.gelu(h.float(), approximate="tanh").to(self.dtype)
+            x = torch.cat([h @ pv["w2"], x], dim=1)
+        if cfg.meta_tokens:
             meta = params["meta"][None].expand(x.shape[0], -1, -1)
             x = torch.cat([meta, x], dim=1)
-        return x
+        return x, None
 
     def _head(self, params):
         return params["embed"].T if self.cfg.tie_embeddings else params["head"]
 
-    def _run_segments(self, params, x, positions):
+    def _logits(self, params, h):
+        """h (B, d) -> logits (B, V), or (B, nq, V) through an audio model's
+        per-codebook heads."""
+        if self.cfg.audio_codebooks:
+            return torch.stack([h @ params["heads"][k]
+                                for k in range(self.cfg.audio_codebooks)],
+                               dim=1)
+        return h @ self._head(params)
+
+    def _run_segments(self, params, x, positions, cond=None):
         """Prefill through every layer. Returns (x, per-segment caches with
         a leading layer axis)."""
         cfg = self.cfg
@@ -428,7 +522,8 @@ class LM:
             for i in range(len(seg.layers)):
                 x, cache, _ = _layer_apply(_layer(params[seg.name], i), x, cfg,
                                            positions, kind=seg.kind,
-                                           window=seg.window, sink=sink)
+                                           window=seg.window, sink=sink,
+                                           cond=cond)
                 entries.append(cache)
             caches[seg.name] = _stack(entries)
         return x, caches
@@ -436,20 +531,22 @@ class LM:
     # --------------------------------------------------------------- prefill
     def prefill(self, params, batch, max_seq=None):
         """Run the full prompt; build decode caches. Returns (cache, logits)."""
-        x = self._embed_inputs(params, batch)
+        x, cond = self._embed_inputs(params, batch)
         S = x.shape[1]
         positions = torch.arange(S, device=self.device)
-        x, caches = self._run_segments(params, x, positions)
+        x, caches = self._run_segments(params, x, positions, cond)
         x = rmsnorm(x, params["ln_f"])
-        logits = x[:, -1] @ self._head(params)
+        logits = self._logits(params, x[:, -1])
         return self._layout_cache(caches, S, max_seq or (2 * S)), logits
 
     def _layout_cache(self, caches, S, max_seq):
         """Prefill per-layer outputs -> fixed-size decode caches."""
-        cfg = self.cfg
-        out: Dict[str, Any] = {"pos": S}   # S includes the meta prefix
-        total = max_seq + (cfg.meta_tokens or 0)
+        out: Dict[str, Any] = {"pos": S}   # S includes the prefix
+        total = max_seq + self._prefix()
         for seg in self.plan:
+            if seg.kind in _XLSTM:             # the states pass through
+                out[seg.name] = caches[seg.name]
+                continue
             kv, ssm_state = caches[seg.name] if seg.kind == "hymba" else (
                 caches[seg.name], None)
             if seg.window is not None:
@@ -487,11 +584,12 @@ class LM:
 
     # ---------------------------------------------------------------- decode
     def init_cache(self, B, max_seq):
-        """Zero-initialized decode cache."""
+        """Zero-initialized decode cache; an xLSTM layer's states are zero
+        with the stabilizer m at its start (-1e30)."""
         cfg, dtype, dev = self.cfg, self.dtype, self.device
         meta = cfg.meta_tokens or 0
-        total = max_seq + meta
-        K, hd = cfg.num_kv_heads, cfg.head_dim
+        total = max_seq + self._prefix()
+        H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         di = cfg.d_model * cfg.ssm_expand
         cache: Dict[str, Any] = {"pos": total - 1}
         for seg in self.plan:
@@ -499,6 +597,20 @@ class LM:
 
             def zeros(*shape, dt=dtype):
                 return torch.zeros(shape, dtype=dt, device=dev)
+            if seg.kind in _XLSTM:
+                f32 = torch.float32
+                m = torch.full((Ls, B, H), xlstm_mod.M_INIT, dtype=f32,
+                               device=dev)
+                if seg.kind == "mlstm":
+                    dh = 2 * cfg.d_model // H
+                    cache[seg.name] = (zeros(Ls, B, H, dh, dh, dt=f32),
+                                       zeros(Ls, B, H, dh, dt=f32), m)
+                else:
+                    dh = cfg.d_model // H
+                    cache[seg.name] = (zeros(Ls, B, H, dh, dt=f32),
+                                       zeros(Ls, B, H, dh, dt=f32), m,
+                                       zeros(Ls, B, H, dh, dt=f32))
+                continue
             if cfg.mla:
                 kv = (zeros(Ls, B, total, cfg.kv_lora_rank),
                       zeros(Ls, B, total, cfg.qk_rope_dim))
@@ -518,11 +630,19 @@ class LM:
         return cache
 
     def decode(self, params, cache, batch, pos: Optional[int] = None):
-        """One decode step. batch: {'tokens': (B,)}. Updates ``cache`` in
-        place; returns (logits, cache) with ``cache["pos"]`` advanced."""
+        """One decode step. batch: {'tokens': (B,)}, or an audio model's
+        {'tokens': (B, nq) codes, 'cond': (B, T, cond_dim)} (the condition
+        projected every step, as the reference does). Updates ``cache`` in
+        place; returns (logits (B, V) or (B, nq, V), cache) with
+        ``cache["pos"]`` advanced."""
         cfg = self.cfg
         pos = cache["pos"] if pos is None else int(pos)
-        x = params["embed"][self._tokens(batch)][:, None, :]       # (B,1,d)
+        if cfg.audio_codebooks:
+            x = self._embed_codes(params, self._tokens(batch))[:, None, :]
+            cond = self._cond(params, batch)
+        else:
+            x = params["embed"][self._tokens(batch)][:, None, :]   # (B,1,d)
+            cond = None
         for seg in self.plan:
             stacked = cache[seg.name]
             for i in range(len(seg.layers)):
@@ -531,8 +651,9 @@ class LM:
                     x, new = _ring_layer_decode(lp, x, cfg, old, pos)
                 else:
                     x, new = _layer_decode(lp, x, cfg, old, pos,
-                                           kind=seg.kind, window=None)
+                                           kind=seg.kind, window=None,
+                                           cond=cond)
                 _tree_map(_store, old, new)
         x = rmsnorm(x, params["ln_f"])[:, 0]                          # (B,d)
         cache["pos"] = pos + 1
-        return x @ self._head(params), cache
+        return self._logits(params, x), cache

@@ -53,9 +53,12 @@ def sample_greedy(logits: torch.Tensor) -> torch.Tensor:
 
 def sample_temperature(generator: torch.Generator, logits: torch.Tensor,
                        temperature: float = 0.8) -> torch.Tensor:
+    """One draw a row of ``logits`` (..., V): (B, V) or an audio model's
+    (B, nq, V)."""
     probs = torch.softmax(logits.float() / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    flat = probs.reshape(-1, probs.shape[-1])
+    return torch.multinomial(flat, 1, generator=generator).reshape(
+        probs.shape[:-1]).to(torch.int32)
 
 
 class Engine:
@@ -73,15 +76,20 @@ class Engine:
     @torch.inference_mode()
     def generate(self, batch: Dict[str, Any], steps: int,
                  temperature: Optional[float] = None, seed: int = 0):
-        """batch {'tokens': (B, S) int} -> (B, steps) int32 numpy tokens."""
+        """batch {'tokens': (B, S) int} (a vision model's with 'patches',
+        an audio model's {'codes': (B, nq, S), 'cond'}) -> (B, steps) int32
+        numpy tokens, (B, steps, nq) for audio. ``cond`` goes with every
+        decode step."""
         t0 = time.perf_counter()
+        # B of the first leaf in the reference's order (keys sorted)
         with obs.span("serve.prefill", probe=_C_BUILDS,
-                      batch=int(np.shape(batch["tokens"])[0])):
+                      batch=int(np.shape(batch[min(batch)])[0])):
             cache, logits = self._prefill(self.params, batch)
         _C_PREFILL.inc()
         _H_PREFILL_S.observe(time.perf_counter() - t0)
         gen = torch.Generator(device=self.lm.device).manual_seed(seed)
         outs = []
+        cond = batch.get("cond")
         for i in range(steps):
             t0 = time.perf_counter()
             with obs.span("serve.sample", step=i):
@@ -91,10 +99,12 @@ class Engine:
                     tok = sample_temperature(gen, logits, temperature)
             _H_SAMPLE_S.observe(time.perf_counter() - t0)
             outs.append(tok.cpu().numpy())   # host sync, outside both spans
+            dec_batch = {"tokens": tok}
+            if cond is not None:
+                dec_batch["cond"] = cond
             t0 = time.perf_counter()
             with obs.span("serve.decode_step", probe=_C_BUILDS, step=i):
-                logits, cache = self._decode(self.params, cache,
-                                             {"tokens": tok})
+                logits, cache = self._decode(self.params, cache, dec_batch)
             _C_DECODE.inc()
             _H_DECODE_S.observe(time.perf_counter() - t0)
         return np.stack(outs, axis=1)

@@ -512,6 +512,32 @@ def test_flash_attention_kernel_takes_mla_head_dims(cuda, case, dtype,
     """A value head dim apart from the query/key one, and a query/key dim
     padded to the kernel's: one launch, output (B, H, S, Dv), the gates of
     ``test_flash_attention_kernel_window_sink_and_p_modes``."""
+    _check_causal_case(cuda, case, dtype, round_p)
+
+
+# (B, H, K, S, D): phi-3-vision-4.2b's prefill (576 patches + 424 text
+# tokens; 32 heads of 96) and musicgen-medium's (1,000 frames; 24 heads of
+# 64), and a ragged S at each head dim
+FAMILY_ATTN_CASES = [(4, 32, 32, 1000, 96), (4, 24, 24, 1000, 64),
+                     (1, 32, 32, 589, 96), (2, 24, 24, 77, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FAMILY_ATTN_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("round_p", [True, False], ids=["p-rounded", "p-f32"])
+def test_flash_attention_kernel_at_the_vision_and_audio_prefill(
+        cuda, case, dtype, round_p):
+    """The vision and audio families' prefill calls: the gates of
+    ``test_flash_attention_kernel_takes_mla_head_dims``."""
+    _check_causal_case(cuda, case + (case[-1],), dtype, round_p)
+
+
+def _check_causal_case(cuda, case, dtype, round_p):
+    """Causal attention at (B, H, K, S, D, Dv): one launch, output (B, H, S,
+    Dv), within ``TOL_ATTN`` of the plain version (bf16 with p in float32:
+    within 1 bf16 ulp, at most 1 % of the elements apart)."""
     B, H, K, S, D, Dv = case
     rng = np.random.default_rng(4)
     q, k, v = (torch.from_numpy(rng.normal(size=(B, h, S, d)).astype(
@@ -529,6 +555,51 @@ def test_flash_attention_kernel_takes_mla_head_dims(cuda, case, dtype,
         tol = TOL_ATTN[dtype]
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-125m", "phi-3-vision-4.2b",
+                                  "musicgen-medium"])
+def test_reduced_families_serve_on_the_card_as_on_the_cpu(cuda, arch):
+    """The reduced xLSTM, vision and audio models (float32) with the same
+    weights on the card and the CPU: identical greedy tokens, logits
+    within 1e-4 of the CPU's; the attention kernel runs once a layer a
+    prefill (never for the xLSTM)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.models import LM
+    cfg = reduce_config(get_config(arch))
+    cpu_params = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card_params = convert.lm_params_from_numpy(
+        cfg, convert.lm_params_to_numpy(cpu_params), device=cuda)
+    rng = np.random.default_rng(0)
+    if cfg.audio_codebooks:
+        batch = {"codes": rng.integers(0, cfg.vocab_size, (2, 4, 20)),
+                 "cond": rng.normal(size=(2, cfg.cond_len, cfg.cond_dim)
+                                    ).astype(np.float32)}
+    else:
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 20))}
+        if cfg.vision:
+            batch["patches"] = rng.normal(size=(
+                2, cfg.num_patches, cfg.vision_dim)).astype(np.float32)
+    out = {}
+    with torch.inference_mode():
+        for where, params in (("cpu", cpu_params), (cuda, card_params)):
+            lm = LM(cfg, device=where)
+            before = kflash.flash_attention.launches
+            cache, logits = lm.prefill(params, batch, max_seq=32)
+            launched = kflash.flash_attention.launches - before
+            steps = [logits]
+            for _ in range(6):
+                tok = {"tokens": steps[-1].argmax(-1)}
+                if cfg.audio_codebooks:
+                    tok["cond"] = batch["cond"]
+                steps.append(lm.decode(params, cache, tok)[0])
+            out[str(where)] = [t.float().cpu() for t in steps]
+    assert launched == (0 if cfg.family == "ssm" else cfg.num_layers)
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        assert torch.equal(got.argmax(-1), want.argmax(-1))
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4
 
 
 @pytest.mark.cuda
