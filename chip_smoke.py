@@ -207,7 +207,22 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
 30. parity the reduced xLSTM, vision and audio models (float32) on the card
             and the CPU, as phase 25, and their loss and every gradient leaf
             as phase 21 (``RTOL_TRAIN_CPU``): one attention backward launch
-            a layer for vision and audio, none for the xLSTM.
+            a layer for vision and audio, none for the xLSTM;
+31. reqs   requirements from models: ``launch.dryrun.main(["--all"])``
+            writes the 40 records of pod16x16 (10 architectures x 4 shapes,
+            full width on the meta device; 32 ok, 8 ``long_500k`` skipped),
+            ``roofline.load_table`` reads 32 rows; one ``api.explore`` on
+            the card over the 20 train_4k and decode_32k ``arch_task``s
+            with ``benchmarks/arch_dse.py``'s space and policy
+            (``ARCH_MEM_TYPES``, ``ARCH_PREFERENCE``): the retention kernel
+            dispatched (``kernels.dispatch.retention.cuda`` rises, the plain
+            count does not), the labels equal to the same ``explore`` on the
+            CPU; its cold and warm wall time and a warm call profiled;
+            ``compose`` + ``simulate_report(traces=arch_traces(...))`` of
+            qwen3-8b/decode_32k on the card and the CPU: orders equal,
+            ``sim_*`` within ``RTOL_SIM``; ``memory_dse_annotate`` on the
+            card stamps every ok record with the labels of the same
+            ``explore`` (the reference's paper grid and policy) on the CPU.
 
 Each phase prints its seconds. It prints one ``{"kernels": [...]}`` line,
 then, last, the ``{"ok": true, "device": {...}}`` line.
@@ -413,6 +428,17 @@ FAMILY_SERVE = ("phi-3-vision-4.2b", "musicgen-medium", "xlstm-125m")
 # tracing all 1,000 positions (256,650 launches) takes ~150 s, so its
 # profiled prefill is the first XLSTM_PROFILE_PROMPT positions
 XLSTM_PROFILE_PROMPT = 100
+# phase 31: benchmarks/arch_dse.py's extended space and policy (OS-OS, as
+# the paper's Future Work adds it; refreshed gain cells for hour-lived
+# weights) over every train_4k and decode_32k record, and the cell whose
+# requirements phase 31 composes and re-ranks by trace replay
+ARCH_MEM_TYPES = ("sram6t", "gc_sisi", "gc_ossi", "gc_osos", "gc_osos_hvt")
+ARCH_PREFERENCE = ("os-os", "os-si", "si-si", "sram")
+ARCH_SHAPES = ("train_4k", "decode_32k")
+ARCH_SIM_CELL = ("qwen3-8b", "decode_32k")
+# the dry-run's 10 architectures x 4 shapes: long_500k is skipped for
+# every one but the two sub-quadratic ones (hymba-1.5b, xlstm-125m)
+DRYRUN_CELLS = {"ok": 32, "skipped": 8}
 
 
 def fail(msg: str) -> None:
@@ -1948,6 +1974,153 @@ def kernel_launches():
             "retention": kretention.retention_batch.launches}
 
 
+def requirements_phase(smi: str):
+    """Phase 31: requirements from models on the card (see the module
+    docstring). Returns its stats; ``launches`` is the retention kernel's
+    launches in the warm arch-task ``explore``."""
+    import tempfile
+
+    import torch
+    from repro_torch import api, obs, sim
+    from repro_torch.core.select import SelectionPolicy
+    from repro_torch.hetero import compose
+    from repro_torch.kernels import retention as kretention
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.profiler import traffic
+    from repro_torch.sim.rerank import composition_idx, simulate_report
+
+    def dispatches():
+        return (obs.value("kernels.dispatch.retention.cuda"),
+                obs.value("kernels.dispatch.retention.plain"))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the records of every cell, on the meta device
+        rc, stats["records_s"] = timed(lambda: dryrun.main(
+            ["--all", "--out", tmp]))
+        recs = [json.loads(p.read_text())
+                for p in sorted(Path(tmp).glob("*.json"))]
+        counts = {k: sum(r["status"] == k for r in recs)
+                  for k in DRYRUN_CELLS}
+        print(f"requirements: dryrun --all: {len(recs)} records, "
+              f"{counts['ok']} ok, {counts['skipped']} skipped, exit {rc}, "
+              f"{stats['records_s']:.2f} s; {smi}", flush=True)
+        if rc != 0 or counts != DRYRUN_CELLS or len(recs) != 40:
+            fail(f"dryrun --all: exit {rc}, {len(recs)} records, {counts}")
+        # 2. their roofline
+        rows = roofline.load_table(tmp)
+        print(f"requirements: roofline.load_table: {len(rows)} rows")
+        if len(rows) != DRYRUN_CELLS["ok"]:
+            fail(f"roofline: {len(rows)} rows")
+
+        # 3. explore over the arch tasks: card (cold, warm) against the CPU
+        tasks = traffic.available_arch_tasks(ARCH_SHAPES, outdir=tmp)
+        space = api.design_space(mem_types=ARCH_MEM_TYPES)
+        policy = SelectionPolicy(preference=ARCH_PREFERENCE,
+                                 allow_refresh=True)
+
+        def explore(device):
+            return api.explore(space=space, tasks=tasks, policy=policy,
+                               device=device)
+        d0 = dispatches()
+        card, cold_s = timed(lambda: explore("cuda"))
+        d1 = dispatches()
+        kretention.retention_batch.launches = 0
+        card, warm_s = timed(lambda: explore("cuda"))
+        launches = kretention.retention_batch.launches
+        d2 = dispatches()
+        prof = profile_report("warm explore over the arch tasks",
+                              lambda: explore("cuda"))
+        cpu = explore("cpu")
+        labels = card.labels()
+        hetero = sum("+" in lv["L2"] or lv["L1"] != lv["L2"]
+                     for lv in labels.values())
+        print(f"requirements: explore over {len(tasks)} arch tasks, "
+              f"{len(card.table)} configs: {cold_s:.4f} s cold, "
+              f"{warm_s:.4f} s warm ({launches} retention launch(es), "
+              f"device {prof['device_ms']:.4f} ms in {prof['launches']} "
+              f"kernel launches); {hetero} heterogeneous picks; {smi}",
+              flush=True)
+        for tid, lv in labels.items():
+            print(f"  {tid:32s} L1={lv['L1']:14s} L2={lv['L2']}")
+        if len(tasks) != 20 or labels != cpu.labels():
+            fail(f"explore over {len(tasks)} arch tasks: card labels equal "
+                 f"to the CPU's: {labels == cpu.labels()}")
+        if not (d1[0] > d0[0] and d2[0] > d1[0] and launches >= 1) \
+                or d2[1] != d0[1]:
+            fail(f"explore over the arch tasks: retention dispatches "
+                 f"(cuda, plain) {d0} -> {d1} -> {d2}, {launches} launches")
+
+        # 4. compose and the trace-replay re-rank on the arch traces
+        arch, shape = ARCH_SIM_CELL
+        rec = traffic.load_dryrun_record(arch, shape, outdir=tmp)
+        task = traffic.arch_task(arch, shape, rec)
+        traces = traffic.arch_traces(arch, shape, rec=rec)
+
+        def simulate(device):
+            rep = compose(space, task, policy=policy, device=device)
+            return simulate_report(rep, traces=traces, device=device)
+        sim_card, sim_s = timed(lambda: simulate("cuda"))
+        sim_cpu = simulate("cpu")
+        order = composition_idx(sim_card).tolist()
+        gap = max(max_rel([a.metrics[f"sim_{m}"] for a in sim_card.ranked],
+                          [b.metrics[f"sim_{m}"] for b in sim_cpu.ranked])
+                  for m in sim.SIM_METRICS)
+        print(f"requirements: compose + simulate_report({arch}/{shape}, "
+              f"arch_traces): {len(order)} compositions, {sim_s:.4f} s on "
+              f"the card, order equal to the CPU's "
+              f"{order == composition_idx(sim_cpu).tolist()}, sim_* max "
+              f"rel {gap:.3e} (gate {RTOL_SIM}), labels "
+              f"{sim_card.labels()}; {smi}", flush=True)
+        if order != composition_idx(sim_cpu).tolist() or gap > RTOL_SIM \
+                or sim_card.refined != "simulate":
+            fail(f"compose + simulate of {arch}/{shape}: orders equal "
+                 f"{order == composition_idx(sim_cpu).tolist()}, sim_* gap "
+                 f"{gap:.3e}")
+
+        # 5. the records stamped with their picks, on the card
+        cells = [(json.loads(p.read_text()), p)
+                 for p in sorted(Path(tmp).glob("*.json"))]
+        d3 = dispatches()
+        report, annotate_s = timed(lambda: dryrun.memory_dse_annotate(
+            cells, Path(tmp), device="cuda"))
+        d4 = dispatches()
+        stamped = {f"{r['arch']}/{r['shape']}": r["memory_dse"]
+                   for r in (json.loads(p.read_text())
+                             for p in Path(tmp).glob("*.json"))
+                   if "memory_dse" in r}
+        want = api.explore(tasks=report.tasks,
+                           policy=SelectionPolicy(allow_refresh=True),
+                           device="cpu").labels()
+        print(f"requirements: memory_dse_annotate: {len(stamped)} records "
+              f"stamped in {annotate_s:.4f} s, equal to the CPU's explore "
+              f"{stamped == want}; {smi}", flush=True)
+        if stamped != want or len(stamped) != DRYRUN_CELLS["ok"] \
+                or d4[0] <= d3[0] or d4[1] != d3[1]:
+            fail(f"memory_dse_annotate: {len(stamped)} stamped, equal to "
+                 f"the CPU's {stamped == want}, retention dispatches "
+                 f"{d3} -> {d4}")
+    stats.update({
+        "records": counts, "roofline_rows": len(rows),
+        "explore": {"tasks": len(tasks), "configs": len(card.table),
+                    "cold_s": cold_s, "warm_s": warm_s,
+                    "warm_device_ms": prof["device_ms"],
+                    "warm_kernel_launches": prof["launches"],
+                    "heterogeneous": hetero, "labels": labels},
+        "simulate": {"cell": f"{arch}/{shape}", "s": sim_s,
+                     "compositions": len(order), "max_rel": gap},
+        "annotate": {"stamped": len(stamped), "s": annotate_s},
+        "launches": launches})
+    return stats
+
+
 def serve_full_phase(arch: str, n_layers, seed: int):
     """Phases 23-24 and 27-29: ``arch`` at full width (``n_layers`` layers
     kept, None = all), bf16 weights from ``seed``, served by
@@ -2741,6 +2914,12 @@ def main() -> int:
                                "bwd_launches": bwd_launches}
     phase_done(30, "vision, audio and xLSTM parity", t_phase)
 
+    # 31. requirements from models: records, roofline, explore, simulate --
+    t_phase = time.perf_counter()
+    requirements = requirements_phase(smi)
+    launches_by_path["explore_arch_tasks"] = requirements["launches"]
+    phase_done(31, "requirements from models", t_phase)
+
     main_shape = shapes["main"]
     warm = serve["warm"]
     print(f"end-to-end: serve {cfg.name} {SERVE_REQUESTS} x {SERVE_PROMPT} "
@@ -2768,7 +2947,8 @@ def main() -> int:
         "launches_by_path": launches_by_path,
         "corners": corner_kernel, "corner_tables": corner_tables,
         "compose": compose_stats, "simulate": sim_stats,
-        "facade": facade, "observability": observability}, {
+        "facade": facade, "observability": observability,
+        "requirements": requirements}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:68",

@@ -1,9 +1,11 @@
 """Config registry of the port: importing this package registers the 10
-architectures of the reference (``repro/configs``), field for field. The
-xLSTM, vision and audio families are registered as data; ``LM`` raises for
-them until they are ported (ROADMAP.md)."""
+architectures of the reference (``repro/configs``), field for field, and
+exports the four shape cells (``SHAPES``) the dry-run records cover."""
 from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
     ArchConfig,
+    ShapeConfig,
+    applicable_shapes,
     get_config,
     list_archs,
     reduce_config,

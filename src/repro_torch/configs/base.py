@@ -1,15 +1,33 @@
-"""Architecture configuration and its registry.
+"""Architecture and shape configuration and the architecture registry.
 
 A copy of the reference's ``ArchConfig`` (every field, so a configuration
-reads the same in both packages), the ``register`` / ``get_config`` /
-``list_archs`` registry, and ``reduce_config``, the structurally faithful
-tiny version of a configuration that the CPU tests run.
+reads the same in both packages), the four input-shape cells
+(``ShapeConfig``, ``SHAPES``, ``applicable_shapes``), the ``register`` /
+``get_config`` / ``list_archs`` registry, and ``reduce_config``, the
+structurally faithful tiny version of a configuration that the CPU tests
+run.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, Tuple
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -105,6 +123,13 @@ def get_config(name: str) -> ArchConfig:
 def list_archs():
     from repro_torch import configs as _c  # noqa: F401  (registers)
     return sorted(_REGISTRY)
+
+
+def applicable_shapes(cfg: ArchConfig):
+    """The shape cells that are live for this architecture: ``long_500k``
+    only where the attention is sub-quadratic."""
+    return [s for s in SHAPES.values()
+            if s.name != "long_500k" or cfg.supports_long_context]
 
 
 def reduce_config(cfg: ArchConfig) -> ArchConfig:

@@ -38,8 +38,10 @@ def _trunc_normal(gen, shape, device, std: float, dtype) -> torch.Tensor:
     sampling, ``sqrt(2) erfinv(u)`` for u uniform on [erf(-sqrt 2),
     erf(sqrt 2)], as ``jax.random.truncated_normal`` draws it. A leaf of
     more than ``DRAW_PIECE`` elements is drawn in consecutive pieces of its
-    first axis."""
+    first axis. On the meta device (shapes only) nothing is drawn."""
     shape = tuple(shape)
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     n = math.prod(shape)
     if n <= DRAW_PIECE or len(shape) < 2:
         return _draw(gen, shape, device, std, dtype)

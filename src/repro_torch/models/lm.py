@@ -9,6 +9,7 @@ per-codebook heads, cross attention over a condition) families.
     prefill(params, batch, max_seq)    -> (cache, last_logits)
     decode(params, cache, batch, pos)  -> (logits, cache)
     init_cache(B, max_seq)             -> cache (zeros)
+    input_specs(shape)                 -> batch on the meta device
 
 Layers are stacked per homogeneous *segment* (a leading layer axis on every
 leaf, the reference's ``jax.vmap(init_one)`` layout) and run by a Python
@@ -657,3 +658,33 @@ class LM:
         x = rmsnorm(x, params["ln_f"])[:, 0]                          # (B,d)
         cache["pos"] = pos + 1
         return self._logits(params, x), cache
+
+    # ----------------------------------------------------------------- specs
+    def input_specs(self, shape):
+        """The batch of a ``configs.ShapeConfig`` as tensors on the meta
+        device (no storage), with the reference's names, shapes and dtypes:
+        train and prefill take the text (less the meta tokens, or less the
+        patches beside them), an audio model codes and its condition;
+        decode takes one new token (an audio model's codes) a row."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32, f32 = torch.int32, torch.float32
+
+        def spec(*dims, dtype=i32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+        if shape.kind in ("train", "prefill"):
+            if cfg.audio_codebooks:
+                return {"codes": spec(B, cfg.audio_codebooks, S),
+                        "cond": spec(B, cfg.cond_len, cfg.cond_dim, dtype=f32)}
+            if cfg.vision:
+                return {"tokens": spec(B, S - cfg.num_patches),
+                        "patches": spec(B, cfg.num_patches, cfg.vision_dim,
+                                        dtype=f32)}
+            if cfg.meta_tokens:
+                return {"tokens": spec(B, S - cfg.meta_tokens)}
+            return {"tokens": spec(B, S)}
+        # decode: one new token against a cache of length S
+        if cfg.audio_codebooks:
+            return {"tokens": spec(B, cfg.audio_codebooks),
+                    "cond": spec(B, cfg.cond_len, cfg.cond_dim, dtype=f32)}
+        return {"tokens": spec(B)}

@@ -38,8 +38,8 @@ asymmetry the analytic average can't see. The engine converts bits to port
 accesses with each macro's own word width.
 
 Everything here is float64 numpy on the host, value for value the
-reference's traces. Traces derived from compiled model records (the
-reference's ``profiler.traffic.arch_traces``) are not ported yet.
+reference's traces. ``repro_torch.profiler.traffic.arch_traces`` derives
+traces from a model's dry-run record through ``task_traces``.
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@ sink and both treatments of p, and the two backward kernels) against its
 plain version on the card, and
 the corner table, ``compose``, the trace-replay re-rank (``simulate``) and
 the compiler façade (``Compiler.compile``, ``Macro.write_all``,
-``gradient_size``) on the card against the CPU. They skip
+``gradient_size``) and ``explore`` over the models' dry-run tasks on the
+card against the CPU. They skip
 where no CUDA device is present;
 on a GPU machine run them with ``python -m pytest -m cuda tests/``. This
 file imports no jax, so it also runs where jax is not installed."""
@@ -825,3 +826,33 @@ def test_sharded_scoring_across_cards_is_bit_equal(cuda):
         assert sharded.labels() == plain.labels()
         for a, b in zip(plain.ranked, sharded.ranked):
             assert a.metrics == b.metrics
+
+
+@pytest.mark.cuda
+def test_explore_over_arch_tasks_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Requirements from models: two architectures' train_4k and decode_32k
+    records become ``arch_task``s, and ``explore`` over them with
+    ``benchmarks/arch_dse.py``'s space and policy dispatches the retention
+    kernel on the card and picks what the CPU picks."""
+    from repro_torch import obs
+    from repro_torch.core.select import SelectionPolicy
+    from repro_torch.launch import dryrun
+    from repro_torch.profiler import traffic
+    for arch in ("qwen3-8b", "hymba-1.5b"):
+        for shape in ("train_4k", "decode_32k"):
+            assert dryrun.main(["--arch", arch, "--shape", shape,
+                                "--out", str(tmp_path)]) == 0
+    tasks = traffic.available_arch_tasks(outdir=str(tmp_path))
+    assert len(tasks) == 4
+    space = api.design_space(mem_types=("sram6t", "gc_sisi", "gc_ossi",
+                                        "gc_osos", "gc_osos_hvt"))
+    policy = SelectionPolicy(preference=("os-os", "os-si", "si-si", "sram"),
+                             allow_refresh=True)
+    n0, p0 = (obs.value("kernels.dispatch.retention.cuda"),
+              obs.value("kernels.dispatch.retention.plain"))
+    card = api.explore(space=space, tasks=tasks, policy=policy, device=cuda)
+    torch.cuda.synchronize()
+    assert obs.value("kernels.dispatch.retention.cuda") > n0
+    assert obs.value("kernels.dispatch.retention.plain") == p0
+    cpu = api.explore(space=space, tasks=tasks, policy=policy, device="cpu")
+    assert card.labels() == cpu.labels()
