@@ -222,7 +222,32 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             qwen3-8b/decode_32k on the card and the CPU: orders equal,
             ``sim_*`` within ``RTOL_SIM``; ``memory_dse_annotate`` on the
             card stamps every ok record with the labels of the same
-            ``explore`` (the reference's paper grid and policy) on the CPU.
+            ``explore`` (the reference's paper grid and policy) on the CPU;
+32. sharded multi-card training (``sharded_phase``): one worker process a
+            visible card (``launch.spmd.launch``, NCCL, a timeout; a
+            worker's failure fails the run) on a ("data", "model") mesh of
+            (2, 2) on 4 cards and (1, 1) on one (printed); each run trains
+            two steps (lr 0, then lr > 0) sharded and on one card from the
+            same weights and batch (phase 20's batch, lr and warmup). At
+            full width in float32 cut to 2 layers: hymba-1.5b, and
+            moonshot-v1-16b-a3b (1 dense, 1 MoE layer, capacity factor E /
+            k) with ``REPRO_MOE_SHARDMAP=1`` (expert parallelism) and
+            without (the gathered block): loss and grad_norm within
+            ``RTOL_SHARDED_STEP``, the AdamW moments within
+            ``RTOL_SHARDED_GRAD``, the parameters within
+            ``RTOL_SHARDED_UPDATE`` lr where the moment is above its noise
+            (``RTOL_SHARDED_FLIPS``); hymba-1.5b at full width and depth
+            (bf16). The moonshot runs and full hymba also measure one
+            card's own 2-microbatch gap, and each of their gaps may be up
+            to ``SHARDED_NOISE_FACTOR`` times it. Full hymba's step
+            launches both forward kernels and both backward kernels on
+            every rank's shards; 2 warm steps timed (seconds, tokens/s,
+            MFU over every card) with each card's peak memory, and one
+            more under ``torch.profiler`` on rank 0 for NCCL's share of
+            the device time. On (1, 1) every run is bit-equal to one
+            card's. On 4 or more cards, moonshot-v1-16b-a3b at
+            ``SHARDED_DEEP_LAYERS`` layers, which one card cannot hold,
+            trains the same way (times, peak memory, NCCL share).
 
 Each phase prints its seconds. It prints one ``{"kernels": [...]}`` line,
 then, last, the ``{"ok": true, "device": {...}}`` line.
@@ -238,6 +263,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tests"))     # torch_sharded_checks
 
 RTOL_KERNEL = 1e-5      # kernel vs plain version (the Pallas kernel's gate)
 RTOL_CPU = 2e-6         # table on the card vs the same table on the CPU
@@ -439,6 +465,32 @@ ARCH_SIM_CELL = ("qwen3-8b", "decode_32k")
 # the dry-run's 10 architectures x 4 shapes: long_500k is skipped for
 # every one but the two sub-quadratic ones (hymba-1.5b, xlstm-125m)
 DRYRUN_CELLS = {"ok": 32, "skipped": 8}
+# phase 32: the sharded step against one card from the same weights and
+# batch, two steps (lr 0, then lr > 0). At full width in float32 and cut to
+# 2 layers, where the step is well conditioned, the gates of
+# tests/test_torch_train.py (RTOL_STEP's loss and grad_norm; RTOL_GRAD at 4
+# layers for the moments) and of tests/test_torch_sharding.py for the
+# parameters (within RTOL_SHARDED_UPDATE lr where the moment is above its
+# noise, apart by more than lr / 10 in at most RTOL_SHARDED_FLIPS of the
+# entries). Where a run also measures one card's own reorder noise (the
+# same steps in 2 microbatches, in the same run), each gap may instead be
+# up to SHARDED_NOISE_FACTOR times that noise's: hymba-1.5b at its full
+# depth and dtype, whose random-init bf16 step moves by its own size under
+# any reordered sum (tools/step_reorder_gaps.py), and moonshot-v1-16b-a3b,
+# whose top-k routing turns on the rounding of its inputs. moonshot's runs
+# set the capacity factor to E / k, so that no entry drops either way (an
+# expert-parallel rank takes its capacity from its local tokens, one card
+# from all of them) and microbatching reorders the same sums.
+# SHARDED_DEEP_LAYERS: the depth of moonshot that only 4 cards hold (12
+# layers: 7.2 B parameters at 12 B each in the port's dtypes, bf16
+# parameters and gradients and float32 moments, 86 GB before
+# activations); the launch's time limit
+RTOL_SHARDED_STEP = {"loss": 1e-5, "grad_norm": 2e-3}
+RTOL_SHARDED_GRAD = 2e-3
+RTOL_SHARDED_UPDATE, RTOL_SHARDED_FLIPS = 0.1, 1e-3
+SHARDED_NOISE_FACTOR = 10
+SHARDED_DEEP_LAYERS = 12
+SHARDED_TIMEOUT = 900
 
 
 def fail(msg: str) -> None:
@@ -2269,6 +2321,159 @@ def serve_full_phase(arch: str, n_layers, seed: int):
     return stats
 
 
+def sharded_mesh(world: int):
+    """Phase 32's ("data", "model") mesh over ``world`` cards: (2, 2) on 4,
+    (1, 1) on one."""
+    if world % 2 == 0:
+        return (world // 2, 2)
+    return (world, 1)
+
+
+def sharded_phase(seed: int, smi: str):
+    """Phase 32 (see the module docstring). Returns its stats."""
+    import torch
+    from repro_torch.configs import get_config
+    world = torch.cuda.device_count()
+    mesh = sharded_mesh(world)
+    print(f"sharded: world {world}, mesh {mesh} (data, model), NCCL; {smi}",
+          flush=True)
+    base = dict(mesh=mesh, batch=TRAIN_BATCH, seq=TRAIN_SEQ, data_seed=seed,
+                seed=seed, base_lr=TRAIN_LR, warmup=2,
+                total_steps=TRAIN_STEPS, steps=[0, 1], warm=2)
+    ep, gathered = {"REPRO_MOE_SHARDMAP": "1"}, {"REPRO_MOE_SHARDMAP": "0"}
+    moon = get_config("moonshot-v1-16b-a3b")
+    f32_2l = {"num_layers": 2, "dtype": "float32"}
+    dropless = dict(f32_2l, capacity_factor=moon.num_experts / moon.top_k)
+    runs = {"hymba-1.5b-2L-f32": dict(base, arch="hymba-1.5b",
+                                      overrides=f32_2l, single=True),
+            "moonshot-2L-f32-gathered": dict(
+                base, arch="moonshot-v1-16b-a3b", overrides=dropless,
+                env=gathered, single=True, noise=True),
+            "moonshot-2L-f32-ep": dict(
+                base, arch="moonshot-v1-16b-a3b", overrides=dropless,
+                env=ep, single=True, noise=True),
+            "hymba-1.5b": dict(base, arch="hymba-1.5b", single=True,
+                               noise=True, profile=True)}
+    # the model no card holds alone gets a launch of its own, after the
+    # others have printed
+    launches = [runs]
+    if world >= 4:
+        launches.append({f"moonshot-{SHARDED_DEEP_LAYERS}L-ep": dict(
+            base, arch="moonshot-v1-16b-a3b", env=ep, steps=[0],
+            profile=True, overrides={"num_layers": SHARDED_DEEP_LAYERS})})
+    stats = {"world": world, "mesh": list(mesh), "smi": smi, "runs": {},
+             "beyond_gates": []}
+    for group in launches:
+        sharded_runs(group, world, mesh, stats)
+    deep = [k for k in stats["runs"]
+            if k.startswith(f"moonshot-{SHARDED_DEEP_LAYERS}")]
+    if deep:
+        n = stats["runs"][deep[0]]["params"]
+        print(f"sharded {deep[0]}: {n:,} parameters x 12 B (bf16 "
+              f"parameters and gradients, float32 moments) = "
+              f"{12 * n / 1e9:.1f} GB of state before activations, above "
+              f"one card's 80 GB", flush=True)
+    if stats["beyond_gates"]:
+        fail(f"sharded runs beyond the gates: {stats['beyond_gates']}")
+    return stats
+
+
+def sharded_beyond(out, world: int):
+    """The gates ``out`` (a ``train_check`` result) misses (see the
+    constants): bit equality on (1, 1); else each gap within its gate, or
+    within ``SHARDED_NOISE_FACTOR`` times one card's own 2-microbatch gap
+    where that was measured."""
+    import torch_sharded_checks as checks
+    g = out["gaps"]
+    if world == 1:
+        return [] if g["bit_equal"] else ["bit_equal on (1, 1)"]
+    gates = {**RTOL_SHARDED_STEP, "m": RTOL_SHARDED_GRAD,
+             "v": RTOL_SHARDED_GRAD, "update": RTOL_SHARDED_UPDATE,
+             "flips": RTOL_SHARDED_FLIPS}
+    bad = [] if g["lr"] == 0.0 else ["lr"]
+    for k, tol in gates.items():
+        if "noise_gaps" in out:
+            tol = max(tol, SHARDED_NOISE_FACTOR * out["noise_gaps"][k])
+        if not g[k] <= tol:
+            bad.append(k if k != "update" else
+                       f"update (m above {checks.UPDATE_M_SHARE} of max)")
+    return bad
+
+
+def sharded_runs(runs, world: int, mesh, stats) -> None:
+    """Phase 32's ``runs`` ({label: ``train_check`` spec}) in one launch of
+    ``world`` workers: gates, prints, and the rows into ``stats``."""
+    import torch_sharded_checks as checks
+    from repro_torch.configs import get_config
+    from repro_torch.launch import spmd
+    t0 = time.perf_counter()
+    try:
+        results = spmd.launch(spmd.run_all, world,
+                              ([(checks.train_check, r) for r in
+                                runs.values()],),
+                              device="cuda", timeout=SHARDED_TIMEOUT)[0]
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"sharded training: {e}")
+    print(f"sharded: {len(runs)} runs on {world} worker(s) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    want = ("flash_attention", "flash_attention_bwd", "ssm_scan",
+            "ssm_scan_bwd")
+    for (label, spec), out in zip(runs.items(), results):
+        if tuple(out["mesh"]) != mesh:
+            fail(f"sharded {label}: ran on mesh {out['mesh']}, not {mesh}")
+        cfg = get_config(spec["arch"]).replace(**spec.get("overrides", {}))
+        warm = float(sorted(r["s"] for r in out["warm_rows"])[0])
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        row = {"params": out["params"], "init_s": out["init_s"],
+               "first_s": out["rows"][0]["s"], "warm_s": warm,
+               "warm_rows_s": [r["s"] for r in out["warm_rows"]],
+               "tokens_per_s": tokens / warm,
+               "peak_gib": [b / 2**30 for b in out["peak_bytes"]],
+               "launches_a_step": out["rows"][0]["launches"],
+               "profile": out.get("profile"),
+               "lr": [r["lr"] for r in out["rows"]],
+               "loss": [r["loss"] for r in out["rows"]],
+               "grad_norm": [r["grad_norm"] for r in out["rows"]]}
+        if spec["arch"] == "hymba-1.5b":
+            if cfg.dtype == "bfloat16":
+                flops = model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+                row["model_flops"] = flops
+                row["mfu"] = flops / warm / (PEAK_BF16_TC * world)
+            missing = [k for k in want if not out["rows"][0]["launches"][k]]
+            if missing:
+                fail(f"sharded {label}: no launch of {missing} in the step "
+                     f"({out['rows'][0]['launches']})")
+        if "gaps" in out:
+            row["gaps"] = out["gaps"]
+            if "noise_gaps" in out:
+                row["noise_gaps"] = out["noise_gaps"]
+            bad = sharded_beyond(out, world)
+            if bad:     # every run prints before the phase fails
+                stats["beyond_gates"].append((label, bad))
+        prof = out.get("profile") or {}
+        share = prof.get("nccl_share")
+        print(f"sharded {label}: {out['params']:,} parameters, {cfg.dtype}, "
+              f"on mesh {mesh}; init {out['init_s']:.2f} s; step "
+              f"{row['first_s']:.4f} s first, {warm:.4f} s warm (least of "
+              f"{len(out['warm_rows'])}); {tokens / warm:,.0f} tokens/s"
+              + (f"; MFU {100 * row['mfu']:.2f} % of {world} x the bf16 "
+                 f"dense peak" if "mfu" in row else "")
+              + f"; peak GiB a card "
+              f"{[round(x, 2) for x in row['peak_gib']]}; NCCL share of "
+              f"rank 0's device time "
+              + ("not measured" if share is None else f"{100 * share:.2f} %")
+              + f"; launches a step {row['launches_a_step']}; lr "
+              f"{row['lr']}", flush=True)
+        if "gaps" in row:
+            print(f"sharded {label} vs one card: {row['gaps']}", flush=True)
+        if "noise_gaps" in row:
+            print(f"sharded {label}: one card's own 2-microbatch steps vs "
+                  f"its whole-batch ones (the noise; gates x "
+                  f"{SHARDED_NOISE_FACTOR}): "
+                  f"{row['noise_gaps']}", flush=True)
+        stats["runs"][label] = row
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -2920,6 +3125,13 @@ def main() -> int:
     launches_by_path["explore_arch_tasks"] = requirements["launches"]
     phase_done(31, "requirements from models", t_phase)
 
+    # 32. sharded training on every visible card -------------------------------
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    sharded = sharded_phase(args.seed, smi)
+    sharded_launches = sharded["runs"]["hymba-1.5b"]["launches_a_step"]
+    phase_done(32, "sharded training", t_phase)
+
     main_shape = shapes["main"]
     warm = serve["warm"]
     print(f"end-to-end: serve {cfg.name} {SERVE_REQUESTS} x {SERVE_PROMPT} "
@@ -2962,6 +3174,7 @@ def main() -> int:
         "shape": [B, H, K, S, D], "window": cfg.window,
         "sink": cfg.meta_tokens, "modes": attn_timing,
         "train_launches": train["launches"]["flash_attention"],
+        "sharded_train_launches": sharded_launches["flash_attention"],
         "launches_by_path": {
             "serve_hymba": serve_launches["flash_attention"],
             "train_hymba_step": train["launches"]["flash_attention"],
@@ -2982,7 +3195,8 @@ def main() -> int:
         "bound_ms": ssm_bound_ms, "bound_by": ssm_bound_by,
         "library_ms": None, "bound_terms_ms": ssm_terms,
         "shape": [B, S, di, n],
-        "train_launches": train["launches"]["ssm_scan"]}, {
+        "train_launches": train["launches"]["ssm_scan"],
+        "sharded_train_launches": sharded_launches["ssm_scan"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/attention.py:110",
@@ -3002,7 +3216,9 @@ def main() -> int:
         **{k: bwd["flash_attention_bwd"]["SWA"][k] for k in (
             "library", "unqueued_ms", "stages_ms")},
         "global": bwd["flash_attention_bwd"]["global"],
-        "shape": [B, H, K, S, D], "train": train}, {
+        "shape": [B, H, K, S, D], "train": train,
+        "sharded_train_launches": sharded_launches["flash_attention_bwd"],
+        "sharded": sharded}, {
         "name": "ssm_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
         "replaces": "src/repro/models/ssm.py:78",
@@ -3017,7 +3233,8 @@ def main() -> int:
         **{k: bwd["ssm_scan_bwd"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "bound_terms_ms", "unqueued_ms", "stages_ms", "shape")},
-        "train_parity": train_parity}]}))
+        "train_parity": train_parity,
+        "sharded_train_launches": sharded_launches["ssm_scan_bwd"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

@@ -11,9 +11,19 @@ numpy has no bfloat16, so they are written as their 16-bit patterns
 checkpoint is byte-compatible with the reference's both ways. Writes go to
 a temporary directory published with ``os.replace``, so a crash mid-write
 never corrupts the latest checkpoint; the oldest beyond ``keep`` are
-removed. Multi-device resharding on restore (the reference's ``mesh`` and
-``shardings``) is not ported (ROADMAP.md, queue 1, item 7): leaves are
-restored onto their template's device.
+removed.
+
+Sharded trees (``DTensor`` leaves, the sharded train step's state): ``save``
+gathers the full leaves on every rank and rank 0 writes them, in the same
+layout, before a barrier, so that every rank reads the same checkpoint
+afterwards (the write is then synchronous). ``restore`` places the leaves
+by a target mesh's spec trees, as the reference's ``mesh=`` /
+``shardings=`` do: with ``mesh`` alone by ``param_pspec_tree`` and
+``opt_pspec_tree``, with ``shardings=(param_specs, opt_specs)`` by those;
+with neither, a template of ``DTensor``s places each leaf as its template
+leaf is placed, and a template of tensors restores onto its devices. So a
+checkpoint written on one mesh restores bit-equal on any other, or on one
+device.
 """
 from __future__ import annotations
 
@@ -28,6 +38,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.parallel import sharding
 
 SEP = "|"
 
@@ -72,9 +85,32 @@ def _digest(arrays: Dict[str, np.ndarray]) -> str:
     return digest.hexdigest()
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _sharded(tree) -> bool:
+    return any(_is_dtensor(t) for _, t in _items(tree))
+
+
+def _full(tree):
+    """The tree with every ``DTensor`` leaf gathered whole."""
+    if isinstance(tree, dict):
+        return {k: _full(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_full(t) for t in tree)
+    return sharding.full_tensor(tree) if _is_dtensor(tree) else tree
+
+
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def _unflatten_into(template, arrays: Dict[str, np.ndarray], bf16):
     """``template``'s structure (a tree of tensors) with each leaf read from
-    ``arrays``, as a tensor of the leaf's dtype on its device."""
+    ``arrays``, as a whole tensor of the leaf's dtype on its device (a
+    ``DTensor`` leaf's local device)."""
     bf16 = set(bf16)
 
     def build(node, path):
@@ -87,7 +123,8 @@ def _unflatten_into(template, arrays: Dict[str, np.ndarray], bf16):
         arr = np.array(arrays[key])
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16) \
             if key in bf16 else torch.from_numpy(arr)
-        return t.to(device=node.device, dtype=node.dtype)
+        local = node.to_local() if _is_dtensor(node) else node
+        return t.to(device=local.device, dtype=local.dtype)
     return build(template, ())
 
 
@@ -102,6 +139,16 @@ class Checkpointer:
     # ------------------------------------------------------------------ save
     def save(self, step: int, params, opt_state, data_state: Dict[str, Any],
              block: bool = False):
+        """Write a checkpoint of the trees (asynchronously unless ``block``).
+        With ``DTensor`` leaves, a collective: every rank calls it, rank 0
+        writes, and it returns when the checkpoint is published."""
+        sharded = _sharded(params) or _sharded(opt_state)
+        if sharded:
+            params, opt_state = _full(params), _full(opt_state)
+            if _rank() != 0:
+                dist.barrier()
+                return
+            block = True
         params_np, params_bf16 = _flatten(params)
         opt_np, opt_bf16 = _flatten(opt_state)
         self.wait()
@@ -132,6 +179,8 @@ class Checkpointer:
             self._thread.start()
         else:
             _write()
+        if sharded:
+            dist.barrier()
 
     def wait(self):
         if self._thread is not None:
@@ -153,11 +202,12 @@ class Checkpointer:
         return max(steps) if steps else None
 
     def restore(self, step: Optional[int] = None, *, params_template=None,
-                opt_template=None):
+                opt_template=None, mesh=None, shardings=None):
         """Returns (step, params, opt_state, data_state). With templates the
         leaves come back in the templates' structure, dtypes and devices;
         without, as {key: numpy array} (bfloat16 leaves as uint16 bit
-        patterns)."""
+        patterns). ``mesh`` (a ``DeviceMesh``) and ``shardings`` (a pair of
+        spec trees) place them sharded (module docstring)."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -174,4 +224,33 @@ class Checkpointer:
             if params_template is not None else params_np
         opt = _unflatten_into(opt_template, opt_np, bf16.get("opt", ())) \
             if opt_template is not None else opt_np
+        params, opt = self._place(params, opt, params_template, opt_template,
+                                  mesh, shardings)
         return manifest["step"], params, opt, manifest["data_state"]
+
+    @staticmethod
+    def _place(params, opt, params_template, opt_template, mesh, shardings):
+        """The restored whole trees placed on the target mesh."""
+        if mesh is None and shardings is None:
+            if params_template is not None and _sharded(params_template):
+                leaf = next(t for _, t in _items(params_template))
+                mesh = leaf.device_mesh
+                shardings = (sharding.spec_tree(params_template),
+                             sharding.spec_tree(opt_template)
+                             if opt_template is not None else None)
+            else:
+                return params, opt
+        if mesh is None:
+            raise ValueError("restore(shardings=...) needs the mesh= they "
+                             "refer to")
+        if shardings is None:
+            shardings = (sharding.param_pspec_tree(mesh, params),
+                         sharding.opt_pspec_tree(mesh, params, opt)
+                         if opt is not None else None)
+        pspecs, ospecs = shardings
+        if params_template is None:
+            raise ValueError("a sharded restore needs params_template")
+        params = sharding.distribute_tree(mesh, params, pspecs)
+        if opt_template is not None and ospecs is not None:
+            opt = sharding.distribute_tree(mesh, opt, ospecs)
+        return params, opt

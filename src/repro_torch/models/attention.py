@@ -11,6 +11,13 @@ Layouts (those of ``repro/models/attention.py``):
 Every prefill layer, global (``window is None``) and sliding-window, calls
 ``kernels.flash_attention`` with p kept in float32 (``round_p=False``): the
 CUDA kernel on the card, its plain version on the CPU.
+
+Under an active mesh whose "model" axis divides both H and K, the prefill/
+train block is tensor parallel over the heads: each rank of "model"
+projects, attends (the kernel on its heads) and projects out its H / m
+query and K / m kv heads, and the partial outputs are all-reduced
+(``parallel.comm``). Where the heads do not divide, the block runs whole
+on every rank, as ``parallel.sharding`` leaves such weights replicated.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ref import NEG
 from repro_torch.models.common import (apply_rope, dense_init, rmsnorm,
                                        rmsnorm_init)
+from repro_torch.parallel import comm
 
 
 def init_attn(gen, cfg, dtype, device):
@@ -94,11 +102,23 @@ def causal_attention(q, k, v, positions, window=None, chunk=2048, sink=0):
 
 def attn_block(p, x, cfg, positions, window=None, sink=0):
     """Attention block for prefill, queries at ``positions`` = arange(S).
-    Returns (out, (k, v))."""
+    Returns (out, (k, v)); under a mesh that splits the heads, k and v are
+    this rank's heads."""
+    m = comm.axis_size("model")
+    if m > 1 and cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0:
+        x = comm.enter(x, "model")
+        p = {k: comm.split(w, 0 if k == "wo" else 1, "model")
+             if k in ("wq", "wk", "wv", "wo") else comm.enter(w, "model")
+             for k, w in p.items()}
+        cfg = cfg.replace(num_heads=cfg.num_heads // m,
+                          num_kv_heads=cfg.num_kv_heads // m)
+    else:
+        m = 1
     q, k, v = _qkv(p, x, cfg, positions)
     o = causal_attention(q, k, v, positions, window=window,
                          chunk=cfg.attn_chunk, sink=sink)
-    return _out(o.to(x.dtype), p["wo"]), (k, v)
+    out = _out(o.to(x.dtype), p["wo"])
+    return (comm.reduce(out, "model") if m > 1 else out), (k, v)
 
 
 def attend_cache(q, k_all, v_all, valid):

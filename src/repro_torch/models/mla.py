@@ -8,6 +8,11 @@ computed against the (kv_lora + rope) latent cache directly, in float32
 as the reference computes them (plain torch, as ``attention.attend_cache``
 is), so a token costs kv_lora_rank + qk_rope_dim cached values instead of
 2 * H * head_dim.
+
+Under an active mesh whose "model" axis divides H, the prefill/train path
+is tensor parallel over the heads: the latents are computed whole on every
+rank, each rank of "model" expands, attends (the kernel on its heads) and
+projects out its H / m heads, and the partial outputs are all-reduced.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from repro_torch.kernels.ref import NEG
 from repro_torch.models.attention import _out, _proj, _scale, causal_attention
 from repro_torch.models.common import (apply_rope, dense_init, rmsnorm,
                                        rmsnorm_init)
+from repro_torch.parallel import comm
 
 
 def init_mla(gen, cfg, dtype, device):
@@ -36,11 +42,20 @@ def init_mla(gen, cfg, dtype, device):
     }
 
 
-def _q_proj(p, x, cfg, positions):
-    """(q_nope (B,S,H,dn), q_rope (B,S,H,dr)), the rope part rotated."""
+def _q_latent(p, x):
+    return rmsnorm(x @ p["w_dq"], p["q_norm"])
+
+
+def _q_heads(p, cq, cfg, positions):
+    """(q_nope (B,S,H,dn), q_rope (B,S,H,dr)) of the query latent, the
+    rope part rotated."""
     dn = cfg.qk_nope_dim
-    q = _proj(rmsnorm(x @ p["w_dq"], p["q_norm"]), p["w_uq"])
+    q = _proj(cq, p["w_uq"])
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _q_proj(p, x, cfg, positions):
+    return _q_heads(p, _q_latent(p, x), cfg, positions)
 
 
 def _kv_latent(p, x, cfg, positions):
@@ -56,16 +71,27 @@ def mla_block(p, x, cfg, positions):
     """Prefill/train path, queries at ``positions`` = arange(S). Returns
     (out, (ckv, kr)), the compressed cache."""
     B, S, _ = x.shape
-    H, dr = cfg.num_heads, cfg.qk_rope_dim
-    q_nope, q_rope = _q_proj(p, x, cfg, positions)
+    m = comm.axis_size("model")
+    cq = _q_latent(p, x)
     ckv, kr = _kv_latent(p, x, cfg, positions)
+    cache = (ckv, kr)
+    if cfg.num_heads % m == 0:        # the heads over "model"
+        p = {k: comm.split(w, 0 if k == "wo" else 1, "model")
+             if k in ("w_uq", "w_uk", "w_uv", "wo") else w
+             for k, w in p.items()}
+        cq, ckv, kr = (comm.enter(t, "model") for t in (cq, ckv, kr))
+    else:
+        m = 1
+    H, dr = cfg.num_heads // m, cfg.qk_rope_dim
+    q_nope, q_rope = _q_heads(p, cq, cfg, positions)
     k_nope = _proj(ckv, p["w_uk"])                             # (B,S,H,dn)
     v = _proj(ckv, p["w_uv"])                                  # (B,S,H,dv)
     q = torch.cat([q_nope, q_rope], dim=-1)                    # (B,S,H,dqk)
     k = torch.cat([k_nope, kr[:, :, None, :].expand(B, S, H, dr)], dim=-1)
     o = causal_attention(q[:, :, :, None, :], k, v, positions,
                          chunk=cfg.attn_chunk)                 # (B,S,H,dv)
-    return _out(o.to(x.dtype), p["wo"]), (ckv, kr)
+    out = _out(o.to(x.dtype), p["wo"])
+    return (comm.reduce(out, "model") if m > 1 else out), cache
 
 
 def mla_decode_block(p, x, cfg, ckv_cache, kr_cache, pos: int):

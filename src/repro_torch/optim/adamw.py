@@ -44,9 +44,13 @@ def tree_map(fn, *trees):
     return fn(*trees)
 
 
-def _q8(x):
-    """int8 along the last axis: (q, scale)."""
+def _q8(x, row_max=None):
+    """int8 along the last axis: (q, scale). ``row_max``, when the last
+    axis is split over ranks, takes each local row's amax to the whole
+    row's."""
     amax = x.abs().amax(-1, keepdim=True)
+    if row_max is not None:
+        amax = row_max(amax)
     scale = torch.clamp_min(amax, 1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -87,12 +91,12 @@ def _load(moment, kind: str):
     return moment
 
 
-def _store(val, moment, kind: str) -> None:
+def _store(val, moment, kind: str, row_max=None) -> None:
     """Write ``val`` into ``moment`` in place; v is quantized in the sqrt
     domain, where Adam consumes it."""
     if _is_q8(moment):
         q, s = _q8(torch.sqrt(torch.clamp_min(val, 0.0)) if kind == "v"
-                   else val)
+                   else val, row_max)
         moment["q"].copy_(q)
         moment["scale"].copy_(s)
     else:
@@ -110,12 +114,19 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(grads, state, params, lr, acfg: AdamWConfig = AdamWConfig()):
+def adamw_update(grads, state, params, lr, acfg: AdamWConfig = AdamWConfig(),
+                 *, gnorm=None, row_max=None):
     """One AdamW step, in place: clip the gradients to ``clip_norm`` by
     their global norm, bias-correct the moments, decay the matrices (a leaf
     of at least 2 dims, the stacked layer axis included). Returns (params,
-    state, grad_norm) — the same tensors, updated."""
-    gnorm = global_norm(grads)
+    state, grad_norm) — the same tensors, updated.
+
+    On one rank's blocks of sharded leaves, the caller passes the norm of
+    the whole gradient (``gnorm``) and, for int8 moments, ``row_max``: per
+    leaf (in leaf order) None or the function that takes a local row amax
+    to the whole row's."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp_max(
         acfg.clip_norm / torch.clamp_min(gnorm, 1e-12), 1.0)
     state["count"].add_(1)
@@ -123,7 +134,7 @@ def adamw_update(grads, state, params, lr, acfg: AdamWConfig = AdamWConfig()):
     c1 = 1.0 - torch.pow(torch.tensor(acfg.b1, device=count.device), count)
     c2 = 1.0 - torch.pow(torch.tensor(acfg.b2, device=count.device), count)
 
-    def upd(p, g, m_st, v_st):
+    def upd(p, g, m_st, v_st, rmax):
         g = g.float() * scale
         m = acfg.b1 * _load(m_st, "m") + (1 - acfg.b1) * g
         v = acfg.b2 * _load(v_st, "v") + (1 - acfg.b2) * g * g
@@ -131,13 +142,15 @@ def adamw_update(grads, state, params, lr, acfg: AdamWConfig = AdamWConfig()):
         if p.dim() >= 2:    # decoupled weight decay on matrices only
             step = step + acfg.weight_decay * p.float()
         p.copy_((p.float() - lr * step).to(p.dtype))
-        _store(m, m_st, "m")
-        _store(v, v_st, "v")
+        _store(m, m_st, "m", rmax)
+        _store(v, v_st, "v", rmax)
 
-    for p, g, m_st, v_st in zip(leaves(params), leaves(grads),
-                                _moment_leaves(state["m"], params),
-                                _moment_leaves(state["v"], params)):
-        upd(p, g, m_st, v_st)
+    flat = leaves(params)
+    for p, g, m_st, v_st, rmax in zip(
+            flat, leaves(grads), _moment_leaves(state["m"], params),
+            _moment_leaves(state["v"], params),
+            row_max if row_max is not None else [None] * len(flat)):
+        upd(p, g, m_st, v_st, rmax)
     return params, state, gnorm
 
 

@@ -856,3 +856,133 @@ def test_explore_over_arch_tasks_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert obs.value("kernels.dispatch.retention.plain") == p0
     cpu = api.explore(space=space, tasks=tasks, policy=policy, device="cpu")
     assert card.labels() == cpu.labels()
+
+
+# ---------------------------------------------------------------------------
+# the sharded paths across the visible cards (NCCL): one worker a card
+# ---------------------------------------------------------------------------
+
+# tests/test_torch_train.py's gates: the step's loss and grad_norm, and
+# every parameter and AdamW moment, by depth
+RTOL_TRAIN_GRAD = {2: 3e-4, 4: 2e-3}
+RTOL_TRAIN_STEP = {"loss": 1e-5, "grad_norm": RTOL_TRAIN_GRAD[4]}
+RTOL_TRAIN_UPDATE, RTOL_TRAIN_FLIPS = 0.1, 1e-3    # tests/test_torch_sharding
+SHARDED_TIMEOUT = 300
+
+
+def _cards(cuda):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs at least 2 cards")
+    return n, ((n // 2, 2) if n % 2 == 0 else (n, 1))
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_on_every_card_matches_one_card(cuda, tmp_path):
+    """The reduced hymba (float32, 4 layers) on a ("data", "model") mesh
+    over every card against the same two steps on one card (lr 0, then lr
+    5e-4): loss and grad_norm within RTOL_TRAIN_STEP, moments within
+    RTOL_TRAIN_GRAD[4], parameters within RTOL_TRAIN_UPDATE lr where the
+    moment is above its noise and apart by more than lr / 10 in at most
+    RTOL_TRAIN_FLIPS of the entries (``torch_sharded_checks``); the
+    attention and scan kernels (forward and backward) launch on each
+    rank's shards."""
+    import torch_sharded_checks as checks
+    from repro_torch.launch import spmd
+    n, mesh = _cards(cuda)
+    out = spmd.launch(checks.train_check, n, (dict(
+        arch="hymba-1.5b", reduced=True, mesh=mesh, batch=4, seq=24,
+        data_seed=3, steps=[0, 1], base_lr=1e-3, warmup=2, single=True),),
+        timeout=SHARDED_TIMEOUT, store_dir=str(tmp_path))[0]
+    assert out["mesh"] == mesh
+    for k, tol in RTOL_TRAIN_STEP.items():
+        assert out["gaps"][k] <= tol, (k, out["gaps"])
+    for k in ("m", "v"):
+        assert out["gaps"][k] <= RTOL_TRAIN_GRAD[4], (k, out["gaps"])
+    assert out["gaps"]["update"] <= RTOL_TRAIN_UPDATE, out["gaps"]
+    assert out["gaps"]["flips"] <= RTOL_TRAIN_FLIPS, out["gaps"]
+    assert out["rows"][1]["lr"] > 0
+    launches = out["rows"][0]["launches"]
+    assert all(v > 0 for v in launches.values()), launches
+
+
+@pytest.mark.cuda
+def test_sharded_expert_parallel_moe_matches_the_unsharded_block(cuda,
+                                                                 tmp_path):
+    """The reduced moonshot's MoE block with REPRO_MOE_SHARDMAP=1 on a
+    mesh over every card (its experts over "model") against the unsharded
+    block on one card: y within 1e-5, load within 1e-7, gradients within
+    RTOL_TRAIN_GRAD[2]."""
+    from repro_torch.configs import get_config, reduce_config
+    import torch_sharded_checks as checks
+    from repro_torch.launch import spmd
+    from repro_torch.models import moe
+    n, mesh = _cards(cuda)
+    cfg = reduce_config(get_config("moonshot-v1-16b-a3b"))
+    gen = torch.Generator().manual_seed(0)
+    p = moe.init_moe(gen, cfg, torch.float32, "cpu")
+    x = torch.randn((2 * mesh[0], 16, cfg.d_model), generator=gen)
+    from repro_torch.parallel.sharding import map_tree
+    out = spmd.launch(checks.moe_check, n, (dict(
+        arch="moonshot-v1-16b-a3b", reduced=True, mesh=mesh,
+        p=map_tree(lambda t: t.numpy(), p), x=x.numpy(), plain=True),),
+        timeout=SHARDED_TIMEOUT, env={"REPRO_MOE_SHARDMAP": "1"},
+        store_dir=str(tmp_path))[0]
+    plain = out["plain"]
+    assert np.max(np.abs(out["y"] - plain["y"])) <= 1e-5
+    assert np.max(np.abs(out["load"] - plain["load"])) <= 1e-7
+    for k, want in plain["grads"].items():
+        if not np.any(want):
+            assert not np.any(out["grads"][k]), k
+            continue
+        gap = np.max(np.abs(out["grads"][k] - want)) / np.max(np.abs(want))
+        assert gap <= RTOL_TRAIN_GRAD[2], (k, gap)
+
+
+@pytest.mark.cuda
+def test_sharded_ef_int8_all_reduce_over_nccl(cuda, tmp_path):
+    """``ef_int8_psum_mean`` over every card, two steps: one shared scale,
+    the mean the int32 sum of the payloads times it over n, and the
+    residual what the payload left out."""
+    import torch_sharded_checks as checks
+    from repro_torch.launch import spmd
+    n, _ = _cards(cuda)
+    g = [[{"w": np.random.default_rng(100 * r + s).normal(
+        size=(64, 48)).astype(np.float32)} for s in range(2)]
+        for r in range(n)]
+    per_rank = spmd.launch(checks.ef_int8_check, n, ({"g": g},),
+                           timeout=SHARDED_TIMEOUT, store_dir=str(tmp_path))
+    resid = [np.zeros((64, 48), np.float32) for _ in range(n)]
+    for s in range(2):
+        x = [g[r][s]["w"] + resid[r] for r in range(n)]
+        scale = np.float32(max(np.abs(a).max() for a in x)) / np.float32(127)
+        total = sum(per_rank[r][s]["q"]["w"].astype(np.int32)
+                    for r in range(n))
+        for r in range(n):
+            got = per_rank[r][s]
+            assert got["scale"]["w"] == pytest.approx(float(scale), rel=1e-7)
+            np.testing.assert_array_equal(
+                got["q"]["w"], np.clip(np.round(x[r] / got["scale"]["w"]),
+                                       -127, 127).astype(np.int8))
+            np.testing.assert_allclose(
+                got["mean"]["w"], total * got["scale"]["w"] / n, rtol=1e-6)
+            np.testing.assert_allclose(
+                got["resid"]["w"], x[r] - got["q"]["w"] * got["scale"]["w"],
+                rtol=1e-6, atol=1e-7)
+            resid[r] = got["resid"]["w"]
+
+
+@pytest.mark.cuda
+def test_sharded_checkpoint_round_trip_across_meshes(cuda, tmp_path):
+    """A checkpoint of the sharded state restores bit-equal on its mesh, on
+    a data-only mesh over every card and on one card, and one written on
+    one card restores onto the mesh."""
+    import torch_sharded_checks as checks
+    from repro_torch.launch import spmd
+    n, mesh = _cards(cuda)
+    res = spmd.launch(checks.reshard_check, n, (dict(
+        arch="hymba-1.5b", reduced=True, mesh=mesh, dir=str(tmp_path)),),
+        timeout=SHARDED_TIMEOUT, store_dir=str(tmp_path))[0]
+    for k in ("same_mesh", "data_mesh", "one_device", "to_mesh"):
+        assert res[k] is True, k
+    assert res["data_mesh_placed"] == (n,)

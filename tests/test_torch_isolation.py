@@ -50,6 +50,11 @@ def test_import_pulls_in_neither_jax_nor_repro():
         "import repro_torch.optim.adamw, repro_torch.train.step\n"
         "import repro_torch.data.pipeline, repro_torch.checkpoint.ckpt\n"
         "import repro_torch.runtime.supervisor, repro_torch.launch.train\n"
+        "import repro_torch.parallel.sharding, repro_torch.parallel.comm\n"
+        "import repro_torch.parallel.compression, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.spmd\n"
+        f"sys.path.insert(0, {str(ROOT / 'tests')!r})\n"
+        "import torch_sharded_checks\n"   # imported by the card's tests
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "'jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n")
