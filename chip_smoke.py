@@ -136,7 +136,14 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             the scan: chunk adjoints, carries, gradients, reduction), the
             window run again, up to ``SPLIT_WINDOWS`` in all, while its
             trace lacks one of them, and a kernel none recorded is written
-            down as not measured;
+            down as not measured; the attention backward at MLA's head dims
+            (``MLA_BWD_CASES``: deepseek-v3's (4, 128, 128, 1,000) with
+            query/key 192 and value 128, a ragged S, and the reduced 24 /
+            16 padded to 32; float32 and bf16) against
+            ``ref.attention_ref_grads`` with the same gates, bit-equal twice
+            at the training shape, and its bf16 time beside its bound (6
+            Dqk + 4 Dv flops a visible score), the plain backward's and
+            SDPA's where a backend takes Dv != D;
 20. train  hymba-1.5b at full width in bf16 (1,655,198,400 parameters from
             ``--seed``): ``make_train_step(remat="full")`` with AdamW, lr
             1e-3, warmup 2, on ``SyntheticLMData(cfg, 4, 1128, seed)``
@@ -181,7 +188,10 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
 25. parity the reduced moonshot and deepseek (float32) on the card and the
             CPU with the same weights, as phase 10: identical greedy tokens,
             the prefill's and every decode step's logits within
-            ``RTOL_SERVE_CPU``;
+            ``RTOL_SERVE_CPU``; and their loss and every gradient leaf as
+            phase 21 (``RTOL_TRAIN_CPU``; deepseek: MLA, MoE and MTP), one
+            attention backward launch a layer (MTP's layer too) and no
+            plain dispatch on the card;
 26. vis-attn the flash-attention kernel against its plain version at
             phi-3-vision-4.2b's prefill (4, 32, 32, 1,000, 96) and
             musicgen-medium's (4, 24, 24, 1,000, 64), as phase 22: float32
@@ -210,14 +220,19 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             a layer for vision and audio, none for the xLSTM;
 31. reqs   requirements from models: ``launch.dryrun.main(["--all"])``
             writes the 40 records of pod16x16 (10 architectures x 4 shapes,
-            full width on the meta device; 32 ok, 8 ``long_500k`` skipped),
-            ``roofline.load_table`` reads 32 rows; one ``api.explore`` on
+            full width on the meta device, ``dryrun.JOBS`` processes; 32
+            ok, 8 ``long_500k`` skipped), every ok one with collectives
+            counted from the port's sharded step (bytes > 0);
+            ``roofline.load_table`` reads 32 rows, and the collective term's
+            part of each row's bound prints; one ``api.explore`` on
             the card over the 20 train_4k and decode_32k ``arch_task``s
             with ``benchmarks/arch_dse.py``'s space and policy
             (``ARCH_MEM_TYPES``, ``ARCH_PREFERENCE``): the retention kernel
             dispatched (``kernels.dispatch.retention.cuda`` rises, the plain
             count does not), the labels equal to the same ``explore`` on the
-            CPU; its cold and warm wall time and a warm call profiled;
+            CPU; its cold and warm wall time and a warm call profiled; the
+            picks that move against the same records with no collective
+            term;
             ``compose`` + ``simulate_report(traces=arch_traces(...))`` of
             qwen3-8b/decode_32k on the card and the CPU: orders equal,
             ``sim_*`` within ``RTOL_SIM``; ``memory_dse_annotate`` on the
@@ -229,25 +244,35 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             (2, 2) on 4 cards and (1, 1) on one (printed); each run trains
             two steps (lr 0, then lr > 0) sharded and on one card from the
             same weights and batch (phase 20's batch, lr and warmup). At
-            full width in float32 cut to 2 layers: hymba-1.5b, and
+            full width in float32 cut to 2 layers: hymba-1.5b,
             moonshot-v1-16b-a3b (1 dense, 1 MoE layer, capacity factor E /
             k) with ``REPRO_MOE_SHARDMAP=1`` (expert parallelism) and
-            without (the gathered block): loss and grad_norm within
+            without (the gathered block), and deepseek-v3-671b cut as phase
+            33 cuts it (MLA's 128 heads split over "model": 4 forward and 2
+            backward launches a step): loss and grad_norm within
             ``RTOL_SHARDED_STEP``, the AdamW moments within
             ``RTOL_SHARDED_GRAD``, the parameters within
             ``RTOL_SHARDED_UPDATE`` lr where the moment is above its noise
             (``RTOL_SHARDED_FLIPS``); hymba-1.5b at full width and depth
-            (bf16). The moonshot runs and full hymba also measure one
-            card's own 2-microbatch gap, and each of their gaps may be up
-            to ``SHARDED_NOISE_FACTOR`` times it. Full hymba's step
-            launches both forward kernels and both backward kernels on
+            (bf16). On more than one card the moonshot runs and full hymba
+            also measure one card's own 2-microbatch gap, and each of their
+            gaps may be up to ``SHARDED_NOISE_FACTOR`` times it. Full
+            hymba's step launches both forward kernels and both backward
+            kernels on
             every rank's shards; 2 warm steps timed (seconds, tokens/s,
             MFU over every card) with each card's peak memory, and one
             more under ``torch.profiler`` on rank 0 for NCCL's share of
             the device time. On (1, 1) every run is bit-equal to one
             card's. On 4 or more cards, moonshot-v1-16b-a3b at
             ``SHARDED_DEEP_LAYERS`` layers, which one card cannot hold,
-            trains the same way (times, peak memory, NCCL share).
+            trains the same way (times, peak memory, NCCL share);
+33. train-mla deepseek-v3-671b at full width in bf16 cut to its first 2
+            layers (both dense) without the MTP module (``TRAIN_MLA``:
+            3,020,332,032 parameters), trained as phase 20 for
+            ``TRAIN_MLA_STEPS`` steps on phase 20's batch: every loss and
+            grad_norm finite, 4 forward and 2 backward attention launches a
+            step at (192, 128), no plain dispatch; step seconds, tokens/s,
+            peak memory, MFU and a profiled warm step.
 
 Each phase prints its seconds. It prints one ``{"kernels": [...]}`` line,
 then, last, the ``{"ok": true, "device": {...}}`` line.
@@ -375,16 +400,17 @@ ATTN_ELEM_OPS_PER_SCORE = 5
 SSM_OPS_PER_STATE, SSM_OPS_PER_CHANNEL = 7, 3
 # ... and of the two backward kernels:
 # - flash attention backward: per visible score 2D flops each for S (p is
-#   not an input: it is recomputed), dP, dV, dK and dQ on the bf16 peak; 5
-#   fp32 ops per score (exp, the lse subtraction, dP - Delta, the product,
-#   the mask) and 2D per row for Delta on the fp32 peak; bytes: q, k, v, o,
-#   dO and lse read once, dq, dk, dv written once;
+#   not an input: it is recomputed), dK and dQ, and 2Dv each for dP and dV
+#   (Dv the value head dim: 10D a score where Dv = D, 6D + 4Dv for MLA) on
+#   the bf16 peak; 5 fp32 ops per score (exp, the lse subtraction, dP -
+#   Delta, the product, the mask) and 2Dv per row for Delta on the fp32
+#   peak; bytes: q, k, v, o, dO and lse read once, dq, dk, dv written once;
 # - selective scan backward: per (b, t, channel) and state, 16 fp32 ops
 #   (the state recomputed from the saved one: 2; the adjoint: 2; ddt's
 #   term: 4; dx's: 1; dA's: 3; dB's and dC's: 2 each) and one exponential
 #   (a_t), plus 4 per (b, t, channel) (dx, dD); bytes: x, dt, dy, B, C, A,
 #   D and the saved states read once, dx, ddt, dA, dB, dC, dD written once.
-ATTN_BWD_FLOPS_PER_SCORE_DIM = 10
+ATTN_BWD_FLOPS_PER_SCORE_D, ATTN_BWD_FLOPS_PER_SCORE_DV = 6, 4
 # the CUDA runtime and driver calls that put work on a stream, as
 # torch.profiler names them
 HOST_LAUNCH_CALLS = {"cudaLaunchKernel", "cudaLaunchKernelExC",
@@ -409,6 +435,17 @@ ATTN_BWD_CASES = [(4, 25, 5, 1128, 64, 1024, 128, "bfloat16"),
 # (B, S, di, n): hymba-1.5b's full width; the reduced hymba's scan; a di no
 # block divides and an S no saved-state interval divides
 SSM_BWD_SHAPES = [(4, 1128, 3200, 16), (4, 68, 128, 8), (2, 193, 200, 16)]
+# (B, H, K, S, Dqk, Dv, dtype): the attention backward at MLA's head dims:
+# deepseek-v3's training shape (128 heads, query/key 192, value 128, 1,000
+# positions), a ragged S, and the reduced MLA's 24 / 16 (q and k padded to
+# 32), each in bf16 and float32; the first two are bit-equal twice, and the
+# bf16 one is timed
+MLA_BWD_CASES = [(4, 128, 128, 1000, 192, 128, "bfloat16"),
+                 (4, 128, 128, 1000, 192, 128, "float32"),
+                 (1, 16, 16, 333, 192, 128, "bfloat16"),
+                 (1, 16, 16, 333, 192, 128, "float32"),
+                 (2, 4, 4, 40, 24, 16, "bfloat16"),
+                 (2, 4, 4, 40, 24, 16, "float32")]
 # phase 19's times: the median of this many time_ms readings, each of 20
 # calls queued behind a sleep of QUEUE_CYCLES card cycles (~10 ms, longer
 # than the host takes to queue them)
@@ -423,6 +460,15 @@ QUEUE_CYCLES = 20_000_000
 SDPA_BACKENDS = ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION")
 # phase 20: full-width training of hymba-1.5b
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 1128, 8, 1e-3
+# phase 33: deepseek-v3-671b at full width trained on phase 20's batch,
+# cut to its first 2 layers (both dense; MLA at (192, 128)) without the MTP
+# module: 3,020,332,032 parameters, ~36 GB at 12 bytes each (bf16
+# parameters and gradients, float32 moments). A cut that keeps an MoE layer
+# or the MTP module (~11.5 B parameters each) does not fit one card for
+# training
+TRAIN_MLA = ("deepseek-v3-671b",
+             {"num_layers": 2, "first_dense_layers": 2, "mtp": False})
+TRAIN_MLA_STEPS = 4
 # phase 21: the reduced hymba's loss and every gradient leaf on the card
 # against the CPU (float32; the gap grows through the 4 random-weight
 # layers as it does between the port and JAX on the CPU, 3.9e-4 there:
@@ -788,15 +834,15 @@ def profile_report(label, fn):
     # device-side events only (kernels, copies): an operator's entry also
     # carries the device time of the kernels it launched, so summing both
     # would count that time twice
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()      # seconds over a large trace: once
+    kernels = [e for e in averages if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in kernels)
     launches = sum(e.count for e in kernels)
     # the launch and copy calls as the host made them: the device trace can
     # hold a few more or fewer records of the same calls from one profiled
     # window to the next (a warm explore: 971 or 985 with the same 137
     # copies and 88 gathers issued)
-    host_calls = sum(e.count for e in prof.key_averages()
+    host_calls = sum(e.count for e in averages
                      if e.device_type == DeviceType.CPU
                      and e.key in HOST_LAUNCH_CALLS)
     print(f"profile: {label} {wall_s:.4f} s wall, device busy "
@@ -1361,14 +1407,17 @@ def observability_phase(ptable, cfg, params, prompt, launches_by_path,
     return stats
 
 
-def attn_bwd_bound(B, H, K, S, D, itemsize, window=None, sink=0):
-    """(bound ms, 'bytes' | 'operations') of the attention backward,
-    counting only the scores the mask leaves."""
+def attn_bwd_bound(B, H, K, S, D, itemsize, window=None, sink=0, Dv=None):
+    """(bound ms, 'bytes' | 'operations') of the attention backward, q/k
+    head dim D and value head dim Dv (D unless given), counting only the
+    scores the mask leaves."""
+    Dv = D if Dv is None else Dv
     scores = B * H * visible_scores(S, window, sink)
-    t_mm = scores * ATTN_BWD_FLOPS_PER_SCORE_DIM * D / PEAK_BF16_TC
-    t_elem = (scores * ATTN_ELEM_OPS_PER_SCORE + 2 * B * H * S * D) \
+    t_mm = scores * (ATTN_BWD_FLOPS_PER_SCORE_D * D
+                     + ATTN_BWD_FLOPS_PER_SCORE_DV * Dv) / PEAK_BF16_TC
+    t_elem = (scores * ATTN_ELEM_OPS_PER_SCORE + 2 * B * H * S * Dv) \
         / PEAK_FP32_OPS
-    t_bytes = ((6 * B * H * S * D + 4 * B * K * S * D) * itemsize
+    t_bytes = (2 * (B * H * S + B * K * S) * (D + Dv) * itemsize
                + 4 * B * H * S) / PEAK_BYTES
     t_ops = max(t_mm, t_elem)
     return (max(t_ops, t_bytes) * 1e3,
@@ -1454,9 +1503,10 @@ def same_twice(label, fn):
     print(f"determinism {label}: two runs bit-equal", flush=True)
 
 
-def sdpa_backward_ms(leaves, do):
+def sdpa_backward_ms(leaves, do, required: bool = True):
     """(backend name, median ms) of SDPA's backward (causal, GQA) on the
-    first of ``SDPA_BACKENDS`` that runs."""
+    first of ``SDPA_BACKENDS`` that runs; where none does, fails, or
+    returns (None, None) unless ``required``."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
     for name in SDPA_BACKENDS:
@@ -1470,7 +1520,9 @@ def sdpa_backward_ms(leaves, do):
         except RuntimeError as err:
             print(f"SDPA backend {name} does not run here: "
                   f"{str(err).splitlines()[0]}", flush=True)
-    fail(f"none of the SDPA backends {SDPA_BACKENDS} runs")
+    if required:
+        fail(f"none of the SDPA backends {SDPA_BACKENDS} runs")
+    return None, None
 
 
 def rel_gaps(got, want):
@@ -1483,6 +1535,78 @@ def abs_err(got, want) -> float:
     """The largest max|got - want| over the pairs."""
     return max((g.float() - w.float()).abs().max().item()
                for g, w in zip(got, want))
+
+
+def mla_backward_checks(seed: int):
+    """Phase 19's MLA part: the attention backward at ``MLA_BWD_CASES``
+    against ``ref.attention_ref_grads`` (one launch a backward, phase 19's
+    gates), bit-equal twice at the training shape, and the bf16 training
+    shape's time beside its bound, the plain backward's and SDPA's where a
+    backend of it takes Dv != D. Returns its stats."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    out = {"max_rel_err": {}, "cases": []}
+    for i, (B, H, K, S, D, Dv, dtype) in enumerate(MLA_BWD_CASES):
+        dt = getattr(torch, dtype)
+        q, k, v = attn_inputs((B, H, K, S, D, Dv), dt, seed, dev)
+        do = torch.from_numpy(np.random.default_rng(seed + 1).normal(
+            size=(B, H, S, Dv)).astype(np.float32)).to(dev, dt)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+        def bwd():
+            o = kflash.flash_attention(*leaves, round_p=False)
+            return torch.autograd.grad(o, leaves, do)
+        n0 = kflash.flash_attention_bwd.launches
+        got = bwd()
+        want = ref.attention_ref_grads(q, k, v, do)
+        torch.cuda.synchronize()
+        if kflash.flash_attention_bwd.launches != n0 + 1:
+            fail("the MLA attention backward did not launch its kernel once")
+        gaps = rel_gaps(got, want)
+        gate = RTOL_ATTN_BWD[dtype]
+        label = f"flash_attention_bwd MLA {(B, H, K, S, D, Dv)} {dtype}"
+        print(f"kernel {label}: max|kernel - plain| / max|plain| dq "
+              f"{gaps[0]:.3e}, dk {gaps[1]:.3e}, dv {gaps[2]:.3e} (gate "
+              f"{gate})", flush=True)
+        if max(gaps) > gate or not all(torch.isfinite(g).all() for g in got) \
+                or [tuple(g.shape) for g in got] != \
+                [tuple(t.shape) for t in (q, k, v)]:
+            fail(f"{label}: gradients {gaps} beyond {gate}")
+        out["max_rel_err"][dtype] = max(out["max_rel_err"].get(dtype, 0.0),
+                                        *gaps)
+        out["cases"].append({"case": [B, H, K, S, D, Dv, dtype],
+                             "gaps": gaps, "max_abs_err": abs_err(got, want)})
+        del got, want
+        if i < 2:
+            same_twice(label, bwd)
+        if i == 0:
+            o, lse = kflash._forward(q, k, v, True, None, 0, False,
+                                     with_lse=True)
+            ms = median_ms(lambda: kflash.flash_attention_bwd(
+                q, k, v, o, do, lse))
+            o_plain = ref.attention_ref(*leaves, round_p=False)
+            plain_ms = time_ms(lambda: torch.autograd.grad(
+                o_plain, leaves, do, retain_graph=True), 3, 1)
+            del o_plain
+            backend, lib_ms = sdpa_backward_ms(leaves, do, required=False)
+            b_ms, b_by = attn_bwd_bound(B, H, K, S, D, 2, Dv=Dv)
+            out.update({"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "library": None if backend is None else
+                        f"SDPA backward, {backend}",
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "shape": [B, H, K, S, D, Dv]})
+            print(f"timing {label}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, "
+                  + (f"SDPA backward on {backend} {lib_ms:.4f} ms"
+                     if backend else "no SDPA backend takes Dv != D")
+                  + f", bound {b_ms:.4f} ms ({b_by})", flush=True)
+            del o, lse
+        del leaves
+    torch.cuda.empty_cache()
+    return out
 
 
 def backward_kernels_phase(seed: int):
@@ -1526,6 +1650,7 @@ def backward_kernels_phase(seed: int):
             {"case": [B, H, K, S, D, window, sink, dtype], "gaps": gaps,
              "max_abs_err": abs_err(got, want)})
         del leaves, o, got, want
+    out["flash_attention_bwd_mla"] = mla_backward_checks(seed)
     for shape in SSM_BWD_SHAPES:
         xs = ssm_inputs(shape, seed, dev)
         dy = ssm_inputs(shape, seed + 1, dev)[0]
@@ -1643,14 +1768,17 @@ def device_gaps(prof, top: int = 3):
 
 
 def model_flops(cfg, batch: int, seq: int) -> float:
-    """FLOPs of one training step of hymba at (batch, seq): 6 per matrix
+    """FLOPs of one training step of a dense-layer model (hymba, or
+    deepseek-v3 cut to its dense layers) at (batch, seq): 6 per matrix
     weight per token (forward and backward; the head over the text
-    positions that predict), plus the attention's 3 x 4 D per visible score
-    per head. Remat's recomputation is not counted (model FLOPs)."""
-    from repro_torch.models import LM
+    positions that predict), plus the attention's 3 x 2 (Dqk + Dv) per
+    visible score per head. Remat's recomputation is not counted (model
+    FLOPs)."""
+    from repro_torch.models import LM, build_plan
     spec = LM(cfg, device="meta").init()
     mats = ("wq", "wk", "wv", "wo", "wg", "wu", "wd", "w_in", "w_dt1",
-            "w_dt2", "w_B", "w_C", "w_out")
+            "w_dt2", "w_B", "w_C", "w_out", "w_dq", "w_uq", "w_dkv", "w_kr",
+            "w_uk", "w_uv")
 
     def count(tree):
         if isinstance(tree, dict):
@@ -1663,16 +1791,19 @@ def model_flops(cfg, batch: int, seq: int) -> float:
     text = seq - cfg.meta_tokens
     flops = 6 * body * batch * seq + 6 * spec["head"].numel() * batch * (
         text - 1)
-    for i in range(cfg.num_layers):
-        window = None if i in cfg.full_attn_every else cfg.window
-        sink = 0 if window is None else cfg.meta_tokens
-        flops += 3 * 4 * cfg.head_dim * cfg.num_heads * batch * \
-            visible_scores(seq, window, sink)
+    dqk, dv = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
+               if cfg.mla else (cfg.head_dim, cfg.head_dim))
+    for seg in build_plan(cfg):
+        sink = 0 if seg.window is None else cfg.meta_tokens
+        flops += len(seg.layers) * 3 * 2 * (dqk + dv) * cfg.num_heads * \
+            batch * visible_scores(seq, seg.window, sink)
     return float(flops)
 
 
-def training_phase(seed: int, smi: str):
-    """Phase 20: full-width hymba-1.5b trained for ``TRAIN_STEPS`` steps
+def training_phase(seed: int, smi: str, arch: str = "hymba-1.5b",
+                   overrides=None, steps: int = TRAIN_STEPS):
+    """Phase 20: full-width hymba-1.5b trained for ``TRAIN_STEPS`` steps;
+    phase 33: ``TRAIN_MLA``'s cut of deepseek-v3 for ``TRAIN_MLA_STEPS``
     (see the module docstring). Returns its stats."""
     import numpy as np
     import torch
@@ -1684,7 +1815,7 @@ def training_phase(seed: int, smi: str):
     from repro_torch.kernels import ssm_scan as kssm
     from repro_torch.train.step import init_train_state, make_train_step
     dev = torch.device("cuda")
-    cfg = get_config("hymba-1.5b")
+    cfg = get_config(arch).replace(**(overrides or {}))
     routes = {"flash_attention": kflash.flash_attention,
               "flash_attention_bwd": kflash.flash_attention_bwd,
               "ssm_scan": kssm.ssm_scan, "ssm_scan_bwd": kssm.ssm_scan_bwd}
@@ -1693,8 +1824,7 @@ def training_phase(seed: int, smi: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _, step = make_train_step(cfg, base_lr=TRAIN_LR, warmup=2,
-                              total_steps=TRAIN_STEPS, remat="full",
-                              device=dev)
+                              total_steps=steps, remat="full", device=dev)
     params, opt = init_train_state(
         cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
     n_params = sum(t.numel() for t in to_leaves(params))
@@ -1703,7 +1833,7 @@ def training_phase(seed: int, smi: str):
     for fn in routes.values():
         fn.launches = 0
     rows = []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         before = {k: fn.launches for k, fn in routes.items()}
         batch = data.next_batch()
         torch.cuda.synchronize()
@@ -1723,8 +1853,9 @@ def training_phase(seed: int, smi: str):
     launches = {k: fn.launches for k, fn in routes.items()}
     plain_calls = [obs.value(c) - v for c, v in zip(plain, plain0)]
     L = cfg.num_layers
+    L_ssm = L if cfg.family == "hybrid" else 0
     want = {"flash_attention": 2 * L, "flash_attention_bwd": L,
-            "ssm_scan": 2 * L, "ssm_scan_bwd": L}
+            "ssm_scan": 2 * L_ssm, "ssm_scan_bwd": L_ssm}
     bad = [r["launches"] for r in rows if r["launches"] != want]
     if bad or any(plain_calls):
         fail(f"training launches a step {bad or rows[0]['launches']} "
@@ -1740,7 +1871,8 @@ def training_phase(seed: int, smi: str):
              / warm, "peak_bytes": peak, "model_flops": flops,
              "mfu": flops / warm / PEAK_BF16_TC, "steps": rows,
              "launches": launches, "plain_dispatches": plain_calls}
-    print(f"train: {cfg.name} {n_params:,} parameters (bf16), remat full, "
+    print(f"train: {cfg.name} ({L} layers) {n_params:,} parameters "
+          f"({cfg.dtype}), remat full, "
           f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens ({cfg.meta_tokens} meta): "
           f"step {rows[0]['s']:.4f} s first, {warm:.4f} s warm (median of "
           f"{len(rows) - 1}); {tokens / warm:,.0f} tokens/s; peak memory "
@@ -1751,7 +1883,7 @@ def training_phase(seed: int, smi: str):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(params, opt, batch, TRAIN_STEPS)
+        step(params, opt, batch, steps)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
@@ -1789,10 +1921,12 @@ def train_card_vs_cpu(rcfg, seed: int):
     """The reduced ``rcfg``'s (float32) loss and every gradient leaf on the
     card against the CPU, the same weights (drawn on the CPU from ``seed``)
     and ``SyntheticLMData(rcfg, 4, 68, seed)``'s first batch: fails beyond
-    ``RTOL_TRAIN_CPU``. Returns (loss gap, worst gradient gap, backward
-    kernel launches on the card)."""
+    ``RTOL_TRAIN_CPU``, or where the card's run dispatched a plain version.
+    A leaf with no gradient (the MoE routing bias only selects) counts as
+    zero on both. Returns (loss gap, worst gradient gap, backward kernel
+    launches on the card)."""
     import torch
-    from repro_torch import convert
+    from repro_torch import convert, obs
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ssm_scan as kssm
@@ -1801,6 +1935,8 @@ def train_card_vs_cpu(rcfg, seed: int):
     cpu_params = LM(rcfg, device="cpu").init(
         torch.Generator().manual_seed(seed))
     batch = SyntheticLMData(rcfg, 4, 68, seed).next_batch()
+    plain = ("kernels.dispatch.flash_attention.plain",
+             "kernels.dispatch.ssm_scan.plain")
     runs = {}
     for where in ("cuda", "cpu"):
         p = convert.lm_params_from_numpy(
@@ -1810,15 +1946,22 @@ def train_card_vs_cpu(rcfg, seed: int):
             t.requires_grad_(True)
         bwd0 = (kflash.flash_attention_bwd.launches,
                 kssm.ssm_scan_bwd.launches)
+        plain0 = [obs.value(c) for c in plain]
         loss, _ = LM(rcfg, device=where).loss(p, batch)
         runs[where] = (loss.item(), [g.cpu() for g in torch.autograd.grad(
-            loss, flat)])
+            loss, flat, allow_unused=True, materialize_grads=True)])
         if where == "cuda":
             bwd = {"flash_attention_bwd":
                    kflash.flash_attention_bwd.launches - bwd0[0],
                    "ssm_scan_bwd": kssm.ssm_scan_bwd.launches - bwd0[1]}
+            plain_calls = [obs.value(c) - v for c, v in zip(plain, plain0)]
+            if any(plain_calls):
+                fail(f"reduced {rcfg.name} training on the card dispatched "
+                     f"a plain version {plain_calls}")
     loss_gap = abs(runs["cuda"][0] - runs["cpu"][0]) / abs(runs["cpu"][0])
-    grad_gap = max(rel_gaps(runs["cuda"][1], runs["cpu"][1]))
+    grad_gap = max(0.0 if not w.abs().max() and not g.abs().max() else
+                   rel_gaps([g], [w])[0]
+                   for g, w in zip(runs["cuda"][1], runs["cpu"][1]))
     print(f"train parity: reduced {rcfg.name} (float32, 4 x 68 positions) "
           f"card vs CPU: loss {loss_gap:.3e} (gate {RTOL_TRAIN_CPU['loss']}),"
           f" worst of {len(runs['cpu'][1])} gradient leaves {grad_gap:.3e} "
@@ -2061,16 +2204,32 @@ def requirements_phase(smi: str):
                 for p in sorted(Path(tmp).glob("*.json"))]
         counts = {k: sum(r["status"] == k for r in recs)
                   for k in DRYRUN_CELLS}
+        uncounted = [f"{r['arch']}/{r['shape']}" for r in recs
+                     if r["status"] == "ok"
+                     and not r["collective_bytes_per_device"] > 0]
         print(f"requirements: dryrun --all: {len(recs)} records, "
               f"{counts['ok']} ok, {counts['skipped']} skipped, exit {rc}, "
-              f"{stats['records_s']:.2f} s; {smi}", flush=True)
+              f"{stats['records_s']:.2f} s in up to {dryrun.JOBS} "
+              f"processes (each cell's collectives counted in a full-width "
+              f"step on the meta device); {smi}", flush=True)
         if rc != 0 or counts != DRYRUN_CELLS or len(recs) != 40:
             fail(f"dryrun --all: exit {rc}, {len(recs)} records, {counts}")
-        # 2. their roofline
+        if uncounted:
+            fail(f"dryrun records with no collective bytes: {uncounted}")
+        # 2. their roofline, and the collective term's part of each row
         rows = roofline.load_table(tmp)
         print(f"requirements: roofline.load_table: {len(rows)} rows")
         if len(rows) != DRYRUN_CELLS["ok"]:
             fail(f"roofline: {len(rows)} rows")
+        stats["collective_share"] = {}
+        for r in rows:
+            bound = max(r["t_compute_s"], r["t_memory_s"],
+                        r["t_collective_s"])
+            share = r["t_collective_s"] / bound
+            stats["collective_share"][f"{r['arch']}/{r['shape']}"] = share
+            print(f"  {r['arch']:22s} {r['shape']:12s} collective "
+                  f"{r['t_collective_s']:.4e} s = {share:.4f} of the row's "
+                  f"bound ({r['bottleneck']} binds)")
 
         # 3. explore over the arch tasks: card (cold, warm) against the CPU
         tasks = traffic.available_arch_tasks(ARCH_SHAPES, outdir=tmp)
@@ -2092,6 +2251,26 @@ def requirements_phase(smi: str):
                               lambda: explore("cuda"))
         cpu = explore("cpu")
         labels = card.labels()
+        # the same explore on the records with no collective term (what
+        # they held before the collectives were counted)
+        zeroed = Path(tmp) / "no_collectives"
+        zeroed.mkdir()
+        for r in recs:
+            if r["status"] == "ok":
+                r = dict(r, collectives={}, collective_bytes_per_device=0.0)
+            (zeroed / f"{r['arch']}__{r['shape']}__{r['mesh']}.json") \
+                .write_text(json.dumps(r))
+        before = api.explore(space=space, policy=policy, device="cuda",
+                             tasks=traffic.available_arch_tasks(
+                                 ARCH_SHAPES, outdir=str(zeroed))).labels()
+        moved = {tid: (before[tid], lv) for tid, lv in labels.items()
+                 if before.get(tid) != lv}
+        stats["picks_moved_by_collectives"] = moved
+        print(f"requirements: {len(moved)} of {len(labels)} arch-task picks "
+              f"move once collectives are counted: "
+              + ("; ".join(f"{tid}: {a['L1']}/{a['L2']} -> {b['L1']}/"
+                           f"{b['L2']}" for tid, (a, b) in moved.items())
+                 or "none"), flush=True)
         hetero = sum("+" in lv["L2"] or lv["L1"] != lv["L2"]
                      for lv in labels.values())
         print(f"requirements: explore over {len(tasks)} arch tasks, "
@@ -2344,16 +2523,20 @@ def sharded_phase(seed: int, smi: str):
     moon = get_config("moonshot-v1-16b-a3b")
     f32_2l = {"num_layers": 2, "dtype": "float32"}
     dropless = dict(f32_2l, capacity_factor=moon.num_experts / moon.top_k)
+    noise = world > 1       # (1, 1) is held to bit equality, not noise
     runs = {"hymba-1.5b-2L-f32": dict(base, arch="hymba-1.5b",
                                       overrides=f32_2l, single=True),
             "moonshot-2L-f32-gathered": dict(
                 base, arch="moonshot-v1-16b-a3b", overrides=dropless,
-                env=gathered, single=True, noise=True),
+                env=gathered, single=True, noise=noise),
             "moonshot-2L-f32-ep": dict(
                 base, arch="moonshot-v1-16b-a3b", overrides=dropless,
-                env=ep, single=True, noise=True),
+                env=ep, single=True, noise=noise),
+            "deepseek-v3-2L-f32": dict(
+                base, arch="deepseek-v3-671b",
+                overrides=dict(TRAIN_MLA[1], dtype="float32"), single=True),
             "hymba-1.5b": dict(base, arch="hymba-1.5b", single=True,
-                               noise=True, profile=True)}
+                               noise=noise, profile=True)}
     # the model no card holds alone gets a launch of its own, after the
     # others have printed
     launches = [runs]
@@ -2418,6 +2601,8 @@ def sharded_runs(runs, world: int, mesh, stats) -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     want = ("flash_attention", "flash_attention_bwd", "ssm_scan",
             "ssm_scan_bwd")
+    want_mla = {"flash_attention": 4, "flash_attention_bwd": 2,
+                "ssm_scan": 0, "ssm_scan_bwd": 0}
     for (label, spec), out in zip(runs.items(), results):
         if tuple(out["mesh"]) != mesh:
             fail(f"sharded {label}: ran on mesh {out['mesh']}, not {mesh}")
@@ -2443,6 +2628,11 @@ def sharded_runs(runs, world: int, mesh, stats) -> None:
             if missing:
                 fail(f"sharded {label}: no launch of {missing} in the step "
                      f"({out['rows'][0]['launches']})")
+        if spec["arch"] == "deepseek-v3-671b" \
+                and out["rows"][0]["launches"] != want_mla:
+            fail(f"sharded {label}: launches a step "
+                 f"{out['rows'][0]['launches']}, expected {want_mla} (MLA "
+                 f"at (192, 128), 2 layers, its heads split over 'model')")
         if "gaps" in out:
             row["gaps"] = out["gaps"]
             if "noise_gaps" in out:
@@ -3084,9 +3274,19 @@ def main() -> int:
 
     # 25. the reduced MoE models on the card against the CPU ----------------
     t_phase = time.perf_counter()
-    moe_parity = {arch: reduced_card_vs_cpu(reduce_config(get_config(arch)),
-                                            args.seed)
-                  for arch, _ in MOE_SERVE}
+    moe_parity = {}
+    for arch, _ in MOE_SERVE:
+        rcfg = reduce_config(get_config(arch))
+        serve_gap = reduced_card_vs_cpu(rcfg, args.seed)
+        loss_gap, grad_gap, bwd_launches = train_card_vs_cpu(rcfg, args.seed)
+        attn_layers = rcfg.num_layers + int(rcfg.mtp)   # MTP's layer too
+        if bwd_launches != {"flash_attention_bwd": attn_layers,
+                            "ssm_scan_bwd": 0}:
+            fail(f"reduced {arch} training on the card: backward launches "
+                 f"{bwd_launches}, expected {attn_layers} of the attention "
+                 f"backward")
+        moe_parity[arch] = {"serve": serve_gap, "loss": loss_gap,
+                            "grads": grad_gap, "bwd_launches": bwd_launches}
     phase_done(25, "MoE parity", t_phase)
 
     # 26. the flash-attention kernel at the vision and audio prefill -------
@@ -3131,6 +3331,12 @@ def main() -> int:
     sharded = sharded_phase(args.seed, smi)
     sharded_launches = sharded["runs"]["hymba-1.5b"]["launches_a_step"]
     phase_done(32, "sharded training", t_phase)
+
+    # 33. train deepseek-v3 (MLA) at full width, 2 dense layers ------------
+    t_phase = time.perf_counter()
+    train_mla = training_phase(args.seed, smi, *TRAIN_MLA,
+                               steps=TRAIN_MLA_STEPS)
+    phase_done(33, "train deepseek", t_phase)
 
     main_shape = shapes["main"]
     warm = serve["warm"]
@@ -3234,7 +3440,24 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "bound_terms_ms", "unqueued_ms", "stages_ms", "shape")},
         "train_parity": train_parity,
-        "sharded_train_launches": sharded_launches["ssm_scan_bwd"]}]}))
+        "sharded_train_launches": sharded_launches["ssm_scan_bwd"]}, {
+        "name": "flash_attention_bwd_mla", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/mla.py:69",
+        "instantiation": "dkdv_kernel_tc<192, 128>, dq_kernel_tc<192, 128> "
+                         "(bf16); the float32 pair and <32, 16>",
+        "gradient_of": "causal_attention at MLA's head dims (query/key "
+                       "192, value 128), by autodiff in the JAX model",
+        "launches": train_mla["launches"]["flash_attention_bwd"],
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in bwd["flash_attention_bwd_mla"]["cases"]),
+        "max_rel_err": bwd["flash_attention_bwd_mla"]["max_rel_err"],
+        "rtol": RTOL_ATTN_BWD,
+        "cases": bwd["flash_attention_bwd_mla"]["cases"],
+        **{k: bwd["flash_attention_bwd_mla"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library", "shape")},
+        "train": train_mla}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
     return 0

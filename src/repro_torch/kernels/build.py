@@ -105,8 +105,8 @@ LAUNCH_ARGTYPES = {
     # sink, round_p, stream
     "flash_attention": [_P] * 5 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
     # q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S,
-    # Sk, D, scale, bf16, causal, window, sink, stream
-    "flash_attention_bwd": [_P] * 7 + [_I64] + [_P] * 3 + [_I] * 6 + [_F]
+    # Sk, D, Dv, scale, bf16, causal, window, sink, stream
+    "flash_attention_bwd": [_P] * 7 + [_I64] + [_P] * 3 + [_I] * 7 + [_F]
     + [_I] * 4 + [_P],
 }
 
@@ -117,8 +117,8 @@ LAUNCH_ARGTYPES = {
 SCRATCH_ARGTYPES = {
     # B, S, di, n
     "ssm_scan_bwd": [_I] * 4,
-    # B, H, K, S, Sk, D, bf16
-    "flash_attention_bwd": [_I] * 7,
+    # B, H, K, S, Sk, D, Dv, bf16
+    "flash_attention_bwd": [_I] * 8,
 }
 
 

@@ -19,6 +19,12 @@
 //   dP = dO V^T,   dS = P * (dP - Delta),  Delta_r = sum_d dO[r, d] O[r, d]
 //   dQ = scale * dS K,   dK = scale * dS^T Q
 //
+// As the forward, it takes a value head dim DV apart from the query/key one
+// D (template arguments; MLA's (192, 128), and (32, 16) for the reduced MLA,
+// whose q and k the wrapper pads from 24 with zeros): S, dQ and dK are D
+// wide, while Delta, dP = dO V^T and dV = P^T dO run over DV. With DV = D
+// each kernel keeps the loops of the one-D kernel it was.
+//
 // Delta is computed from o as the forward returned it (in bf16 for bf16
 // inputs), as FlashAttention-2 does; autograd of the plain version
 // differentiates the fp32 accumulator instead, and the two differ by the
@@ -44,7 +50,7 @@
 //      q tiles (18 at hymba's shape) each, 1,800 blocks; the blocks of the
 //      first key tiles (the most q tiles, under a causal mask) start first
 //      (the key tile is the grid's slow axis). Each writes fp32 dK/dV
-//      partials of its head to the scratch (2 B H Sk D floats);
+//      partials of its head to the scratch (B H Sk (D + DV) floats);
 //   3. dQ: one block per (b, head, q tile), over the kv tiles of the
 //      forward's walk, recomputing S and dP (a second pass in place of
 //      atomics across kv tiles), the longest q tiles first; then, in the
@@ -69,11 +75,17 @@
 //   - occupancy (-Xptxas -v): dK/dV 168 registers under its launch bound,
 //     3 blocks an SM; dQ 122 registers, 4 blocks; 51 KB of shared memory
 //     a block.
-// Other D: mma.sync.m16n8k16 with the same work split (4 warps of 16 keys
-// or rows, ldmatrix fragments, rows padded by 16 bytes).
+// Other (D, DV): mma.sync.m16n8k16 with the same work split (4 warps of 16
+// keys or rows, ldmatrix fragments, rows padded by 16 bytes). At MLA's (192,
+// 128) a dK/dV block holds 130 KB of shared memory (one block an SM) and
+// more accumulators than 255 registers (some spill); the dQ kernel reads
+// Q's and dO's fragments from shared memory at each k-step instead of
+// holding them.
 // fp32 inputs: IEEE fp32 FMAs out of shared memory (no TF32), four threads
 // a key (dK, dV) or a q row (dQ); their dK/dV kernel sums the G heads
 // inside the block. No --use_fast_math.
+
+#include <type_traits>
 
 #include "flash_attention.cuh"
 
@@ -90,16 +102,16 @@ __device__ __forceinline__ float inf() { return __int_as_float(0x7f800000); }
 // 1. Delta = rowsum(dO * O), fp32
 // ---------------------------------------------------------------------------
 
-// fp32: a warp a row
+// fp32: a warp a row (o and dO are Dv wide)
 __global__ void __launch_bounds__(256)
 delta_kernel(const float* __restrict__ o, const float* __restrict__ dO,
-             float* __restrict__ delta, long long rows, int D) {
+             float* __restrict__ delta, long long rows, int Dv) {
   const long long row = blockIdx.x * 8LL + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   float acc = 0.0f;
-  for (int d = lane; d < D; d += 32)
-    acc = fmaf(dO[row * D + d], o[row * D + d], acc);
+  for (int d = lane; d < Dv; d += 32)
+    acc = fmaf(dO[row * Dv + d], o[row * Dv + d], acc);
 #pragma unroll
   for (int m = 16; m >= 1; m >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, m);
@@ -109,14 +121,14 @@ delta_kernel(const float* __restrict__ o, const float* __restrict__ dO,
 // bf16: 8 lanes a row, 8 values (16 bytes) a load
 __global__ void __launch_bounds__(256)
 delta_kernel_bf16(const bf16* __restrict__ o, const bf16* __restrict__ dO,
-                  float* __restrict__ delta, long long rows, int D) {
+                  float* __restrict__ delta, long long rows, int Dv) {
   const long long row = blockIdx.x * 32LL + (threadIdx.x >> 3);
   const int l8 = threadIdx.x & 7;
   float acc = 0.0f;
   if (row < rows) {
-    for (int c = l8; c < D / 8; c += 8) {
-      const uint4 ov = *reinterpret_cast<const uint4*>(o + row * D + 8 * c);
-      const uint4 dv = *reinterpret_cast<const uint4*>(dO + row * D + 8 * c);
+    for (int c = l8; c < Dv / 8; c += 8) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(o + row * Dv + 8 * c);
+      const uint4 dv = *reinterpret_cast<const uint4*>(dO + row * Dv + 8 * c);
       const bf16* op = reinterpret_cast<const bf16*>(&ov);
       const bf16* dp = reinterpret_cast<const bf16*>(&dv);
 #pragma unroll
@@ -287,10 +299,10 @@ __device__ __forceinline__ void p_ds_t(float (&st)[8][4], float (&dpt)[8][4],
 }
 
 // fp32 partials of the block's 64 keys: rows key0, key0 + 8 of the
-// accumulator fragments, unscaled
-template <int D>
+// accumulator fragments, unscaled; dK is D wide, dV DV wide
+template <int D, int DV>
 __device__ __forceinline__ void store_partials(const float (&dk)[D / 8][4],
-                                               const float (&dv)[D / 8][4],
+                                               const float (&dv)[DV / 8][4],
                                                float* pk, float* pv,
                                                long long bh, int Sk, int key0,
                                                int quad_col) {
@@ -298,13 +310,25 @@ __device__ __forceinline__ void store_partials(const float (&dk)[D / 8][4],
   for (int h = 0; h < 2; ++h) {
     const int key = key0 + 8 * h;
     if (key >= Sk) continue;
-    const long long off = (bh * Sk + key) * D;
+    const long long row = bh * Sk + key;
+    if constexpr (D == DV) {
+      const long long off = row * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<float2*>(pk + off + 8 * j + quad_col) =
-          make_float2(dk[j][2 * h], dk[j][2 * h + 1]);
-      *reinterpret_cast<float2*>(pv + off + 8 * j + quad_col) =
-          make_float2(dv[j][2 * h], dv[j][2 * h + 1]);
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<float2*>(pk + off + 8 * j + quad_col) =
+            make_float2(dk[j][2 * h], dk[j][2 * h + 1]);
+        *reinterpret_cast<float2*>(pv + off + 8 * j + quad_col) =
+            make_float2(dv[j][2 * h], dv[j][2 * h + 1]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(pk + row * D + 8 * j + quad_col) =
+            make_float2(dk[j][2 * h], dk[j][2 * h + 1]);
+#pragma unroll
+      for (int j = 0; j < DV / 8; ++j)
+        *reinterpret_cast<float2*>(pv + row * DV + 8 * j + quad_col) =
+            make_float2(dv[j][2 * h], dv[j][2 * h + 1]);
     }
   }
 }
@@ -433,40 +457,45 @@ dkdv_kernel_wg(const bf16* __restrict__ q,      // (B, H, S, 64)
     qt = nxt;
   }
   cp_async_wait<0>();   // a key tile no q tile visits loaded K and V only
-  store_partials<D>(dk, dv, pk, pv, blk.bh, mk.Sk, key0, quad_col);
+  store_partials<D, D>(dk, dv, pk, pv, blk.bh, mk.Sk, key0, quad_col);
 }
 
-// mma.sync, any D
-template <int D>
+// mma.sync, any (D, DV)
+template <int D, int DV>
 constexpr size_t smem_bytes_dkdv_tc() {
   // K and V tiles, a double buffer of Q and dO tiles, and the two buffers'
   // lse and Delta
-  return sizeof(bf16) * (D + kPad) * (2 * kBK + 4 * kBQ) +
+  return sizeof(bf16) * ((D + kPad) + (DV + kPad)) * (kBK + 2 * kBQ) +
          sizeof(float) * 4 * kBQ;
 }
 
-template <int D>
+// At MLA's (192, 128) the block holds 40 fp32 accumulator n-tiles (dK 24,
+// dV 16) beside the 16 of S^T and dP^T: more than 255 registers, so some
+// spill to local memory (-Xptxas -v reports how many bytes).
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsTC)
 dkdv_kernel_tc(const bf16* __restrict__ q,      // (B, H, S, D)
                const bf16* __restrict__ k,      // (B, K, Sk, D)
-               const bf16* __restrict__ v,      // (B, K, Sk, D)
-               const bf16* __restrict__ dO,     // (B, H, S, D)
+               const bf16* __restrict__ v,      // (B, K, Sk, DV)
+               const bf16* __restrict__ dO,     // (B, H, S, DV)
                const float* __restrict__ lse,   // (B, H, S)
                const float* __restrict__ delta, // (B, H, S)
                float* __restrict__ pk,          // (B, H, Sk, D)
-               float* __restrict__ pv,          // (B, H, Sk, D)
+               float* __restrict__ pv,          // (B, H, Sk, DV)
                int H, int K, int S, Mask mk, float scale) {
-  constexpr int LD = D + kPad;
+  constexpr int LD = D + kPad, LDV = DV + kPad;
   constexpr int NT = kBQ / 8;    // n-tiles of 8 q rows
   constexpr int KQ = D / 16;     // k-steps over D
-  constexpr int NO = D / 8;      // output n-tiles of 8 columns
+  constexpr int KV = DV / 16;    // k-steps over DV
+  constexpr int NO = D / 8;      // dK's n-tiles of 8 columns
+  constexpr int NOV = DV / 8;    // dV's
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* v_s = k_s + kBK * LD;
-  bf16* q_s = v_s + kBK * LD;            // 2 x kBQ x LD
-  bf16* do_s = q_s + 2 * kBQ * LD;       // 2 x kBQ x LD
-  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kBQ * LD);  // 2 x kBQ
-  float* dl_s = lse_s + 2 * kBQ;                                 // 2 x kBQ
+  bf16* v_s = k_s + kBK * LD;            // kBK x LDV
+  bf16* q_s = v_s + kBK * LDV;           // 2 x kBQ x LD
+  bf16* do_s = q_s + 2 * kBQ * LD;       // 2 x kBQ x LDV
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * kBQ * LDV);  // 2 x kBQ
+  float* dl_s = lse_s + 2 * kBQ;                                  // 2 x kBQ
 
   const KvBlock blk(H, K, S);
   const int tid = threadIdx.x;
@@ -478,7 +507,7 @@ dkdv_kernel_tc(const bf16* __restrict__ q,      // (B, H, S, D)
   auto load_item = [&](int qt, int buf) {
     const int q0 = qt * kBQ;
     load_tile<D>(q_s + buf * kBQ * LD, q + qo * D, q0, S, tid);
-    load_tile<D>(do_s + buf * kBQ * LD, dO + qo * D, q0, S, tid);
+    load_tile<DV>(do_s + buf * kBQ * LDV, dO + qo * DV, q0, S, tid);
     if (tid < kBQ) {
       const int r = q0 + tid;
       const long long i = qo + (r < S ? r : 0);
@@ -487,18 +516,22 @@ dkdv_kernel_tc(const bf16* __restrict__ q,      // (B, H, S, D)
     }
   };
 
-  const long long kv_off = static_cast<long long>(blk.kvh) * mk.Sk * D;
-  load_tile<D>(k_s, k + kv_off, blk.k0, mk.Sk, tid);
-  load_tile<D>(v_s, v + kv_off, blk.k0, mk.Sk, tid);
+  const long long kv_row = static_cast<long long>(blk.kvh) * mk.Sk;
+  load_tile<D>(k_s, k + kv_row * D, blk.k0, mk.Sk, tid);
+  load_tile<DV>(v_s, v + kv_row * DV, blk.k0, mk.Sk, tid);
   int qt = blk.next(mk, 0, S);
   if (qt >= 0) load_item(qt, 0);
   cp_async_commit();
 
-  float dk_acc[NO][4], dv_acc[NO][4];
+  float dk_acc[NO][4], dv_acc[NOV][4];
 #pragma unroll
   for (int j = 0; j < NO; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.0f;
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < NOV; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv_acc[j][e] = 0.0f;
   const float c2 = scale * kLog2e;
 
   for (int buf = 0; qt >= 0; buf ^= 1) {
@@ -513,59 +546,110 @@ dkdv_kernel_tc(const bf16* __restrict__ q,      // (B, H, S, D)
     __syncthreads();
     const int q0 = qt * kBQ;
     const bf16* qt_s = q_s + buf * kBQ * LD;
-    const bf16* dot = do_s + buf * kBQ * LD;
+    const bf16* dot = do_s + buf * kBQ * LDV;
 
-    // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x the 64 q rows
+    // S^T = K Q^T (over D) and dP^T = V dO^T (over DV): this warp's 16
+    // keys x the 64 q rows
     float st[NT][4], dpt[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.0f;
+    if constexpr (D == DV) {
 #pragma unroll
-    for (int kk = 0; kk < KQ; ++kk) {
-      uint32_t ka[4], va[4];
-      ldsm_a<LD>(ka, k_s, warp * 16, kk, lane);
-      ldsm_a<LD>(va, v_s, warp * 16, kk, lane);
+      for (int kk = 0; kk < KQ; ++kk) {
+        uint32_t ka[4], va[4];
+        ldsm_a<LD>(ka, k_s, warp * 16, kk, lane);
+        ldsm_a<LD>(va, v_s, warp * 16, kk, lane);
 #pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b[4];
-        ldsm_b_rows<LD>(b, qt_s, j, kk, lane);
-        mma_bf16(st[j], ka, b[0], b[1]);
-        mma_bf16(st[j + 1], ka, b[2], b[3]);
-        ldsm_b_rows<LD>(b, dot, j, kk, lane);
-        mma_bf16(dpt[j], va, b[0], b[1]);
-        mma_bf16(dpt[j + 1], va, b[2], b[3]);
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t b[4];
+          ldsm_b_rows<LD>(b, qt_s, j, kk, lane);
+          mma_bf16(st[j], ka, b[0], b[1]);
+          mma_bf16(st[j + 1], ka, b[2], b[3]);
+          ldsm_b_rows<LD>(b, dot, j, kk, lane);
+          mma_bf16(dpt[j], va, b[0], b[1]);
+          mma_bf16(dpt[j + 1], va, b[2], b[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk) {
+        uint32_t ka[4];
+        ldsm_a<LD>(ka, k_s, warp * 16, kk, lane);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t b[4];
+          ldsm_b_rows<LD>(b, qt_s, j, kk, lane);
+          mma_bf16(st[j], ka, b[0], b[1]);
+          mma_bf16(st[j + 1], ka, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < KV; ++kk) {
+        uint32_t va[4];
+        ldsm_a<LDV>(va, v_s, warp * 16, kk, lane);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t b[4];
+          ldsm_b_rows<LDV>(b, dot, j, kk, lane);
+          mma_bf16(dpt[j], va, b[0], b[1]);
+          mma_bf16(dpt[j + 1], va, b[2], b[3]);
+        }
       }
     }
     p_ds_t(st, dpt, lse_s + buf * kBQ, dl_s + buf * kBQ, mk, q0, blk.k0, key0,
            quad_col, c2);
 
-    // dV += P^T dO and dK += dS^T Q, 16 q rows a k-step
+    // dV += P^T dO (DV wide) and dK += dS^T Q (D wide), 16 q rows a
+    // k-step
 #pragma unroll
     for (int kk = 0; kk < kBQ / 16; ++kk) {
       uint32_t ph[4], pl[4], sh[4], sl[4];
       acc_to_a<true>(st, kk, ph, pl);
       acc_to_a<true>(dpt, kk, sh, sl);
+      if constexpr (D == DV) {
 #pragma unroll
-      for (int j = 0; j < NO; j += 2) {
-        uint32_t b[4];
-        ldsm_b_cols<LD>(b, dot, j, kk, lane);
-        mma_bf16(dv_acc[j], ph, b[0], b[1]);
-        mma_bf16(dv_acc[j + 1], ph, b[2], b[3]);
-        mma_bf16(dv_acc[j], pl, b[0], b[1]);
-        mma_bf16(dv_acc[j + 1], pl, b[2], b[3]);
-        ldsm_b_cols<LD>(b, qt_s, j, kk, lane);
-        mma_bf16(dk_acc[j], sh, b[0], b[1]);
-        mma_bf16(dk_acc[j + 1], sh, b[2], b[3]);
-        mma_bf16(dk_acc[j], sl, b[0], b[1]);
-        mma_bf16(dk_acc[j + 1], sl, b[2], b[3]);
+        for (int j = 0; j < NO; j += 2) {
+          uint32_t b[4];
+          ldsm_b_cols<LD>(b, dot, j, kk, lane);
+          mma_bf16(dv_acc[j], ph, b[0], b[1]);
+          mma_bf16(dv_acc[j + 1], ph, b[2], b[3]);
+          mma_bf16(dv_acc[j], pl, b[0], b[1]);
+          mma_bf16(dv_acc[j + 1], pl, b[2], b[3]);
+          ldsm_b_cols<LD>(b, qt_s, j, kk, lane);
+          mma_bf16(dk_acc[j], sh, b[0], b[1]);
+          mma_bf16(dk_acc[j + 1], sh, b[2], b[3]);
+          mma_bf16(dk_acc[j], sl, b[0], b[1]);
+          mma_bf16(dk_acc[j + 1], sl, b[2], b[3]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NOV; j += 2) {
+          uint32_t b[4];
+          ldsm_b_cols<LDV>(b, dot, j, kk, lane);
+          mma_bf16(dv_acc[j], ph, b[0], b[1]);
+          mma_bf16(dv_acc[j + 1], ph, b[2], b[3]);
+          mma_bf16(dv_acc[j], pl, b[0], b[1]);
+          mma_bf16(dv_acc[j + 1], pl, b[2], b[3]);
+        }
+#pragma unroll
+        for (int j = 0; j < NO; j += 2) {
+          uint32_t b[4];
+          ldsm_b_cols<LD>(b, qt_s, j, kk, lane);
+          mma_bf16(dk_acc[j], sh, b[0], b[1]);
+          mma_bf16(dk_acc[j + 1], sh, b[2], b[3]);
+          mma_bf16(dk_acc[j], sl, b[0], b[1]);
+          mma_bf16(dk_acc[j + 1], sl, b[2], b[3]);
+        }
       }
     }
     __syncthreads();  // every warp is done with buf before it is refilled
     qt = nxt;
   }
   cp_async_wait<0>();   // a key tile no q tile visits loaded K and V only
-  store_partials<D>(dk_acc, dv_acc, pk, pv, blk.bh, mk.Sk, key0, quad_col);
+  store_partials<D, DV>(dk_acc, dv_acc, pk, pv, blk.bh, mk.Sk, key0,
+                        quad_col);
 }
 
 // ---------------------------------------------------------------------------
@@ -640,6 +724,53 @@ struct Combine {
     }
   }
 };
+
+// The combine where DV != D: the float4s of dK (B K Sk D / 4 of them)
+// first, then those of dV, each summed over its G query heads as above.
+struct CombineKV {
+  static constexpr int kIters = Combine::kIters;
+  const float* pk;                             // (B, H, Sk, D)
+  const float* pv;                             // (B, H, Sk, DV)
+  bf16* dk;                                    // (B, K, Sk, D)
+  bf16* dv;                                    // (B, K, Sk, DV)
+  long long per_k, per_v;                      // Sk D; Sk DV
+  long long n4k, n4;                           // dK's float4s; all
+  int H, K;
+  float scale;
+
+  int rows(int BH) const {
+    const long long blocks = (n4 + kIters * kThreadsTC - 1) /
+                             (kIters * kThreadsTC);
+    return static_cast<int>((blocks + BH - 1) / BH);
+  }
+  // four consecutive elements e.. of one (B, K, Sk, per / Sk) gradient
+  __device__ __forceinline__ void sum4(const float* p, bf16* out,
+                                       long long per, long long e,
+                                       float s) const {
+    const long long bkv = e / per, rem = e % per;
+    const int G = H / K;
+    const long long h0 = (bkv / K) * H + (bkv % K) * G;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int g = 0; g < G; ++g) {
+      const float4 a =
+          *reinterpret_cast<const float4*>(p + (h0 + g) * per + rem);
+      acc.x += a.x, acc.y += a.y, acc.z += a.z, acc.w += a.w;
+    }
+    *reinterpret_cast<uint2*>(out + e) = make_uint2(
+        pack_bf16(acc.x * s, acc.y * s), pack_bf16(acc.z * s, acc.w * s));
+  }
+  __device__ __forceinline__ void slice(long long blk) const {
+#pragma unroll
+    for (int r = 0; r < kIters; ++r) {
+      const long long i = (blk * kIters + r) * kThreadsTC + threadIdx.x;
+      if (i < n4k) sum4(pk, dk, per_k, 4 * i, scale);
+      else if (i < n4) sum4(pv, dv, per_v, 4 * (i - n4k), 1.0f);
+    }
+  }
+};
+
+template <int D, int DV>
+using CombineOf = std::conditional_t<D == DV, Combine, CombineKV>;
 
 // what both dQ kernels share: the block's head and q tile (the last q tile
 // first), its rows' lse * log2(e) and Delta, and the bf16 store
@@ -778,29 +909,34 @@ dq_kernel_wg(const bf16* __restrict__ q, const bf16* __restrict__ k,
   blk.store<D>(acc, dq, row0, quad_col, S, scale);
 }
 
-// mma.sync, any D
-template <int D>
+// mma.sync, any (D, DV)
+template <int D, int DV>
 constexpr size_t smem_bytes_dq_tc() {
   // Q and dO tiles, a double buffer of K and V tiles
-  return sizeof(bf16) * (D + kPad) * (2 * kBQ + 4 * kBK);
+  return sizeof(bf16) * ((D + kPad) + (DV + kPad)) * (kBQ + 2 * kBK);
 }
 
-template <int D>
+// Q's and dO's A fragments stay in registers for the whole kv loop up to
+// D + DV = 256; above (MLA's 192 + 128) they are read from shared memory at
+// each k-step, which leaves the registers to the 24 n-tiles of dQ.
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsTC)
 dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ dO,
              const float* __restrict__ lse, const float* __restrict__ delta,
              bf16* __restrict__ dq, int H, int K, int S, Mask mk,
-             float scale, int n_qt, Combine cb) {
-  constexpr int LD = D + kPad;
+             float scale, int n_qt, CombineOf<D, DV> cb) {
+  constexpr int LD = D + kPad, LDV = DV + kPad;
   constexpr int NT = kBK / 8;    // n-tiles of 8 keys
   constexpr int KQ = D / 16;     // k-steps over D
+  constexpr int KV = DV / 16;    // k-steps over DV
   constexpr int NO = D / 8;      // output n-tiles of 8 columns
+  constexpr bool kHold = D + DV <= 256;   // Q, dO fragments in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* do_s = q_s + kBQ * LD;
-  bf16* k_s = do_s + kBQ * LD;           // 2 x kBK x LD
-  bf16* v_s = k_s + 2 * kBK * LD;        // 2 x kBK x LD
+  bf16* do_s = q_s + kBQ * LD;           // kBQ x LDV
+  bf16* k_s = do_s + kBQ * LDV;          // 2 x kBK x LD
+  bf16* v_s = k_s + 2 * kBK * LD;        // 2 x kBK x LDV
 
   const int row = blockIdx.y;
   if (row >= n_qt) {                  // the combine's rows
@@ -809,31 +945,34 @@ dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const QBlock blk(H, K, row, n_qt);
   const int Sk = mk.Sk;
-  const long long q_off = static_cast<long long>(blk.bh) * S * D;
+  const long long q_row = static_cast<long long>(blk.bh) * S;
   const bf16* kp = k + static_cast<long long>(blk.kvh) * Sk * D;
-  const bf16* vp = v + static_cast<long long>(blk.kvh) * Sk * D;
+  const bf16* vp = v + static_cast<long long>(blk.kvh) * Sk * DV;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int row0 = blk.q0 + warp * 16 + (lane >> 2);   // rows row0, row0 + 8
   const int quad_col = 2 * (lane & 3);
 
   const Tiles tiles = tiles_of(mk, blk.q0, S);
-  load_tile<D>(q_s, q + q_off, blk.q0, S, tid);
-  load_tile<D>(do_s, dO + q_off, blk.q0, S, tid);
+  load_tile<D>(q_s, q + q_row * D, blk.q0, S, tid);
+  load_tile<DV>(do_s, dO + q_row * DV, blk.q0, S, tid);
   cp_async_commit();
   if (tiles.n > 0) {
     load_tile<D>(k_s, kp, tiles[0] * kBK, Sk, tid);
-    load_tile<D>(v_s, vp, tiles[0] * kBK, Sk, tid);
+    load_tile<DV>(v_s, vp, tiles[0] * kBK, Sk, tid);
   }
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
 
-  uint32_t qf[KQ][4], df[KQ][4];
+  uint32_t qf[kHold ? KQ : 1][4], df[kHold ? KV : 1][4];
+  if constexpr (kHold) {
 #pragma unroll
-  for (int kk = 0; kk < KQ; ++kk) {
-    ldsm_a<LD>(qf[kk], q_s, warp * 16, kk, lane);
-    ldsm_a<LD>(df[kk], do_s, warp * 16, kk, lane);
+    for (int kk = 0; kk < KQ; ++kk)
+      ldsm_a<LD>(qf[kk], q_s, warp * 16, kk, lane);
+#pragma unroll
+    for (int kk = 0; kk < KV; ++kk)
+      ldsm_a<LDV>(df[kk], do_s, warp * 16, kk, lane);
   }
   float l2[2], dl[2];
   blk.rows(lse, delta, row0, S, l2, dl);
@@ -849,7 +988,7 @@ dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (i + 1 < tiles.n) {
       const int k1 = tiles[i + 1] * kBK;
       load_tile<D>(k_s + (buf ^ 1) * kBK * LD, kp, k1, Sk, tid);
-      load_tile<D>(v_s + (buf ^ 1) * kBK * LD, vp, k1, Sk, tid);
+      load_tile<DV>(v_s + (buf ^ 1) * kBK * LDV, vp, k1, Sk, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -858,25 +997,62 @@ dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     const int k0 = tiles[i] * kBK;
     const bf16* kt = k_s + buf * kBK * LD;
-    const bf16* vt = v_s + buf * kBK * LD;
+    const bf16* vt = v_s + buf * kBK * LDV;
 
-    // S = Q K^T and dP = dO V^T
+    // S = Q K^T (over D) and dP = dO V^T (over DV)
     float s[NT][4], dp[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+    if constexpr (D == DV) {
 #pragma unroll
-    for (int kk = 0; kk < KQ; ++kk) {
+      for (int kk = 0; kk < KQ; ++kk) {
 #pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b[4];
-        ldsm_b_rows<LD>(b, kt, j, kk, lane);
-        mma_bf16(s[j], qf[kk], b[0], b[1]);
-        mma_bf16(s[j + 1], qf[kk], b[2], b[3]);
-        ldsm_b_rows<LD>(b, vt, j, kk, lane);
-        mma_bf16(dp[j], df[kk], b[0], b[1]);
-        mma_bf16(dp[j + 1], df[kk], b[2], b[3]);
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t b[4];
+          ldsm_b_rows<LD>(b, kt, j, kk, lane);
+          mma_bf16(s[j], qf[kk], b[0], b[1]);
+          mma_bf16(s[j + 1], qf[kk], b[2], b[3]);
+          ldsm_b_rows<LD>(b, vt, j, kk, lane);
+          mma_bf16(dp[j], df[kk], b[0], b[1]);
+          mma_bf16(dp[j + 1], df[kk], b[2], b[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk) {
+        uint32_t a[4];
+        if constexpr (kHold) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+        } else {
+          ldsm_a<LD>(a, q_s, warp * 16, kk, lane);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t b[4];
+          ldsm_b_rows<LD>(b, kt, j, kk, lane);
+          mma_bf16(s[j], a, b[0], b[1]);
+          mma_bf16(s[j + 1], a, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < KV; ++kk) {
+        uint32_t a[4];
+        if constexpr (kHold) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = df[kk][e];
+        } else {
+          ldsm_a<LDV>(a, do_s, warp * 16, kk, lane);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t b[4];
+          ldsm_b_rows<LDV>(b, vt, j, kk, lane);
+          mma_bf16(dp[j], a, b[0], b[1]);
+          mma_bf16(dp[j + 1], a, b[2], b[3]);
+        }
       }
     }
     ds_of(s, dp, l2, dl, mk, blk.q0, k0, row0, quad_col, c2);
@@ -917,14 +1093,17 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
   }
 }
 
-template <int D>
+// K and Q tiles D + 1 wide, V and dO tiles DV + 1 (at MLA's (192, 128):
+// 199 KB, where four tiles D + 1 wide would take 226 KB)
+template <int D, int DV>
 constexpr size_t smem_bytes_dkdv_f32() {
-  return sizeof(float) * (4 * kBK * (D + 1) + 2 * kBQ + 2 * kBK * (kBQ + 1));
+  return sizeof(float) * (2 * kBK * (D + 1) + 2 * kBK * (DV + 1) + 2 * kBQ +
+                          2 * kBK * (kBQ + 1));
 }
 
 // one block per (batch * kv head, 64-key tile); thread 4 c + ph owns key c
 // of the tile and output columns ph + 4 j
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsF)
 dkdv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dO,
@@ -932,13 +1111,13 @@ dkdv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ delta, float* __restrict__ dk,
                 float* __restrict__ dv, int H, int K, int S, Mask mk,
                 float scale) {
-  constexpr int LD = D + 1, LP = kBQ + 1;
+  constexpr int LD = D + 1, LDV = DV + 1, LP = kBQ + 1;
   extern __shared__ float smem[];
   float* k_s = smem;                 // kBK x LD
-  float* v_s = k_s + kBK * LD;       // kBK x LD
-  float* q_s = v_s + kBK * LD;       // kBQ x LD
-  float* do_s = q_s + kBQ * LD;      // kBQ x LD
-  float* lse_s = do_s + kBQ * LD;    // kBQ
+  float* v_s = k_s + kBK * LD;       // kBK x LDV
+  float* q_s = v_s + kBK * LDV;      // kBQ x LD
+  float* do_s = q_s + kBQ * LD;      // kBQ x LDV
+  float* lse_s = do_s + kBQ * LDV;   // kBQ
   float* dl_s = lse_s + kBQ;         // kBQ
   float* p_s = dl_s + kBQ;           // kBK x LP: p[key][row]
   float* ds_s = p_s + kBK * LP;      // kBK x LP
@@ -952,13 +1131,15 @@ dkdv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int n_qt = (S + kBQ - 1) / kBQ;
   const int c = threadIdx.x >> 2, ph = threadIdx.x & 3;
   const int key = k0 + c;
-  const long long kv_off = static_cast<long long>(bkv) * Sk * D;
-  load_tile_f32<D>(k_s, k + kv_off, k0, Sk);
-  load_tile_f32<D>(v_s, v + kv_off, k0, Sk);
+  const long long kv_row = static_cast<long long>(bkv) * Sk;
+  load_tile_f32<D>(k_s, k + kv_row * D, k0, Sk);
+  load_tile_f32<DV>(v_s, v + kv_row * DV, k0, Sk);
 
-  float dk_acc[D / 4], dv_acc[D / 4];
+  float dk_acc[D / 4], dv_acc[DV / 4];
 #pragma unroll
-  for (int j = 0; j < D / 4; ++j) dk_acc[j] = dv_acc[j] = 0.0f;
+  for (int j = 0; j < D / 4; ++j) dk_acc[j] = 0.0f;
+#pragma unroll
+  for (int j = 0; j < DV / 4; ++j) dv_acc[j] = 0.0f;
 
   for (int it = 0; it < G * n_qt; ++it) {
     const int q0 = (it % n_qt) * kBQ;
@@ -966,7 +1147,7 @@ dkdv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
     const long long bh = hq0 + it / n_qt;
     __syncthreads();  // the previous item's readers are done
     load_tile_f32<D>(q_s, q + bh * S * D, q0, S);
-    load_tile_f32<D>(do_s, dO + bh * S * D, q0, S);
+    load_tile_f32<DV>(do_s, dO + bh * S * DV, q0, S);
     if (threadIdx.x < kBQ) {
       const int r = q0 + threadIdx.x;
       lse_s[threadIdx.x] = r < S ? lse[bh * S + r] : inf();
@@ -978,12 +1159,27 @@ dkdv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
     float s[kBQ / 4], dp[kBQ / 4];
 #pragma unroll
     for (int j = 0; j < kBQ / 4; ++j) s[j] = dp[j] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float kc = k_s[c * LD + d], vc = v_s[c * LD + d];
+    if constexpr (D == DV) {
+      for (int d = 0; d < D; ++d) {
+        const float kc = k_s[c * LD + d], vc = v_s[c * LD + d];
 #pragma unroll
-      for (int j = 0; j < kBQ / 4; ++j) {
-        s[j] = fmaf(q_s[(ph + 4 * j) * LD + d], kc, s[j]);
-        dp[j] = fmaf(do_s[(ph + 4 * j) * LD + d], vc, dp[j]);
+        for (int j = 0; j < kBQ / 4; ++j) {
+          s[j] = fmaf(q_s[(ph + 4 * j) * LD + d], kc, s[j]);
+          dp[j] = fmaf(do_s[(ph + 4 * j) * LD + d], vc, dp[j]);
+        }
+      }
+    } else {
+      for (int d = 0; d < D; ++d) {
+        const float kc = k_s[c * LD + d];
+#pragma unroll
+        for (int j = 0; j < kBQ / 4; ++j)
+          s[j] = fmaf(q_s[(ph + 4 * j) * LD + d], kc, s[j]);
+      }
+      for (int d = 0; d < DV; ++d) {
+        const float vc = v_s[c * LDV + d];
+#pragma unroll
+        for (int j = 0; j < kBQ / 4; ++j)
+          dp[j] = fmaf(do_s[(ph + 4 * j) * LDV + d], vc, dp[j]);
       }
     }
 #pragma unroll
@@ -998,55 +1194,58 @@ dkdv_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int r = 0; r < kBQ; ++r) {
       const float p = p_s[c * LP + r], ds = ds_s[c * LP + r];
 #pragma unroll
-      for (int j = 0; j < D / 4; ++j) {
-        dv_acc[j] = fmaf(p, do_s[r * LD + ph + 4 * j], dv_acc[j]);
+      for (int j = 0; j < DV / 4; ++j)
+        dv_acc[j] = fmaf(p, do_s[r * LDV + ph + 4 * j], dv_acc[j]);
+#pragma unroll
+      for (int j = 0; j < D / 4; ++j)
         dk_acc[j] = fmaf(ds, q_s[r * LD + ph + 4 * j], dk_acc[j]);
-      }
     }
   }
   if (key < Sk) {
-    const long long off = kv_off + static_cast<long long>(key) * D;
+    const long long row = kv_row + key;
 #pragma unroll
-    for (int j = 0; j < D / 4; ++j) {
-      dk[off + ph + 4 * j] = dk_acc[j] * scale;
-      dv[off + ph + 4 * j] = dv_acc[j];
-    }
+    for (int j = 0; j < D / 4; ++j)
+      dk[row * D + ph + 4 * j] = dk_acc[j] * scale;
+#pragma unroll
+    for (int j = 0; j < DV / 4; ++j) dv[row * DV + ph + 4 * j] = dv_acc[j];
   }
 }
 
-template <int D>
+template <int D, int DV>
 constexpr size_t smem_bytes_dq_f32() {
-  return sizeof(float) * (4 * kBK * (D + 1) + kBQ * (kBK + 1));
+  return sizeof(float) * (2 * kBK * (D + 1) + 2 * kBK * (DV + 1) +
+                          kBQ * (kBK + 1));
 }
 
 // one block per (batch * head, 64-row q tile); thread 4 r + ph owns q row r
 // of the tile and output columns ph + 4 j
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsF)
 dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dO,
               const float* __restrict__ lse, const float* __restrict__ delta,
               float* __restrict__ dq, int H, int K, int S, Mask mk,
               float scale) {
-  constexpr int LD = D + 1, LP = kBK + 1;
+  constexpr int LD = D + 1, LDV = DV + 1, LP = kBK + 1;
   extern __shared__ float smem[];
   float* q_s = smem;                 // kBQ x LD
-  float* do_s = q_s + kBQ * LD;      // kBQ x LD
-  float* k_s = do_s + kBQ * LD;      // kBK x LD
-  float* v_s = k_s + kBK * LD;       // kBK x LD
-  float* ds_s = v_s + kBK * LD;      // kBQ x LP
+  float* do_s = q_s + kBQ * LD;      // kBQ x LDV
+  float* k_s = do_s + kBQ * LDV;     // kBK x LD
+  float* v_s = k_s + kBK * LD;       // kBK x LDV
+  float* ds_s = v_s + kBK * LDV;     // kBQ x LP
 
   const int bh = blockIdx.y;
   const int kvh = (bh / H) * K + (bh % H) / (H / K);
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int Sk = mk.Sk;
-  const long long q_off = static_cast<long long>(bh) * S * D;
+  const long long q_row = static_cast<long long>(bh) * S;
+  const long long q_off = q_row * D;
   const float* kp = k + static_cast<long long>(kvh) * Sk * D;
-  const float* vp = v + static_cast<long long>(kvh) * Sk * D;
+  const float* vp = v + static_cast<long long>(kvh) * Sk * DV;
   const int r = threadIdx.x >> 2, ph = threadIdx.x & 3;
   const int row = q0 + r;
   load_tile_f32<D>(q_s, q + q_off, q0, S);
-  load_tile_f32<D>(do_s, dO + q_off, q0, S);
+  load_tile_f32<DV>(do_s, dO + q_row * DV, q0, S);
   const float l = row < S ? lse[static_cast<long long>(bh) * S + row] : inf();
   const float dl = row < S ? delta[static_cast<long long>(bh) * S + row] : 0.0f;
 
@@ -1059,19 +1258,34 @@ dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
     const int k0 = tiles[i] * kBK;
     __syncthreads();  // the previous tile's readers are done
     load_tile_f32<D>(k_s, kp, k0, Sk);
-    load_tile_f32<D>(v_s, vp, k0, Sk);
+    load_tile_f32<DV>(v_s, vp, k0, Sk);
     __syncthreads();
 
     // scores and dP of row r against keys ph + 4 j, in the forward's order
     float s[kBK / 4], dp[kBK / 4];
 #pragma unroll
     for (int j = 0; j < kBK / 4; ++j) s[j] = dp[j] = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float qv = q_s[r * LD + d], dov = do_s[r * LD + d];
+    if constexpr (D == DV) {
+      for (int d = 0; d < D; ++d) {
+        const float qv = q_s[r * LD + d], dov = do_s[r * LD + d];
 #pragma unroll
-      for (int j = 0; j < kBK / 4; ++j) {
-        s[j] = fmaf(qv, k_s[(ph + 4 * j) * LD + d], s[j]);
-        dp[j] = fmaf(dov, v_s[(ph + 4 * j) * LD + d], dp[j]);
+        for (int j = 0; j < kBK / 4; ++j) {
+          s[j] = fmaf(qv, k_s[(ph + 4 * j) * LD + d], s[j]);
+          dp[j] = fmaf(dov, v_s[(ph + 4 * j) * LD + d], dp[j]);
+        }
+      }
+    } else {
+      for (int d = 0; d < D; ++d) {
+        const float qv = q_s[r * LD + d];
+#pragma unroll
+        for (int j = 0; j < kBK / 4; ++j)
+          s[j] = fmaf(qv, k_s[(ph + 4 * j) * LD + d], s[j]);
+      }
+      for (int d = 0; d < DV; ++d) {
+        const float dov = do_s[r * LDV + d];
+#pragma unroll
+        for (int j = 0; j < kBK / 4; ++j)
+          dp[j] = fmaf(dov, v_s[(ph + 4 * j) * LDV + d], dp[j]);
       }
     }
 #pragma unroll
@@ -1109,25 +1323,26 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // the scratch, in floats: Delta (B H S), then, for bf16, the fp32 dK and dV
-// partials of every query head (B H Sk D each), from a multiple of 4
+// partials of every query head (B H Sk D and B H Sk Dv), from a multiple
+// of 4
 struct Scratch {
-  long long delta, part;
+  long long delta, part_k, part_v;
   long long part_at() const { return (delta + 3) & ~3LL; }
-  long long floats() const { return part_at() + 2 * part; }
+  long long floats() const { return part_at() + part_k + part_v; }
 };
 
-Scratch scratch_of(int B, int H, int S, int Sk, int D, int bf16_in) {
-  return Scratch{static_cast<long long>(B) * H * S,
-                 bf16_in ? static_cast<long long>(B) * H * Sk * D : 0};
+Scratch scratch_of(int B, int H, int S, int Sk, int D, int Dv, int bf16_in) {
+  const long long rows = bf16_in ? static_cast<long long>(B) * H * Sk : 0;
+  return Scratch{static_cast<long long>(B) * H * S, rows * D, rows * Dv};
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dO, const float* lse, float* scratch,
                    long long scratch_floats, void* dq, void* dk, void* dv,
                    int B, int H, int K, int S, Mask mk, float scale,
                    int bf16_in, cudaStream_t stream) {
-  const Scratch sc = scratch_of(B, H, S, mk.Sk, D, bf16_in);
+  const Scratch sc = scratch_of(B, H, S, mk.Sk, D, DV, bf16_in);
   if (sc.floats() > scratch_floats) return cudaErrorInvalidValue;
   float* delta = scratch;
   const long long rows = static_cast<long long>(B) * H * S;
@@ -1138,42 +1353,50 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                *vb = static_cast<const bf16*>(v), *ob = static_cast<const bf16*>(o),
                *db = static_cast<const bf16*>(dO);
     float* pk = scratch + sc.part_at();
-    float* pv = pk + sc.part;
+    float* pv = pk + sc.part_k;
     // the key tile (dK/dV) and the q tile (dQ) are the slow grid axes, so
     // the blocks with the most tiles to visit start first
     const dim3 grid_kv(B * H, n_kt);
     delta_kernel_bf16<<<static_cast<unsigned>((rows + 31) / 32), 256, 0,
-                        stream>>>(ob, db, delta, rows, D);
+                        stream>>>(ob, db, delta, rows, DV);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    if constexpr (D == 64) {
+    if constexpr (D == 64 && DV == 64) {
       constexpr size_t s_kv = smem_bytes_wg();
       if ((err = allow_smem(dkdv_kernel_wg, s_kv)) != cudaSuccess) return err;
       dkdv_kernel_wg<<<grid_kv, kThreadsTC, s_kv, stream>>>(
           qb, kb, vb, db, lse, delta, pk, pv, H, K, S, mk, scale);
     } else {
-      constexpr size_t s_kv = smem_bytes_dkdv_tc<D>();
-      if ((err = allow_smem(dkdv_kernel_tc<D>, s_kv)) != cudaSuccess)
+      constexpr size_t s_kv = smem_bytes_dkdv_tc<D, DV>();
+      if ((err = allow_smem(dkdv_kernel_tc<D, DV>, s_kv)) != cudaSuccess)
         return err;
-      dkdv_kernel_tc<D><<<grid_kv, kThreadsTC, s_kv, stream>>>(
+      dkdv_kernel_tc<D, DV><<<grid_kv, kThreadsTC, s_kv, stream>>>(
           qb, kb, vb, db, lse, delta, pk, pv, H, K, S, mk, scale);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     // dQ and the combine: one launch, the combine's rows after the q tiles
-    const Combine cb{pk, pv, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+    const long long kv_rows = static_cast<long long>(B) * K * mk.Sk;
+    CombineOf<D, DV> cb;
+    if constexpr (D == DV)
+      cb = Combine{pk, pv, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                   static_cast<long long>(mk.Sk) * D, kv_rows * D / 4, H, K,
+                   scale};
+    else
+      cb = CombineKV{pk, pv, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
                      static_cast<long long>(mk.Sk) * D,
-                     static_cast<long long>(B) * K * mk.Sk * D / 4, H, K,
-                     scale};
+                     static_cast<long long>(mk.Sk) * DV, kv_rows * D / 4,
+                     kv_rows * (D + DV) / 4, H, K, scale};
     const dim3 grid_q(B * H, n_qt + cb.rows(B * H));
     bf16* dqb = static_cast<bf16*>(dq);
-    if constexpr (D == 64) {
+    if constexpr (D == 64 && DV == 64) {
       constexpr size_t s_q = smem_bytes_wg();
       if ((err = allow_smem(dq_kernel_wg, s_q)) != cudaSuccess) return err;
       dq_kernel_wg<<<grid_q, kThreadsTC, s_q, stream>>>(
           qb, kb, vb, db, lse, delta, dqb, H, K, S, mk, scale, n_qt, cb);
     } else {
-      constexpr size_t s_q = smem_bytes_dq_tc<D>();
-      if ((err = allow_smem(dq_kernel_tc<D>, s_q)) != cudaSuccess) return err;
-      dq_kernel_tc<D><<<grid_q, kThreadsTC, s_q, stream>>>(
+      constexpr size_t s_q = smem_bytes_dq_tc<D, DV>();
+      if ((err = allow_smem(dq_kernel_tc<D, DV>, s_q)) != cudaSuccess)
+        return err;
+      dq_kernel_tc<D, DV><<<grid_q, kThreadsTC, s_q, stream>>>(
           qb, kb, vb, db, lse, delta, dqb, H, K, S, mk, scale, n_qt, cb);
     }
     return cudaGetLastError();
@@ -1182,62 +1405,71 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
               *vf = static_cast<const float*>(v), *of = static_cast<const float*>(o),
               *df = static_cast<const float*>(dO);
   delta_kernel<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
-      of, df, delta, rows, D);
+      of, df, delta, rows, DV);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  constexpr size_t s_kv = smem_bytes_dkdv_f32<D>();
-  if ((err = allow_smem(dkdv_kernel_f32<D>, s_kv)) != cudaSuccess) return err;
-  dkdv_kernel_f32<D><<<dim3(n_kt, B * K), kThreadsF, s_kv, stream>>>(
+  constexpr size_t s_kv = smem_bytes_dkdv_f32<D, DV>();
+  if ((err = allow_smem(dkdv_kernel_f32<D, DV>, s_kv)) != cudaSuccess)
+    return err;
+  dkdv_kernel_f32<D, DV><<<dim3(n_kt, B * K), kThreadsF, s_kv, stream>>>(
       qf, kf, vf, df, lse, delta, static_cast<float*>(dk),
       static_cast<float*>(dv), H, K, S, mk, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  constexpr size_t s_q = smem_bytes_dq_f32<D>();
-  if ((err = allow_smem(dq_kernel_f32<D>, s_q)) != cudaSuccess) return err;
-  dq_kernel_f32<D><<<dim3(n_qt, B * H), kThreadsF, s_q, stream>>>(
+  constexpr size_t s_q = smem_bytes_dq_f32<D, DV>();
+  if ((err = allow_smem(dq_kernel_f32<D, DV>, s_q)) != cudaSuccess) return err;
+  dq_kernel_f32<D, DV><<<dim3(n_qt, B * H), kThreadsF, s_q, stream>>>(
       qf, kf, vf, df, lse, delta, static_cast<float*>(dq), H, K, S, mk,
       scale);
   return cudaGetLastError();
 }
 
+// whether the kernels are instantiated for (D, Dv): the forward's pairs
+bool takes(int D, int Dv) {
+  if (D == 192 && Dv == 128) return true;
+  if (D == 32 && Dv == 16) return true;
+  return Dv == D && (D == 16 || D == 32 || D == 64 || D == 96 || D == 128);
+}
+
 }  // namespace
 
-// The floats of scratch a launch at this shape needs (0: a D not taken).
+// The floats of scratch a launch at this shape needs (0: a (D, Dv) not
+// taken).
 extern "C" long long flash_attention_bwd_scratch_floats(int B, int H, int K,
                                                         int S, int Sk, int D,
-                                                        int bf16_in) {
-  if (B <= 0 || H <= 0 || K <= 0 || S < 0 || Sk < 0) return 0;
-  switch (D) {
-    case 16: case 32: case 64: case 96: case 128:
-      return scratch_of(B, H, S, Sk, D, bf16_in).floats();
-    default: return 0;
-  }
+                                                        int Dv, int bf16_in) {
+  if (B <= 0 || H <= 0 || K <= 0 || S < 0 || Sk < 0 || !takes(D, Dv))
+    return 0;
+  return scratch_of(B, H, S, Sk, D, Dv, bf16_in).floats();
 }
 
 // Launch on `stream`; returns the cudaError_t of the first launch that
-// failed (0 = success). Same layouts, D, mask arguments and dtype switch as
-// flash_attention_launch (window <= 0: no window); o and lse are the
-// forward's outputs (lse from a launch that asked for it), dO has o's
-// layout and dtype (bf16: o and dO 16-byte aligned), scratch holds
-// scratch_floats floats, at least flash_attention_bwd_scratch_floats(...),
-// and dq, dk, dv take q's, k's and v's layouts and dtype. p is taken in
-// fp32 (round_p = 0).
+// failed (0 = success). Same layouts, (D, Dv) pairs, mask arguments and
+// dtype switch as flash_attention_launch (window <= 0: no window): q and k
+// have head dim D, v, o and dO Dv; o and lse are the forward's outputs (lse
+// from a launch that asked for it), dO has o's layout and dtype (bf16: o
+// and dO 16-byte aligned), scratch holds scratch_floats floats, at least
+// flash_attention_bwd_scratch_floats(...), and dq, dk, dv take q's, k's and
+// v's layouts and dtype. p is taken in fp32 (round_p = 0).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const float* lse, float* scratch, long long scratch_floats,
     void* dq, void* dk, void* dv, int B, int H, int K, int S, int Sk, int D,
-    float scale, int bf16_in, int causal, int window, int sink,
+    int Dv, float scale, int bf16_in, int causal, int window, int sink,
     void* stream) {
   if (B <= 0 || H <= 0 || S <= 0) return 0;
-  if (K <= 0 || H % K != 0 || Sk <= 0 || sink < 0)
+  if (K <= 0 || H % K != 0 || Sk <= 0 || sink < 0 || !takes(D, Dv))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Mask mk{Sk, causal, window, sink};
+  if (D == 192)
+    return launch<192, 128>(q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
+  if (Dv == 16 && D == 32)
+    return launch<32, 16>(q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
   switch (D) {
-    case 16: return launch<16>(q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
-    case 32: return launch<32>(q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
-    case 64: return launch<64>(q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
-    case 96: return launch<96>(q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
-    case 128: return launch<128>(q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 16: return launch<16, 16>(q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
+    case 32: return launch<32, 32>(q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
+    case 64: return launch<64, 64>(q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
+    case 96: return launch<96, 96>(q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
+    default: return launch<128, 128>(q, k, v, o, dO, lse, scratch, scratch_floats, dq, dk, dv, B, H, K, S, mk, scale, bf16_in, s);
   }
 }
 

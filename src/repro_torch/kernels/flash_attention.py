@@ -2,12 +2,11 @@
 sink, round_p)``, differentiable.
 
 The value head dim may differ from the query/key one (MLA: 192 and 128).
-The forward kernel is instantiated for the (D, Dv) pairs of
+The forward and backward kernels are instantiated for the (D, Dv) pairs of
 ``HEAD_DIM_PAIRS``; a query/key dim between two of them is padded with
 zeros up to the next one with the same Dv (the scores do not change) and
-scaled by 1/sqrt of its unpadded width, as the reference scales it. The
-backward kernel takes one D: a gradient with Dv != D on the card raises
-(ROADMAP.md, queue 2).
+scaled by 1/sqrt of its unpadded width, as the reference scales it; the
+backward slices the padded columns' gradients off dq and dk.
 
 On CUDA tensors the forward launches the hand-written kernel of
 ``kernels/csrc/flash_attention.cu`` (built on first use by
@@ -19,9 +18,10 @@ the forward also writes each row's log-sum-exp, and the backward launches
 ``flash_attention_bwd.launches`` and ``kernels.dispatch.flash_attention_bwd.
 cuda``. Neither falls back. On CPU tensors it runs the plain version,
 ``kernels.ref.attention_ref`` (counted in
-``kernels.dispatch.flash_attention.plain``), under plain autograd. Under the
-sanitizer (``analysis.sanitize.wrap``) the kernels' outputs are checked for
-a NaN their inputs did not hold.
+``kernels.dispatch.flash_attention.plain``), under plain autograd; on meta
+tensors inside ``kernels.meta.shapes_only()`` (the dry run) it returns the
+output's shape. Under the sanitizer (``analysis.sanitize.wrap``) the
+kernels' outputs are checked for a NaN their inputs did not hold.
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.analysis import sanitize
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 96, 128)   # the D the kernels take with Dv = D
@@ -84,19 +84,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dtype before the PV product (the TPU kernel); ``round_p=False`` keeps it
     at float32 precision (the model). Same contract as
     ``ref.attention_ref``. On the card the gradient needs ``round_p=False``
-    (the backward kernel's p) and Dv = D."""
+    (the backward kernel's p)."""
     _check(q, k, v, causal, window, sink)
     if q.device.type == "cpu":
         _C_PLAIN.inc()
         return attention_ref(q, k, v, causal=causal, window=window,
                              sink=sink, round_p=round_p)
+    if meta.active(q):
+        return meta.outputs((q, k, v), [(q.shape[:3] + v.shape[3:],
+                                         q.dtype)])[0]
     needs_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
-    if needs_grad and v.shape[3] != q.shape[3]:
-        raise NotImplementedError(
-            f"the flash-attention backward kernel takes one head dim: a "
-            f"gradient with D {q.shape[3]} and Dv {v.shape[3]} (MLA) is not "
-            f"ported yet (ROADMAP.md, queue 2)")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, got "
                          f"{q.device}")
@@ -119,13 +117,22 @@ def kernel_dim(D: int, Dv: int) -> int:
     return min(fits)
 
 
+def _pad_qk(q, k, Dv: int):
+    """q and k padded with zero columns to ``kernel_dim``, which leave
+    every score as it is (q and k themselves where they fit)."""
+    Dqk = q.shape[-1]
+    D = kernel_dim(Dqk, Dv)
+    if D == Dqk:
+        return q, k
+    return F.pad(q, (0, D - Dqk)), F.pad(k, (0, D - Dqk))
+
+
 def _forward(q, k, v, causal, window, sink, round_p, *, with_lse: bool):
     """Launch the forward kernel; returns (o, lse or None)."""
     B, H, S, Dqk = q.shape
     K, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
-    D = kernel_dim(Dqk, Dv)
-    if D != Dqk:    # zero columns leave every score as it is
-        q, k = F.pad(q, (0, D - Dqk)), F.pad(k, (0, D - Dqk))
+    q, k = _pad_qk(q, k, Dv)
+    D = q.shape[-1]
     if B * H > _MAX_GRID_Y:
         raise ValueError(f"flash_attention kernel takes B*H <= "
                          f"{_MAX_GRID_Y}, got {B * H}")
@@ -159,29 +166,31 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=None,
     """The gradient of ``flash_attention(q, k, v, causal, window=window,
     sink=sink, round_p=False)`` on the card: (dq, dk, dv) in q's, k's and
     v's dtype, from the forward's ``o`` and ``lse`` and the upstream
-    gradient ``do`` (o's shape and dtype). One launch of the backward
-    kernel; the plain version is ``ref.attention_ref_grads``."""
+    gradient ``do`` (o's shape and dtype). q and k are padded to
+    ``kernel_dim`` as the forward pads them, and the padded columns'
+    gradients are dropped. One launch of the backward kernel; the plain
+    version is ``ref.attention_ref_grads``."""
     _check(q, k, v, causal, window, sink)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda, got {q.device}")
-    if v.shape != k.shape:
-        raise NotImplementedError("the flash-attention backward kernel takes "
-                                  "Dv = D (ROADMAP.md, queue 2)")
-    if do.shape != q.shape or do.dtype != q.dtype or o.shape != q.shape \
-            or lse.shape != q.shape[:3] or lse.dtype != torch.float32:
-        raise ValueError("flash_attention_bwd takes o and do of q's shape and "
-                         "dtype and a float32 (B, H, S) lse")
-    B, H, S, D = q.shape
-    K, Sk = k.shape[1], k.shape[2]
+    B, H, S, Dqk = q.shape
+    K, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
+    if do.shape != (B, H, S, Dv) or do.dtype != q.dtype \
+            or o.shape != do.shape or lse.shape != q.shape[:3] \
+            or lse.dtype != torch.float32:
+        raise ValueError("flash_attention_bwd takes o and do of shape (B, H, "
+                         "S, Dv) in q's dtype and a float32 (B, H, S) lse")
+    q, k = _pad_qk(q, k, Dv)
+    D = q.shape[-1]
     bf16 = q.dtype == torch.bfloat16
     do, o = do.contiguous(), o.contiguous()
     if bf16:    # the bf16 kernels load 16-byte rows of o and do
         do, o = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (do, o))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
-        return dq, dk.zero_(), dv.zero_()
+        return dq[..., :Dqk], dk.zero_()[..., :Dqk], dv.zero_()
     scratch = torch.empty(
-        build.scratch_floats("flash_attention_bwd", B, H, K, S, Sk, D,
+        build.scratch_floats("flash_attention_bwd", B, H, K, S, Sk, D, Dv,
                              int(bf16)), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -189,13 +198,13 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=None,
                      v.data_ptr(), o.data_ptr(), do.data_ptr(),
                      lse.data_ptr(), scratch.data_ptr(), scratch.numel(),
                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, K, S,
-                     Sk, D, 1.0 / math.sqrt(D), int(bf16), int(causal),
+                     Sk, D, Dv, 1.0 / math.sqrt(Dqk), int(bf16), int(causal),
                      0 if window is None else int(window), int(sink), stream)
     flash_attention_bwd.launches += 1
     _C_BWD.inc()
     sanitize.check_kernel("flash_attention_bwd", (q, k, v, o, do, lse),
                           (dq, dk, dv))
-    return dq, dk, dv
+    return dq[..., :Dqk], dk[..., :Dqk], dv
 
 
 class _FlashAttention(torch.autograd.Function):

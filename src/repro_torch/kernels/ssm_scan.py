@@ -10,9 +10,10 @@ every ``STATE_EVERY``-th step, and the backward launches
 ``kernels/csrc/ssm_scan_bwd.cu``, counted in ``ssm_scan_bwd.launches`` and
 ``kernels.dispatch.ssm_scan_bwd.cuda``. Neither falls back. On CPU tensors
 it runs the plain version, ``kernels.ref.ssm_scan_ref`` (counted in
-``kernels.dispatch.ssm_scan.plain``), under plain autograd. Under the
-sanitizer (``analysis.sanitize.wrap``) the kernels' outputs are checked for
-a NaN their inputs did not hold.
+``kernels.dispatch.ssm_scan.plain``), under plain autograd; on meta
+tensors inside ``kernels.meta.shapes_only()`` (the dry run) it returns the
+outputs' shapes. Under the sanitizer (``analysis.sanitize.wrap``) the
+kernels' outputs are checked for a NaN their inputs did not hold.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.analysis import sanitize
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 from repro_torch.kernels.ref import ssm_scan_ref
 
 STATE_SIZES = (4, 8, 16, 32)    # the n the kernels are instantiated for
@@ -63,6 +64,11 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.device.type == "cpu":
         _C_PLAIN.inc()
         return ssm_scan_ref(x, dt, A, Bc, Cc, D)
+    if meta.active(x):
+        B, S, di = x.shape
+        return meta.outputs((x, dt, A, Bc, Cc, D),
+                            [((B, S, di), x.dtype),
+                             ((B, di, A.shape[1]), x.dtype)])
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on cuda or cpu, got {x.device}")
     if A.shape[1] not in STATE_SIZES:

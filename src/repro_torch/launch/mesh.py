@@ -2,7 +2,9 @@
 
 ``make_production_mesh`` returns a *description* (``MeshDesc``: axis names
 and sizes) of the production meshes, which the sharding rules and the
-dry-run read without 256 or 512 processes. ``make_mesh`` and
+dry-run read without 256 or 512 processes: the dry run runs the sharded
+step over it as a ``parallel.comm.RecordingMesh``, which counts the
+collectives one device would call. ``make_mesh`` and
 ``make_host_mesh`` build a real ``torch.distributed`` ``DeviceMesh`` over
 the processes that were started (``torchrun``, or workers that called
 ``init_process_group`` themselves): NCCL on the card, gloo only when the

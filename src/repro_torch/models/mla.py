@@ -3,7 +3,9 @@
 Prefill (and training) expands the KV latent to per-head keys and values
 and runs causal attention through ``kernels.flash_attention`` with the
 query/key head dim ``qk_nope + qk_rope`` apart from the value head dim
-``v_head_dim``. Decode runs in the *absorbed* form: scores and output are
+``v_head_dim`` (p in float32, ``round_p=False``); in training on the card
+its gradient is the backward kernel's at the same two head dims. Decode
+runs in the *absorbed* form: scores and output are
 computed against the (kv_lora + rope) latent cache directly, in float32
 as the reference computes them (plain torch, as ``attention.attend_cache``
 is), so a token costs kv_lora_rank + qk_rope_dim cached values instead of

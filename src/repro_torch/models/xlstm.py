@@ -9,6 +9,9 @@ states and recomputes the steps inside a chunk, as the reference's
 ``jax.checkpoint`` of its inner ``lax.scan`` does. Without it the mLSTM's
 matrix state (B, H, dh, dh) would be saved for every step. No kernel runs
 here: the reference's recurrence is a ``lax.scan``, not a Pallas kernel.
+On the meta device inside ``kernels.meta.shapes_only()`` (the dry run,
+which reads only shapes and the collectives around the blocks) the scan
+runs one step and repeats its output's shape over time.
 
 q, k, v, the gates and every state are float32, as in the reference.
 """
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import meta
 from repro_torch.models.attention import _proj
 from repro_torch.models.common import dense_init, rmsnorm, rmsnorm_init
 
@@ -44,10 +48,13 @@ def _chunked_time_scan(cell, carry, xs, chunk: int):
     where that does not divide S, the reference's rule), each chunk under
     ``checkpoint`` when autograd records. Returns (carry, ys (B, S, ...))."""
     S = xs[0].shape[1]
+    carry = tuple(carry)
+    if meta.active(xs[0]):     # the dry run: the shapes of one step
+        carry, y = cell(carry, tuple(v[:, 0] for v in xs))
+        return tuple(carry), y[:, None].expand(y.shape[0], S, *y.shape[1:])
     chunk = min(chunk, S)
     if S % chunk != 0:
         chunk = S
-    carry = tuple(carry)
     remat = torch.is_grad_enabled() and any(
         t.requires_grad for t in (*carry, *xs))
     run = functools.partial(_scan_steps, cell, len(carry))

@@ -18,17 +18,64 @@ an active mesh, so a (1, 1) mesh computes what no mesh does, bit for bit.
 An axis that the mesh lacks has size 1. ``axes`` may name several axes
 (the data axes ``("pod", "data")``): a reduction then runs over each in
 turn.
+
+``RecordingMesh`` stands in for a ``DeviceMesh`` where no process runs
+(the dry run of ``launch.dryrun``): axis names and sizes from a mesh
+description, seen from rank 0. ``all_reduce_`` and ``all_gather``
+over it, which every collective of the port's sharded step goes through
+(these four, the parameter gather of ``sharding.gather_tree`` and the
+step's loss and gradient reductions), make no call: each appends its kind
+and the bytes of its result on one device to the mesh's ``records`` and
+returns a tensor of the result's shape.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Dict, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.parallel.sharding import current_mesh
+from repro_torch.parallel.sharding import current_mesh, describe
 
 Axes = Union[str, Sequence[str]]
+
+
+class RecordingMesh:
+    """A mesh description in a ``DeviceMesh``'s place, seen from rank 0:
+    the names and sizes that the sharding code reads, no process group.
+    The collectives over it are recorded in ``records``, a list of (kind,
+    bytes of the result on one device) with the reference's kind names
+    ("all-reduce", "all-gather")."""
+
+    def __init__(self, desc):
+        desc = describe(desc)
+        self.mesh_dim_names = tuple(desc.axis_names)
+        self.shape = tuple(desc.sizes)
+        self.records = []
+
+    def size(self, dim: int) -> int:
+        return self.shape[dim]
+
+    def get_local_rank(self, axis) -> int:
+        return 0
+
+    def record(self, kind: str, result: torch.Tensor) -> None:
+        self.records.append((kind, result.numel() * result.element_size()))
+
+    def counts(self) -> Dict[str, Dict[str, int]]:
+        """The records by kind: {kind: {"count", "bytes"}}, as the
+        reference's ``collective_stats`` returns them."""
+        return tally(self.records)
+
+
+def tally(records) -> Dict[str, Dict[str, int]]:
+    """(kind, bytes) records summed by kind: {kind: {"count", "bytes"}}."""
+    out: Dict[str, Dict[str, int]] = {}
+    for kind, nbytes in records:
+        st = out.setdefault(kind, {"count": 0, "bytes": 0})
+        st["count"] += 1
+        st["bytes"] += int(nbytes)
+    return out
 
 
 def _axes(axes: Axes) -> Tuple[str, ...]:
@@ -63,21 +110,25 @@ def axis_rank(axes: Axes, mesh=None) -> int:
     return r
 
 
-def _groups(axes: Axes, mesh=None):
-    """The process groups of the axes of ``axes`` larger than 1."""
+def _over(axes: Axes, mesh):
+    """(the mesh, the sizes of the axes of ``axes`` larger than 1 on it)."""
     mesh = current_mesh() if mesh is None else mesh
     if mesh is None:
-        return []
+        return None, []
     names = tuple(mesh.mesh_dim_names)
-    return [mesh.get_group(a) for a in _axes(axes)
-            if a in names and mesh.size(names.index(a)) > 1]
+    return mesh, [(a, mesh.size(names.index(a))) for a in _axes(axes)
+                  if a in names and mesh.size(names.index(a)) > 1]
 
 
 def all_reduce_(x: torch.Tensor, axes: Axes, op=dist.ReduceOp.SUM,
                 mesh=None) -> torch.Tensor:
     """``x`` reduced in place over ``axes`` (not differentiable)."""
-    for g in _groups(axes, mesh):
-        dist.all_reduce(x, op=op, group=g)
+    mesh, over = _over(axes, mesh)
+    for a, _ in over:
+        if isinstance(mesh, RecordingMesh):
+            mesh.record("all-reduce", x)
+        else:
+            dist.all_reduce(x, op=op, group=mesh.get_group(a))
     return x
 
 
@@ -85,9 +136,16 @@ def all_gather(x: torch.Tensor, dim: int, axes: Axes,
                mesh=None) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim`` over ``axes``, the first
     axis outermost (not differentiable)."""
-    for g in reversed(_groups(axes, mesh)):
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(g))]
-        dist.all_gather(parts, x.contiguous(), group=g)
+    mesh, over = _over(axes, mesh)
+    for a, n in reversed(over):
+        if isinstance(mesh, RecordingMesh):
+            shape = list(x.shape)
+            shape[dim] *= n
+            x = x.new_empty(shape)
+            mesh.record("all-gather", x)
+            continue
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=mesh.get_group(a))
         x = torch.cat(parts, dim=dim)
     return x
 

@@ -386,9 +386,25 @@ def _global_shape(mesh, spec: PartitionSpec, local: torch.Tensor):
     return torch.Size(shape)
 
 
+@dataclasses.dataclass
+class LocalBlock:
+    """What a ``DTensor`` is on a ``comm.RecordingMesh`` (the dry run): a
+    rank's block ``local`` of a tensor placed by ``spec``."""
+    local: torch.Tensor
+    spec: PartitionSpec
+    device_mesh: Any
+
+    def to_local(self) -> torch.Tensor:
+        return self.local
+
+
 def from_local_tree(mesh, tree, specs):
-    """``DTensor``s of the ranks' local blocks (no collective)."""
+    """``DTensor``s of the ranks' local blocks (no collective);
+    ``LocalBlock``s on a ``comm.RecordingMesh``."""
     from torch.distributed.tensor import DTensor
+    from repro_torch.parallel.comm import RecordingMesh
+    if isinstance(mesh, RecordingMesh):
+        return map_tree(lambda t, s: LocalBlock(t, s, mesh), tree, specs)
 
     def one(t, s):
         shape = _global_shape(mesh, s, t)
@@ -413,20 +429,19 @@ def local_tree(tree):
 
 
 def full_tensor(t) -> torch.Tensor:
-    """The full tensor of the ``DTensor`` ``t``, gathered with blocking
-    all-gathers, the innermost mesh dim first (a collective: every rank
-    calls it). ``DTensor.full_tensor`` returns before its gather is done,
-    and its result must not meet a collective of this process first."""
-    import torch.distributed as dist
-    from torch.distributed.tensor import Shard
+    """The full tensor of the ``DTensor`` (or ``LocalBlock``) ``t``,
+    gathered with blocking all-gathers (``comm.all_gather``), the innermost
+    mesh dim first (a collective: every rank calls it).
+    ``DTensor.full_tensor`` returns before its gather is done, and its
+    result must not meet a collective of this process first."""
+    from repro_torch.parallel import comm
     x, mesh = t.to_local(), t.device_mesh
-    for mdim in reversed(range(mesh.ndim)):
-        pl = t.placements[mdim]
-        if isinstance(pl, Shard) and mesh.size(mdim) > 1:
-            parts = [torch.empty_like(x) for _ in range(mesh.size(mdim))]
-            dist.all_gather(parts, x.contiguous(),
-                            group=mesh.get_group(mdim))
-            x = torch.cat(parts, dim=pl.dim)
+    names = tuple(mesh.mesh_dim_names)
+    spec = spec_tree(t)
+    for axis in reversed(names):
+        for dim, entry in enumerate(spec):
+            if axis in _entry_axes(entry):
+                x = comm.all_gather(x, dim, axis, mesh)
     return x
 
 
@@ -437,11 +452,13 @@ def gather_tree(tree):
 
 
 def spec_tree(tree):
-    """The partition specs of a tree of ``DTensor``s, read back from their
-    placements and mesh dim names."""
+    """The partition specs of a tree of ``DTensor``s (or ``LocalBlock``s),
+    read back from their placements and mesh dim names."""
     from torch.distributed.tensor import Shard
 
     def one(t):
+        if isinstance(t, LocalBlock):
+            return t.spec
         names = t.device_mesh.mesh_dim_names
         entries = [[] for _ in range(t.dim())]
         for name, pl in zip(names, t.placements):

@@ -9,10 +9,9 @@ and returned. The gradients go through the model's hand-written kernels on
 the card (``kernels.flash_attention``, ``kernels.ssm_scan``: their backward
 kernels) and through their plain versions on the CPU. A MoE configuration's
 step then nudges each layer's routing bias against the load it saw
-(``update_moe_bias``) and reports ``moe_balance``. MLA's attention has a
-value head dim apart from its query/key one, which the backward kernel
-does not take yet: training an MLA configuration runs on the CPU only
-(ROADMAP.md, queue 2).
+(``update_moe_bias``) and reports ``moe_balance``. MLA's attention, whose
+value head dim differs from its query/key one, trains through the same
+backward kernel (its (192, 128) and (32, 16) instantiations).
 
 With ``mesh`` (a ``DeviceMesh`` with dims named "data" and "model", and
 "pod" for a multi-pod one) the step is sharded, as the reference's step

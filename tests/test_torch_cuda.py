@@ -603,16 +603,50 @@ def test_reduced_families_serve_on_the_card_as_on_the_cpu(cuda, arch):
         assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-4
 
 
+# (B, H, K, S, Dqk, Dv): deepseek-v3's MLA at its training shape and on a
+# ragged S, and the reduced MLA's 24 / 16 (q and k padded to 32)
+MLA_BWD_CASES = [(4, 128, 128, 1000, 192, 128), (1, 16, 16, 333, 192, 128),
+                 (2, 4, 4, 40, 24, 16), (3, 4, 4, 77, 24, 16)]
+
+
+def _mla_inputs(case, dtype, cuda, seed=7):
+    B, H, K, S, D, Dv = case
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        cuda, dtype) for shape in ((B, H, S, D), (B, K, S, D), (B, K, S, Dv),
+                                   (B, H, S, Dv))]
+
+
 @pytest.mark.cuda
-def test_flash_attention_on_the_card_refuses_an_mla_gradient(cuda):
-    """The backward kernel takes one head dim: a gradient with Dv != D
-    raises, naming ROADMAP.md; without one the forward runs."""
-    q = torch.ones((1, 2, 8, 192), device=cuda, requires_grad=True)
-    v = torch.ones((1, 2, 8, 128), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kflash.flash_attention(q, q, v, round_p=False)
-    with torch.no_grad():
-        assert kflash.flash_attention(q, q, v).shape == (1, 2, 8, 128)
+@pytest.mark.parametrize("case", MLA_BWD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_on_the_card_trains_through_an_mla_gradient(
+        cuda, case, dtype):
+    """A gradient with Dv != D: one launch of the backward kernel, (dq, dk,
+    dv) of q's, k's and v's shapes within ``RTOL_ATTN_BWD`` of autograd of
+    ``attention_ref``."""
+    q, k, v, do = _mla_inputs(case, dtype, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = kflash.flash_attention_bwd.launches
+    o = kflash.flash_attention(*leaves, round_p=False)
+    got = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert kflash.flash_attention_bwd.launches == before + 1
+    assert [g.shape for g in got] == [t.shape for t in (q, k, v)]
+    gaps = _rel_gaps(got, ref.attention_ref_grads(q, k, v, do))
+    assert max(gaps) <= RTOL_ATTN_BWD[dtype], gaps
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_at_mla_head_dims_is_bit_equal_twice(cuda):
+    """The bf16 (192, 128) backward at deepseek-v3's training shape gives
+    the same bits twice (no atomics)."""
+    q, k, v, do = _mla_inputs(MLA_BWD_CASES[0], torch.bfloat16, cuda)
+    o, lse = kflash._forward(q, k, v, True, None, 0, False, with_lse=True)
+    first = kflash.flash_attention_bwd(q, k, v, o, do, lse)
+    second = kflash.flash_attention_bwd(q, k, v, o, do, lse)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 # (B, S, di, n): the reference's shapes, S and di no block or chunk divides,

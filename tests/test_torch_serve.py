@@ -227,13 +227,16 @@ def test_config_registry_and_unported_families():
     field its config (full and reduced); other names raise a KeyError
     naming what is registered; ``LM`` builds for every config, full and
     reduced (every family is ported); a gradient through MLA's attention
-    on the card (its value head dim apart from the query/key one; meta
-    tensors stand in for the card's here) raises NotImplementedError
-    pointing at ROADMAP.md; ``LM.loss`` of hymba returns a loss, and a MoE
-    configuration builds a train step."""
+    (its value head dim apart from the query/key one) is no longer
+    refused: on meta tensors the wrapper raises only as for any tensor
+    neither on the CPU nor on a card, and inside ``kernels.meta.
+    shapes_only()`` (the dry run) it gives the output's and the gradients'
+    shapes; ``LM.loss`` of hymba returns a loss, and a MoE configuration
+    builds a train step."""
     import dataclasses
     from repro.configs import ALL_ARCHS
     from repro_torch.configs import list_archs
+    from repro_torch.kernels import meta as kmeta
     from repro_torch.kernels.flash_attention import flash_attention
     assert list_archs() == ALL_ARCHS and len(ALL_ARCHS) == 10
     for arch in ALL_ARCHS:
@@ -249,8 +252,13 @@ def test_config_registry_and_unported_families():
     q, k = (torch.zeros((1, 4, 8, 24), device="meta", requires_grad=True)
             for _ in range(2))
     v = torch.zeros((1, 4, 8, 16), device="meta", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="cuda or cpu"):  # no MLA refusal
         flash_attention(q, k, v, round_p=False)
+    with kmeta.shapes_only():     # the dry run: the shapes, differentiable
+        o = flash_attention(q, k, v, round_p=False)
+        grads = torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+    assert o.shape == (1, 4, 8, 16)
+    assert [g.shape for g in grads] == [t.shape for t in (q, k, v)]
     lm = LM(small, device="cpu")
     loss, _ = lm.loss(lm.init(torch.Generator().manual_seed(0)),
                       {"tokens": np.zeros((1, 8), np.int32)})

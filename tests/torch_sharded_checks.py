@@ -12,7 +12,10 @@ own mesh over the started processes (``launch.mesh.make_mesh``):
   a ``make_host_mesh``;
 - ``reshard_check``: a checkpoint written on one mesh restored on others;
 - ``supervised_check``: a supervised sharded run with a failure injected,
-  against one without.
+  against one without;
+- ``collectives_check``: the collectives one sharded train step makes,
+  as a hook on ``torch.distributed`` sees them (what the dry run's
+  recorder is held to).
 """
 from __future__ import annotations
 
@@ -73,12 +76,21 @@ def _state(params, opt):
     return {"params": params, "m": opt["m"], "v": opt["v"]}
 
 
-def _together(a, b):
-    """``a`` and ``b`` on one device: the card if either is on one."""
-    if a.device == b.device:
-        return a, b
-    return (a, b.to(a.device)) if a.device.type == "cuda" else \
-        (a.to(b.device), b)
+# the entries of a leaf compared at a time, so that the float64 copies of
+# a full-width leaf (deepseek-v3's 926.7 M-entry embedding) never sit on a
+# card beside a float32 training state
+_CHUNK = 1 << 26
+
+
+def _chunks(*leaves_):
+    """Matching flat slices of same-shaped tensors, ``_CHUNK`` entries at
+    a time, together on one device: the card if one of them is on it."""
+    flat = [t.reshape(-1) for t in leaves_]
+    for i in range(0, flat[0].numel(), _CHUNK):
+        parts = [t[i:i + _CHUNK] for t in flat]
+        dev = next((p.device for p in parts if p.device.type == "cuda"),
+                   parts[0].device)
+        yield [p.to(dev) for p in parts]
 
 
 @torch.no_grad()
@@ -92,11 +104,11 @@ def _state_gaps(got, want):
         gaps[part], worst[part] = 0.0, None
         for (path, a), (_, b) in zip(flatten_with_path(got[part]),
                                      flatten_with_path(want[part])):
-            a, b = _together(a, b)
-            equal = equal and torch.equal(a, b)
-            num = float((a.double() - b.double()).abs().max()) \
-                if b.numel() else 0.0
-            den = float(b.double().abs().max()) if b.numel() else 0.0
+            num = den = 0.0
+            for ca, cb in _chunks(a, b):
+                equal = equal and torch.equal(ca, cb)
+                num = max(num, float((ca.double() - cb.double()).abs().max()))
+                den = max(den, float(cb.double().abs().max()))
             gap = num / den if den else (0.0 if num == 0 else math.inf)
             if gap > gaps[part]:
                 gaps[part], worst[part] = gap, "/".join(map(str, path))
@@ -128,16 +140,18 @@ def _update_gaps(got, want, lr):
         if not b.numel():
             continue
         bits = _MANTISSA[b.dtype]
-        a, b = _together(a.double(), b.double())
-        _, e = torch.frexp(torch.maximum(a.abs(), b.abs()).clamp_min(1e-30))
-        ulp = torch.ldexp(torch.ones_like(b), e - 1 - bits)
-        d = ((a - b).abs() - ulp).clamp_min(0) / lr
-        m = m.to(b.device).double().abs()
-        big = m >= UPDATE_M_SHARE * m.max()
-        if bool(big.any()):
-            worst = max(worst, float(d[big].max()))
-        flipped += int((d > 0.1).sum())
         total += b.numel()
+        m_max = max(float(c.abs().max()) for (c,) in _chunks(m))
+        for ca, cb, cm in _chunks(a, b, m):
+            ca, cb = ca.double(), cb.double()
+            _, e = torch.frexp(torch.maximum(ca.abs(), cb.abs())
+                               .clamp_min(1e-30))
+            ulp = torch.ldexp(torch.ones_like(cb), e - 1 - bits)
+            d = ((ca - cb).abs() - ulp).clamp_min(0) / lr
+            big = cm.double().abs() >= UPDATE_M_SHARE * m_max
+            if bool(big.any()):
+                worst = max(worst, float(d[big].max()))
+            flipped += int((d > 0.1).sum())
     return {"update": worst, "flips": flipped / max(total, 1)}
 
 
@@ -339,6 +353,76 @@ def train_check(spec: Dict[str, Any]):
             del full, ref
         dist.barrier()
         return out
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# the torch.distributed collectives the hook of ``collectives_check``
+# watches, with the reference's kind names; any other call it sees is
+# recorded under its own name
+_HOOKED = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+           "all_gather_into_tensor": "all-gather",
+           "reduce_scatter": "reduce-scatter",
+           "reduce_scatter_tensor": "reduce-scatter",
+           "all_to_all": "all-to-all", "all_to_all_single": "all-to-all",
+           "broadcast": "broadcast", "send": "send", "recv": "recv"}
+
+
+def _result_bytes(name, args, kwargs) -> int:
+    """The bytes of a collective's result on this rank: the output list or
+    tensor, else the tensor reduced or sent in place."""
+    out = args[0] if args else next(iter(kwargs.values()))
+    ts = out if isinstance(out, (list, tuple)) else [out]
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def collectives_check(spec: Dict[str, Any]):
+    """One sharded train step of ``spec`` (``train_check``'s keys: arch,
+    reduced, overrides, mesh, batch, seq, data_seed, seed, quantized, env,
+    remat) with every ``torch.distributed`` collective it calls recorded by
+    a hook: rank 0 returns {kind: {"count", "bytes"}} (bytes of each
+    result on the rank)."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.parallel.comm import tally
+    from repro_torch.train.step import init_train_state, make_train_step
+    dev = _device()
+    acfg = AdamWConfig(quantized=spec.get("quantized", False))
+    cfg = _config(spec)
+    mesh = _mesh(spec["mesh"])
+    saved_env = {k: os.environ.get(k) for k in spec.get("env", {})}
+    os.environ.update(spec.get("env", {}))
+    records, saved = [], {}
+
+    def hooked(name, fn):
+        def call(*args, **kwargs):
+            records.append((_HOOKED[name], _result_bytes(name, args,
+                                                         kwargs)))
+            return fn(*args, **kwargs)
+        return call
+    try:
+        _, step = make_train_step(cfg, device=dev, mesh=mesh,
+                                  remat=spec.get("remat", "full"), acfg=acfg)
+        params, opt = init_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(spec.get("seed", 0)),
+            acfg, device=dev, mesh=mesh)
+        batch = SyntheticLMData(cfg, spec["batch"], spec["seq"],
+                                spec.get("data_seed", 0)).next_batch()
+        dist.barrier()
+        for name, fn in ((n, getattr(dist, n)) for n in _HOOKED):
+            saved[name] = fn
+            setattr(dist, name, hooked(name, fn))
+        try:
+            step(params, opt, batch, 0)
+        finally:
+            for name, fn in saved.items():
+                setattr(dist, name, fn)
+        dist.barrier()
+        return tally(records) if dist.get_rank() == 0 else None
     finally:
         for k, v in saved_env.items():
             if v is None:
