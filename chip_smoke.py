@@ -143,7 +143,12 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             ``ref.attention_ref_grads`` with the same gates, bit-equal twice
             at the training shape, and its bf16 time beside its bound (6
             Dqk + 4 Dv flops a visible score), the plain backward's and
-            SDPA's where a backend takes Dv != D;
+            SDPA's where a backend takes Dv != D; there also its three
+            kernels' device times, each beside its own bound
+            (``attn_bwd_stage_bounds``), and its dK/dV and dQ kernels'
+            route, registers and spills from the build's ``-Xptxas -v``
+            report: the phase fails unless they run on wgmma with no spill
+            stores;
 20. train  hymba-1.5b at full width in bf16 (1,655,198,400 parameters from
             ``--seed``): ``make_train_step(remat="full")`` with AdamW, lr
             1e-3, warmup 2, on ``SyntheticLMData(cfg, 4, 1128, seed)``
@@ -1424,6 +1429,125 @@ def attn_bwd_bound(B, H, K, S, D, itemsize, window=None, sink=0, Dv=None):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def attn_bwd_stage_bounds(B, H, K, S, D, Dv, itemsize, window=None,
+                          sink=0):
+    """{stage of ``ATTN_BWD_KERNELS``: (bound ms, 'bytes' | 'operations')}
+    of a bf16 attention backward launch (self-attention, Sk = S), each
+    stage with its own products and bytes as the launch splits the work:
+    delta reads o and dO and writes Delta; dK/dV does S, dP, dV and dK (4 D
+    + 4 Dv flops a visible score) and reads q, k, v, dO, lse and Delta; dQ
+    + combine recomputes S and dP beside dQ (4 D + 2 Dv), reads the same
+    and writes dq. With GQA (H > K) dK/dV writes the fp32 partials of every
+    query head, which the combine reads to write dk and dv; with H == K
+    dK/dV writes dk and dv itself. The dQ pass's recomputation makes the
+    stages' bounds sum to more than the launch's (``attn_bwd_bound``)."""
+    scores = B * H * visible_scores(S, window, sink)
+    rows = B * H * S
+    inputs = (rows + B * K * S) * (D + Dv) * itemsize + 8 * rows
+    dkdv = B * K * S * (D + Dv) * itemsize
+    partials = 4 * rows * (D + Dv) if H > K else 0
+
+    def one(flops, elem_ops, nbytes):
+        t_ops = max(flops / PEAK_BF16_TC, elem_ops / PEAK_FP32_OPS)
+        t_bytes = nbytes / PEAK_BYTES
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes")
+    elem = scores * ATTN_ELEM_OPS_PER_SCORE
+    return {"delta": one(0, 2 * rows * Dv, 2 * rows * Dv * itemsize
+                         + 4 * rows),
+            "dkdv": one(scores * 4 * (D + Dv), elem,
+                        inputs + (partials if H > K else dkdv)),
+            "dq+combine": one(scores * (4 * D + 2 * Dv), elem,
+                              inputs + rows * D * itemsize
+                              + (partials + dkdv if H > K else 0))}
+
+
+def ptxas_kernels(log: str) -> dict:
+    """{mangled entry name: {"registers", "spill_stores", "spill_loads"}}
+    of each kernel in an ``nvcc -Xptxas -v`` report."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m[1])
+    return out
+
+
+def mla_bwd_kernels():
+    """(route, {kernel: ptxas report}, ptxas's wgmma notes) of the bf16
+    attention backward at MLA's (192, 128), from the build's report kept
+    beside the library: its dK/dV and dQ kernels' registers and spills,
+    and the route their names give (``_wg``: wgmma, ``_tc``: mma.sync)."""
+    import re
+    from repro_torch.kernels import build
+    log = build.build_library("flash_attention_bwd").with_suffix(
+        ".log").read_text()
+    kernels = {}
+    for name, rep in ptxas_kernels(log).items():
+        m = re.search(r"((?:dkdv|dq)_kernel_\w+?)ILi192ELi128E", name)
+        if m and not m[1].endswith("_f32"):
+            kernels[f"{m[1]}<192, 128>"] = rep
+    routes = {"wgmma" if "_wg" in n else "mma.sync" for n in kernels}
+    notes = [line.strip() for line in log.splitlines()
+             if "wgmma" in line and "ILi192ELi128E" in line]
+    return " + ".join(sorted(routes)), kernels, notes
+
+
+def mla_backward_profile(seed: int) -> dict:
+    """The bf16 attention backward at deepseek-v3's training shape
+    (``MLA_BWD_CASES[0]``): its time (``median_ms``) beside its bound, its
+    three kernels' device times (``kernel_split_ms``) each beside its own
+    bound (``attn_bwd_stage_bounds``), and its dK/dV and dQ kernels' route,
+    registers and spills (``mla_bwd_kernels``); printed and returned."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import flash_attention as kflash
+    B, H, K, S, D, Dv, _ = MLA_BWD_CASES[0]
+    dev = torch.device("cuda")
+    q, k, v = attn_inputs((B, H, K, S, D, Dv), torch.bfloat16, seed, dev)
+    do = torch.from_numpy(np.random.default_rng(seed + 1).normal(
+        size=(B, H, S, Dv)).astype(np.float32)).to(dev, torch.bfloat16)
+    o, lse = kflash._forward(q, k, v, True, None, 0, False, with_lse=True)
+
+    def bwd():
+        return kflash.flash_attention_bwd(q, k, v, o, do, lse)
+    ms = median_ms(bwd)
+    stages_ms = kernel_split_ms(bwd, ATTN_BWD_KERNELS)
+    stage_bounds = attn_bwd_stage_bounds(B, H, K, S, D, Dv, 2)
+    b_ms, b_by = attn_bwd_bound(B, H, K, S, D, 2, Dv=Dv)
+    route, kernels, notes = mla_bwd_kernels()
+    label = f"flash_attention_bwd MLA {(B, H, K, S, D, Dv)} bf16"
+    print(f"stages {label}: kernel {ms:.4f} ms (bound {b_ms:.4f}, {b_by}); "
+          "on the device: " + ", ".join(
+              f"{n} {fmt_ms(t)} ms (bound {stage_bounds[n][0]:.4f}, "
+              f"{stage_bounds[n][1]})" for n, t in stages_ms.items()),
+          flush=True)
+    print(f"route {label}: {route}; " + "; ".join(
+        f"{n} {r.get('registers')} registers, {r.get('spill_stores')} B "
+        f"of spill stores, {r.get('spill_loads')} B of spill loads"
+        for n, r in sorted(kernels.items())), flush=True)
+    for line in notes:
+        print(f"ptxas: {line}", flush=True)
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    return {"ms": ms, "stages_ms": stages_ms,
+            "stage_bounds": {n: {"ms": t, "by": by}
+                             for n, (t, by) in stage_bounds.items()},
+            "route": route, "registers": kernels, "ptxas_notes": notes}
+
+
 def ssm_bwd_bound(B, S, di, n, n_states):
     """``least_time`` of the selective-scan backward, float32."""
     ops = B * S * di * (SSM_BWD_OPS_PER_STATE * n + SSM_BWD_OPS_PER_CHANNEL)
@@ -1542,7 +1666,9 @@ def mla_backward_checks(seed: int):
     against ``ref.attention_ref_grads`` (one launch a backward, phase 19's
     gates), bit-equal twice at the training shape, and the bf16 training
     shape's time beside its bound, the plain backward's and SDPA's where a
-    backend of it takes Dv != D. Returns its stats."""
+    backend of it takes Dv != D, then ``mla_backward_profile``; fails
+    unless its dK/dV and dQ kernels run on wgmma without spill stores.
+    Returns its stats."""
     import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as kflash
@@ -1606,6 +1732,13 @@ def mla_backward_checks(seed: int):
             del o, lse
         del leaves
     torch.cuda.empty_cache()
+    out["profile"] = mla_backward_profile(seed)
+    spilled = {n: r for n, r in out["profile"]["registers"].items()
+               if r.get("spill_stores", 0) > 0}
+    if out["profile"]["route"] != "wgmma" or spilled:
+        fail(f"the bf16 attention backward at (192, 128) runs on "
+             f"{out['profile']['route']}, spills {spilled}: want wgmma, no "
+             f"spill stores")
     return out
 
 
@@ -3444,8 +3577,9 @@ def main() -> int:
         "name": "flash_attention_bwd_mla", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/mla.py:69",
-        "instantiation": "dkdv_kernel_tc<192, 128>, dq_kernel_tc<192, 128> "
-                         "(bf16); the float32 pair and <32, 16>",
+        "instantiation": "dkdv_kernel_wg2<192, 128>, dq_kernel_wg2<192, "
+                         "128> (bf16, wgmma, two warpgroups a block); the "
+                         "float32 pair and <32, 16>",
         "gradient_of": "causal_attention at MLA's head dims (query/key "
                        "192, value 128), by autodiff in the JAX model",
         "launches": train_mla["launches"]["flash_attention_bwd"],
@@ -3456,7 +3590,7 @@ def main() -> int:
         "cases": bwd["flash_attention_bwd_mla"]["cases"],
         **{k: bwd["flash_attention_bwd_mla"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library", "shape")},
+            "library", "shape", "profile")},
         "train": train_mla}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

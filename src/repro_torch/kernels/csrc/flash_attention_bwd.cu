@@ -75,12 +75,50 @@
 //   - occupancy (-Xptxas -v): dK/dV 168 registers under its launch bound,
 //     3 blocks an SM; dQ 122 registers, 4 blocks; 51 KB of shared memory
 //     a block.
+// bf16 at MLA's (D, DV) = (192, 128) (deepseek-v3's training path): wgmma
+// too, with two warpgroups a block (dkdv_kernel_wg2, dq_kernel_wg2). One
+// warpgroup cannot hold a dK/dV block's sums (dK 96 fp32 registers a
+// thread, dV 64, S^T and dP^T 32 each: the mma.sync kernel this replaces
+// held 255 registers and spilled 428 bytes). Of the two splits weighed --
+// (a) two consumer warpgroups sharing P^T and dS^T through shared memory,
+// (b) dK and dV in blocks of their own, S^T computed in both (+23 % of the
+// stage's products) -- this is (a), split by gradient rather than by
+// columns: dK's and dV's 96 + 96 / 64 + 64 columns would need MN-major
+// operands starting inside a 128-byte swizzle atom of Q's and dO's slabs,
+// and S^T cut by q columns (m64n32) reads more shared memory a flop.
+//   - dK/dV: warpgroup 0 computes S^T = K Q^T, P^T and dV += P^T dO;
+//     warpgroup 1 dP^T = V dO^T, dS^T = P^T (dP^T - Delta) and dK += dS^T
+//     Q. P^T goes over in fp32 through shared memory at a named barrier, so
+//     every product is done once and P^T and dS^T are register A operands
+//     (bf16 hi + lo) of the warpgroup that made them. K's (warpgroup 0) and
+//     V's (1) A operands stay in registers for the block's walk. dQ: warp-
+//     group 0 computes S = Q K^T and dP = dO V^T (Q's and dO's A operands in
+//     registers) and dS, warpgroup 1 dQ += dS K;
+//   - the streamed tiles (Q, dO with lse and Delta; K, V) are 64-column
+//     slabs in the 128-byte swizzle (Q and K 3 slabs, dO and V 2), read
+//     K-major by the first products and MN-major by the second, each 64-
+//     column piece of dK, dV, dQ one m64n64k16 chain; they pass through a
+//     ring of three slots that warpgroup 1 fills two items ahead with
+//     cp.async and hands over at named barriers, and warpgroup 0 runs up
+//     to an item ahead of it;
+//   - a one-dimensional grid with a head's tiles adjacent, so that the
+//     blocks on the card at once share their heads' streamed tiles in L2
+//     (with the tile on the slow axis, as the other widths have it, the
+//     launch took 2.66 ms instead of 2.13-2.16 at deepseek-v3's shape);
+//   - each item's second product is issued together with the next item's
+//     first (hi + lo operands converted a k-step at a time, just before its
+//     products), so one warpgroup's elementwise work runs under the
+//     other's products;
+//   - at one query head a kv head (MLA's), the dK/dV blocks store dK and dV
+//     themselves (bf16, through shared memory, 16 bytes a store) and the
+//     dQ launch has no combine rows: the fp32 partials' round trip cost
+//     ~2 ms at deepseek-v3's shape; with GQA they write partials as the
+//     other widths do;
+//   - 195 KB of shared memory and 256 threads a block, one block an SM;
+//     -Xptxas -v: no spill stores (chip_smoke.py phase 19 prints the
+//     registers and fails on a spill).
 // Other (D, DV): mma.sync.m16n8k16 with the same work split (4 warps of 16
-// keys or rows, ldmatrix fragments, rows padded by 16 bytes). At MLA's (192,
-// 128) a dK/dV block holds 130 KB of shared memory (one block an SM) and
-// more accumulators than 255 registers (some spill); the dQ kernel reads
-// Q's and dO's fragments from shared memory at each k-step instead of
-// holding them.
+// keys or rows, ldmatrix fragments, rows padded by 16 bytes).
 // fp32 inputs: IEEE fp32 FMAs out of shared memory (no TF32), four threads
 // a key (dK, dV) or a q row (dQ); their dK/dV kernel sums the G heads
 // inside the block. No --use_fast_math.
@@ -261,13 +299,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
 // q tiles that visit the key tile, in increasing order
 struct KvBlock {
   int bh, kvh, t_kv, k0, n_qt;
-  __device__ __forceinline__ KvBlock(int H, int K, int S) {
-    bh = blockIdx.x;                                 // b * H + h
+  // head bh_ (b * H + h), key tile t
+  __device__ __forceinline__ KvBlock(int H, int K, int S, int bh_, int t) {
+    bh = bh_;
     kvh = (bh / H) * K + (bh % H) / (H / K);
-    t_kv = blockIdx.y;
+    t_kv = t;
     k0 = t_kv * kBK;
     n_qt = (S + kBQ - 1) / kBQ;
   }
+  // the head on the grid's x axis, the key tile on its y axis
+  __device__ __forceinline__ KvBlock(int H, int K, int S)
+      : KvBlock(H, K, S, blockIdx.x, blockIdx.y) {}
   // the first q tile >= qt whose walk visits the key tile, or -1
   __device__ __forceinline__ int next(const Mask& mk, int qt, int S) const {
     for (; qt < n_qt; ++qt)
@@ -469,9 +511,6 @@ constexpr size_t smem_bytes_dkdv_tc() {
          sizeof(float) * 4 * kBQ;
 }
 
-// At MLA's (192, 128) the block holds 40 fp32 accumulator n-tiles (dK 24,
-// dV 16) beside the 16 of S^T and dP^T: more than 255 registers, so some
-// spill to local memory (-Xptxas -v reports how many bytes).
 template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsTC)
 dkdv_kernel_tc(const bf16* __restrict__ q,      // (B, H, S, D)
@@ -776,11 +815,15 @@ using CombineOf = std::conditional_t<D == DV, Combine, CombineKV>;
 // first), its rows' lse * log2(e) and Delta, and the bf16 store
 struct QBlock {
   int bh, kvh, q0;
-  __device__ __forceinline__ QBlock(int H, int K, int row, int n_qt) {
-    bh = blockIdx.x;                                 // b * H + h
+  // head bh_ (b * H + h), the row-th q tile from the last
+  __device__ __forceinline__ QBlock(int H, int K, int row, int n_qt, int bh_) {
+    bh = bh_;
     kvh = (bh / H) * K + (bh % H) / (H / K);
     q0 = (n_qt - 1 - row) * kBQ;
   }
+  // the head on the grid's x axis
+  __device__ __forceinline__ QBlock(int H, int K, int row, int n_qt)
+      : QBlock(H, K, row, n_qt, blockIdx.x) {}
   __device__ __forceinline__ void rows(const float* lse, const float* delta,
                                        int row0, int S, float (&l2)[2],
                                        float (&dl)[2]) const {
@@ -916,9 +959,7 @@ constexpr size_t smem_bytes_dq_tc() {
   return sizeof(bf16) * ((D + kPad) + (DV + kPad)) * (kBQ + 2 * kBK);
 }
 
-// Q's and dO's A fragments stay in registers for the whole kv loop up to
-// D + DV = 256; above (MLA's 192 + 128) they are read from shared memory at
-// each k-step, which leaves the registers to the 24 n-tiles of dQ.
+// Q's and dO's A fragments stay in registers for the whole kv loop.
 template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsTC)
 dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -931,7 +972,6 @@ dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int KQ = D / 16;     // k-steps over D
   constexpr int KV = DV / 16;    // k-steps over DV
   constexpr int NO = D / 8;      // output n-tiles of 8 columns
-  constexpr bool kHold = D + DV <= 256;   // Q, dO fragments in registers
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* do_s = q_s + kBQ * LD;           // kBQ x LDV
@@ -965,15 +1005,13 @@ dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<1>();
   __syncthreads();
 
-  uint32_t qf[kHold ? KQ : 1][4], df[kHold ? KV : 1][4];
-  if constexpr (kHold) {
+  uint32_t qf[KQ][4], df[KV][4];
 #pragma unroll
-    for (int kk = 0; kk < KQ; ++kk)
-      ldsm_a<LD>(qf[kk], q_s, warp * 16, kk, lane);
+  for (int kk = 0; kk < KQ; ++kk)
+    ldsm_a<LD>(qf[kk], q_s, warp * 16, kk, lane);
 #pragma unroll
-    for (int kk = 0; kk < KV; ++kk)
-      ldsm_a<LDV>(df[kk], do_s, warp * 16, kk, lane);
-  }
+  for (int kk = 0; kk < KV; ++kk)
+    ldsm_a<LDV>(df[kk], do_s, warp * 16, kk, lane);
   float l2[2], dl[2];
   blk.rows(lse, delta, row0, S, l2, dl);
   const float c2 = scale * kLog2e;
@@ -1022,36 +1060,22 @@ dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     } else {
 #pragma unroll
       for (int kk = 0; kk < KQ; ++kk) {
-        uint32_t a[4];
-        if constexpr (kHold) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
-        } else {
-          ldsm_a<LD>(a, q_s, warp * 16, kk, lane);
-        }
 #pragma unroll
         for (int j = 0; j < NT; j += 2) {
           uint32_t b[4];
           ldsm_b_rows<LD>(b, kt, j, kk, lane);
-          mma_bf16(s[j], a, b[0], b[1]);
-          mma_bf16(s[j + 1], a, b[2], b[3]);
+          mma_bf16(s[j], qf[kk], b[0], b[1]);
+          mma_bf16(s[j + 1], qf[kk], b[2], b[3]);
         }
       }
 #pragma unroll
       for (int kk = 0; kk < KV; ++kk) {
-        uint32_t a[4];
-        if constexpr (kHold) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) a[e] = df[kk][e];
-        } else {
-          ldsm_a<LDV>(a, do_s, warp * 16, kk, lane);
-        }
 #pragma unroll
         for (int j = 0; j < NT; j += 2) {
           uint32_t b[4];
           ldsm_b_rows<LDV>(b, vt, j, kk, lane);
-          mma_bf16(dp[j], a, b[0], b[1]);
-          mma_bf16(dp[j + 1], a, b[2], b[3]);
+          mma_bf16(dp[j], df[kk], b[0], b[1]);
+          mma_bf16(dp[j + 1], df[kk], b[2], b[3]);
         }
       }
     }
@@ -1074,6 +1098,557 @@ dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // every warp is done with buf before it is refilled
   }
   blk.store<D>(acc, dq, row0, quad_col, S, scale);
+}
+
+// ---------------------------------------------------------------------------
+// wgmma at MLA's (D, DV) = (192, 128): two warpgroups a block
+// ---------------------------------------------------------------------------
+
+constexpr int kThreadsWG2 = 2 * kThreadsTC;
+// the ring of streamed tiles (Q and dO in dK/dV, K and V in dQ), and the
+// named barriers of the hand-overs between the warpgroups (0 is
+// __syncthreads'): P (dS in dQ) of item m from warpgroup 0 to 1 (kBarP +
+// m % 2), slot s loaded, from warpgroup 1 to 0 (kBarSlot + s), and each
+// warpgroup alone
+constexpr int kSlots = 3;
+constexpr int kBarP = 1, kBarSlot = 3, kBarWG1 = kBarSlot + kSlots;
+constexpr int kBarWG0 = kBarWG1 + 1;   // warpgroup 0 alone
+
+// named barrier `id` over n threads, which may wait at different places
+// in the code: bar_arrive does not wait; bar_sync waits for n arrivals,
+// and the shared-memory writes made before them are visible after it
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// rows [row0, row0 + 64) of src (n_rows rows of 64 NS bf16) into NS
+// swizzled slabs at shared address dst (slab s: columns 64 s..), by NT
+// threads (tid < NT), 512 / NT 16-byte chunks a thread a slab, eight
+// neighbouring threads on a row's 128 bytes; rows past n_rows are
+// zero-filled
+template <int NS, int NT>
+__device__ __forceinline__ void load_slabs(uint32_t dst, const bf16* src,
+                                           int row0, int n_rows, int tid) {
+#pragma unroll
+  for (int m = 0; m < 64 * 8 / NT; ++m) {
+    const int i = tid + m * NT, r = i >> 3, c = i & 7;
+    const bool in = row0 + r < n_rows;
+    const bf16* row =
+        src + static_cast<long long>(in ? row0 + r : 0) * (64 * NS) + 8 * c;
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      cp_async16(dst + s * kTileBytes + sw128(r, c), row + 64 * s,
+                 in ? 16 : 0);
+  }
+}
+
+// 2^x on the SFU, results below 2^-126 flushed to zero
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the register A operands of rows [r0, r0 + 16) of NS swizzled slabs at t,
+// every k-step kk (16 columns, in slab kk / 4): ldmatrix, lane l at row
+// r0 + l % 16, 16-byte chunk 2 (kk % 4) + l / 16
+template <int NS>
+__device__ __forceinline__ void ldsm_a_slabs(uint32_t (&a)[4 * NS][4],
+                                             uint32_t t, int r0, int lane) {
+  const int r = r0 + (lane & 15);
+#pragma unroll
+  for (int kk = 0; kk < 4 * NS; ++kk)
+    ldsm_x4(a[kk], t + (kk >> 2) * kTileBytes +
+                       sw128(r, 2 * (kk & 3) + (lane >> 4)));
+}
+
+// piece s (columns 64 s..) of a 64-row accumulator 8 N wide, as the m64n64
+// accumulator a wgmma takes
+using Acc64 = float[8][4];
+template <int N>
+__device__ __forceinline__ Acc64& piece(float (&acc)[N][4], int s) {
+  return *reinterpret_cast<Acc64*>(acc[8 * s]);
+}
+
+// issue c (64 x 64) = a (64 rows, 16 NS columns, register A operands)
+// b^T, b the 64 rows of NS swizzled slabs at b_s read K-major
+template <int NS>
+__device__ __forceinline__ void issue_product_t(float (&c)[8][4],
+                                                const uint32_t (&a)[4 * NS][4],
+                                                uint32_t b_s) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * NS; ++kk)
+    wgmma_rs<0>(c, a[kk], desc_sw128(b_s + (kk >> 2) * kTileBytes) +
+                              2 * (kk & 3),
+                kk);
+}
+// the same, waited for
+template <int NS>
+__device__ __forceinline__ void wg_product_t(float (&c)[8][4],
+                                             const uint32_t (&a)[4 * NS][4],
+                                             uint32_t b_s) {
+  wg_fence();
+  issue_product_t<NS>(c, a, b_s);
+  wg_commit();
+  wg_wait_all();
+  wg_fence_acc(c);
+}
+
+// issue acc (64 x 64 NS) += x b, x (64 x 64 fp32) as bf16 hi + lo register
+// A operands (xh, xl: read by the products until they are done), b the 64
+// rows of NS swizzled slabs at b_s read MN-major, one m64n64 piece of acc a
+// slab; each k-step's operands are made just before its products, so that
+// the first products start while the rest are converted
+template <int NS>
+__device__ __forceinline__ void issue_accumulate(float (&acc)[8 * NS][4],
+                                                 const float (&x)[8][4],
+                                                 uint32_t (&xh)[4][4],
+                                                 uint32_t (&xl)[4][4],
+                                                 uint32_t b_s) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    acc_to_a<true>(x, kk, xh[kk], xl[kk]);
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const uint64_t b = desc_sw128(b_s + s * kTileBytes + kk * 2048);
+      wgmma_rs<1>(piece(acc, s), xh[kk], b, 1);
+      wgmma_rs<1>(piece(acc, s), xl[kk], b, 1);
+    }
+  }
+}
+
+// every product the warpgroup issued is done: its accumulators and x live
+template <int NS>
+__device__ __forceinline__ void wg_done(float (&acc)[8 * NS][4],
+                                        float (&x)[8][4]) {
+  wg_commit();
+  wg_wait_all();
+#pragma unroll
+  for (int s = 0; s < NS; ++s) wg_fence_acc(piece(acc, s));
+  wg_fence_acc(x);
+}
+
+// P^T of a (64 keys x 64 q rows) tile pair in place from S^T's accumulator
+// fragments, as p_ds_t has it (fragment (j, e): key key0 + 8 (e / 2), q row
+// q0 + 8 j + quad_col + e % 2; lse the q tile's rows') but with ex2, the
+// mask tested only in a tile it cuts
+__device__ __forceinline__ void p_from_st(float (&st)[8][4], const float* lse,
+                                          const Mask& mk, int q0, int k0,
+                                          int key0, int quad_col, float c2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float l2 = lse[8 * j + quad_col + h] * kLog2e;
+      st[j][h] = ex2(fmaf(st[j][h], c2, -l2));
+      st[j][h + 2] = ex2(fmaf(st[j][h + 2], c2, -l2));
+    }
+  if (!mk.partial(q0, k0)) return;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (!mk.visible(q0 + 8 * j + quad_col + (e & 1), key0 + 8 * (e >> 1)))
+        st[j][e] = 0.0f;
+}
+
+// P of a (64 q rows x 64 keys) tile pair in place from S's fragments, as
+// ds_of has it (fragment (j, e): row row0 + 8 (e / 2), key k0 + 8 j +
+// quad_col + e % 2) but with ex2, the mask tested only in a tile it cuts
+__device__ __forceinline__ void p_from_s(float (&s)[8][4],
+                                         const float (&l2)[2],
+                                         const Mask& mk, int q0, int k0,
+                                         int row0, int quad_col, float c2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      s[j][e] = ex2(fmaf(s[j][e], c2, -l2[e >> 1]));
+  if (!mk.partial(q0, k0)) return;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (!mk.visible(row0 + 8 * (e >> 1), k0 + 8 * j + quad_col + (e & 1)))
+        s[j][e] = 0.0f;
+}
+
+// the fp32 partial of one gradient, N wide, of the block's 64 keys: rows
+// key0, key0 + 8 of the accumulator fragments (n-tile j: columns 8 j..),
+// unscaled
+template <int N>
+__device__ __forceinline__ void store_partial(const float (&acc)[N / 8][4],
+                                              float* p, long long bh, int Sk,
+                                              int key0, int quad_col) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    if (key >= Sk) continue;
+    float* row = p + (bh * Sk + key) * N + quad_col;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j) =
+          make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+  }
+}
+
+// A warpgroup's 64-row accumulator N wide (n-tile j: columns 8 j..) times
+// scale, rounded to bf16, into rows [row_base, row_base + 64) of out (rows
+// N apart; rows at or past n_rows are skipped), through shared memory at
+// stage (64 rows of N + 8 bf16, idle by then; rows 4 banks apart), so that
+// each store is 16 bytes of a row; bar: the warpgroup's own barrier
+template <int N>
+__device__ __forceinline__ void store_tile_bf16(const float (&acc)[N / 8][4],
+                                                bf16* stage, bf16* out,
+                                                int row_base, int n_rows,
+                                                int t, float scale, int bar) {
+  constexpr int LD = N + 8, kChunks = N / 8;
+  const int r0 = (t >> 5) * 16 + ((t & 31) >> 2), quad_col = 2 * (t & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(stage + (r0 + 8 * h) * LD + 8 * j +
+                                         quad_col) =
+          __floats2bfloat162_rn(acc[j][2 * h] * scale,
+                                acc[j][2 * h + 1] * scale);
+  bar_sync(bar, kThreadsTC);
+#pragma unroll 4
+  for (int i = t; i < 64 * kChunks; i += kThreadsTC) {
+    const int r = i / kChunks, c = i % kChunks;
+    if (row_base + r < n_rows)
+      *reinterpret_cast<uint4*>(out + static_cast<long long>(row_base + r) * N +
+                                8 * c) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + 8 * c);
+  }
+}
+
+template <int D, int DV>
+constexpr size_t smem_bytes_wg2() {
+  // the fixed pair's slabs (read once into registers) and kSlots of the
+  // streamed pair's, P in fp32 twice, kSlots x 2 x 64 floats of lse and
+  // Delta (dK/dV), and 1 KB to align the slabs
+  return (1 + kSlots) * (D + DV) / 64 * kTileBytes +
+         sizeof(float) * (2 * kBQ * kBK + 2 * kSlots * kBQ) + 1024;
+}
+
+// P (dS in dQ) of item m from warpgroup 0 to warpgroup 1 through p_s[m %
+// 2] (each thread its own fragments): 8 float4s a thread
+__device__ __forceinline__ void put_p(float4* p_s, int m, int t,
+                                      const float (&x)[8][4]) {
+  float4* dst = p_s + (m & 1) * 8 * kThreadsTC;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    dst[j * kThreadsTC + t] = make_float4(x[j][0], x[j][1], x[j][2], x[j][3]);
+  bar_arrive(kBarP + (m & 1), kThreadsWG2);
+}
+__device__ __forceinline__ const float4* get_p(const float4* p_s, int m,
+                                               int t) {
+  bar_sync(kBarP + (m & 1), kThreadsWG2);
+  return p_s + (m & 1) * 8 * kThreadsTC + t;
+}
+
+// warpgroup 1 at the start of item m: its loads of item m + 1 (issued
+// during item m - 1, or before the first item) have landed; hand the slot
+// to warpgroup 0, and make it visible to warpgroup 1's own threads
+__device__ __forceinline__ void slot_ready(int m) {
+  cp_async_wait<0>();
+  fence_async_smem();
+  bar_arrive(kBarSlot + (m + 1) % kSlots, kThreadsWG2);
+  bar_sync(kBarWG1, kThreadsTC);
+}
+
+// One warpgroup of a dK/dV block. kRole 0: S^T = K Q^T, P^T (to the other
+// warpgroup through shared memory), dV += P^T dO; kRole 1: dP^T = V dO^T,
+// dS^T = P^T (dP^T - Delta), dK += dS^T Q. K's (role 0) or V's (role 1)
+// A operands stay in registers for the whole q-tile walk. Items (q tiles)
+// stream through a ring of kSlots slots of Q, dO, lse and Delta:
+// warpgroup 1 loads item m + 2 while it works on item m (into the slot
+// item m - 1 left), and warpgroup 0 runs up to one item ahead of it.
+template <int kRole, int D, int DV>
+__device__ __forceinline__ void dkdv_wg2_role(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dO,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ pk, float* __restrict__ pv, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int H, int K, int S, const Mask& mk, float scale) {
+  constexpr int NQ = D / 64, NV = DV / 64;   // slabs of a q / k, v / dO row
+  constexpr int NA = kRole == 0 ? NQ : NV;   // slabs of the fixed A operand
+  constexpr int NO = kRole == 0 ? NV : NQ;   // 64-column pieces of the sum
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t k_s = base, v_s = base + NQ * kTileBytes;
+  const uint32_t q_s = v_s + NV * kTileBytes;              // kSlots x NQ
+  const uint32_t do_s = q_s + kSlots * NQ * kTileBytes;    // kSlots x NV
+  float4* p_s = reinterpret_cast<float4*>(
+      smem_raw + (base - raw) + (1 + kSlots) * (NQ + NV) * kTileBytes);
+  float* lse_s = reinterpret_cast<float*>(p_s + 16 * kThreadsTC);
+  float* dl_s = lse_s + kSlots * kBQ;                      // kSlots x kBQ
+
+  // a one-dimensional grid, a head's key tiles adjacent (first first), so
+  // that the blocks running together share their heads' Q and dO in L2
+  const int n_kt = (mk.Sk + kBK - 1) / kBK;
+  const KvBlock blk(H, K, S, blockIdx.x / n_kt, blockIdx.x % n_kt);
+  const int tid = threadIdx.x, t = tid & (kThreadsTC - 1);
+  const int warp = t >> 5, lane = tid & 31;
+  const int key0 = blk.k0 + warp * 16 + (lane >> 2);   // keys key0, key0 + 8
+  const int quad_col = 2 * (lane & 3);
+  const long long qo = static_cast<long long>(blk.bh) * S;
+
+  // item qt into slot, by NT threads
+  auto load_item = [&](auto nt, int qt, int slot, int ltid) {
+    constexpr int NT = decltype(nt)::value;
+    const int q0 = qt * kBQ;
+    load_slabs<NQ, NT>(q_s + slot * NQ * kTileBytes, q + qo * D, q0, S, ltid);
+    load_slabs<NV, NT>(do_s + slot * NV * kTileBytes, dO + qo * DV, q0, S,
+                       ltid);
+    if (ltid < kBQ) {
+      const int r = q0 + ltid;
+      const long long i = qo + (r < S ? r : 0);
+      cp_async4(lse_s + slot * kBQ + ltid, lse + i, r < S);
+      cp_async4(dl_s + slot * kBQ + ltid, delta + i, r < S);
+    }
+  };
+  using All = std::integral_constant<int, kThreadsWG2>;
+  using One = std::integral_constant<int, kThreadsTC>;
+
+  // K, V and the first item by the whole block; the second by warpgroup 1,
+  // handed over as every later one is
+  const long long kv_row = static_cast<long long>(blk.kvh) * mk.Sk;
+  load_slabs<NQ, kThreadsWG2>(k_s, k + kv_row * D, blk.k0, mk.Sk, tid);
+  load_slabs<NV, kThreadsWG2>(v_s, v + kv_row * DV, blk.k0, mk.Sk, tid);
+  int qt = blk.next(mk, 0, S);
+  int qt1 = qt >= 0 ? blk.next(mk, qt + 1, S) : -1;
+  if (qt >= 0) load_item(All(), qt, 0, tid);
+  cp_async_commit();
+  if (kRole == 1 && qt1 >= 0) load_item(One(), qt1, 1, t);
+  cp_async_commit();
+  cp_async_wait<1>();
+  fence_async_smem();
+  bar_sync(0, kThreadsWG2);
+  uint32_t af[4 * NA][4];
+  ldsm_a_slabs<NA>(af, kRole == 0 ? k_s : v_s, warp * 16, lane);
+
+  float acc[8 * NO][4];
+#pragma unroll
+  for (int j = 0; j < 8 * NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  const float c2 = scale * kLog2e;
+
+  // Each item's second product is issued together with the next item's
+  // first, so that the elementwise work of one runs under the other. The
+  // next item's is issued after the last item too (on a slot no one writes
+  // then; its result is unused): a wgmma in a branch would be serialized.
+  float x[8][4];   // S^T, then P^T (role 0); dP^T, then dS^T (role 1)
+  uint32_t xh[4][4], xl[4][4];
+  if (qt >= 0) wg_product_t<NA>(x, af, kRole == 0 ? q_s : do_s);
+  for (int m = 0; qt >= 0; ++m) {
+    const int qt2 = qt1 >= 0 ? blk.next(mk, qt1 + 1, S) : -1;
+    const int slot = m % kSlots, slot1 = (m + 1) % kSlots;
+    if constexpr (kRole == 0) {
+      p_from_st(x, lse_s + slot * kBQ, mk, qt * kBQ, blk.k0, key0, quad_col,
+                c2);
+      put_p(p_s, m, t, x);
+      if (qt1 >= 0) bar_sync(kBarSlot + slot1, kThreadsWG2);
+      issue_accumulate<NO>(acc, x, xh, xl, do_s + slot * NV * kTileBytes);
+      issue_product_t<NA>(x, af, q_s + slot1 * NQ * kTileBytes);
+    } else {
+      if (qt1 >= 0) slot_ready(m);
+      const float4* p = get_p(p_s, m, t);
+      if (qt2 >= 0) {   // item m - 1's slot: both warpgroups are past it
+        load_item(One(), qt2, (m + 2) % kSlots, t);
+        cp_async_commit();
+      }
+      const float* dl = dl_s + slot * kBQ;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 pj = p[j * kThreadsTC];
+        const float d0 = dl[8 * j + quad_col], d1 = dl[8 * j + quad_col + 1];
+        x[j][0] = pj.x * (x[j][0] - d0);
+        x[j][1] = pj.y * (x[j][1] - d1);
+        x[j][2] = pj.z * (x[j][2] - d0);
+        x[j][3] = pj.w * (x[j][3] - d1);
+      }
+      issue_accumulate<NO>(acc, x, xh, xl, q_s + slot * NQ * kTileBytes);
+      issue_product_t<NA>(x, af, do_s + slot1 * NV * kTileBytes);
+    }
+    wg_done<NO>(acc, x);
+    qt = qt1;
+    qt1 = qt2;
+  }
+  cp_async_wait<0>();
+  if (H == K) {   // one query head a kv head: the sums are dK and dV
+    // staged where neither warpgroup reads any more: K's slabs (role 0,
+    // whose A operands they were) and P's buffers (role 1, past its last P)
+    if constexpr (kRole == 0)
+      store_tile_bf16<DV>(acc, reinterpret_cast<bf16*>(smem_raw + (base - raw)),
+                          dv + kv_row * DV, blk.k0, mk.Sk, t, 1.0f, kBarWG0);
+    else
+      store_tile_bf16<D>(acc, reinterpret_cast<bf16*>(p_s), dk + kv_row * D,
+                         blk.k0, mk.Sk, t, scale, kBarWG1);
+  } else if constexpr (kRole == 0) {
+    store_partial<DV>(acc, pv, blk.bh, mk.Sk, key0, quad_col);
+  } else {
+    store_partial<D>(acc, pk, blk.bh, mk.Sk, key0, quad_col);
+  }
+}
+
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreadsWG2, 1)
+dkdv_kernel_wg2(const bf16* __restrict__ q,      // (B, H, S, D)
+                const bf16* __restrict__ k,      // (B, K, Sk, D)
+                const bf16* __restrict__ v,      // (B, K, Sk, DV)
+                const bf16* __restrict__ dO,     // (B, H, S, DV)
+                const float* __restrict__ lse,   // (B, H, S)
+                const float* __restrict__ delta, // (B, H, S)
+                float* __restrict__ pk,          // (B, H, Sk, D)
+                float* __restrict__ pv,          // (B, H, Sk, DV)
+                bf16* __restrict__ dk,           // (B, K, Sk, D)
+                bf16* __restrict__ dv,           // (B, K, Sk, DV)
+                int H, int K, int S, Mask mk, float scale) {
+  if (threadIdx.x < kThreadsTC)
+    dkdv_wg2_role<0, D, DV>(q, k, v, dO, lse, delta, pk, pv, dk, dv, H, K, S,
+                            mk, scale);
+  else
+    dkdv_wg2_role<1, D, DV>(q, k, v, dO, lse, delta, pk, pv, dk, dv, H, K, S,
+                            mk, scale);
+}
+
+// One warpgroup of a dQ block. kRole 0: S = Q K^T and dP = dO V^T (Q's and
+// dO's A operands in registers for the whole kv-tile walk), P and dS = P
+// (dP - Delta), dS to the other warpgroup through shared memory; kRole 1:
+// dQ += dS K, and the loads. K and V stream through kSlots slots as Q and
+// dO do in dK/dV.
+template <int kRole, int D, int DV>
+__device__ __forceinline__ void dq_wg2_role(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dO,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq, int H, int K, int S, const Mask& mk, float scale,
+    int n_qt) {
+  constexpr int NQ = D / 64, NV = DV / 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t q_s = base, do_s = base + NQ * kTileBytes;
+  const uint32_t k_s = do_s + NV * kTileBytes;             // kSlots x NQ
+  const uint32_t v_s = k_s + kSlots * NQ * kTileBytes;     // kSlots x NV
+  float4* p_s = reinterpret_cast<float4*>(
+      smem_raw + (base - raw) + (1 + kSlots) * (NQ + NV) * kTileBytes);
+
+  // as in dK/dV: a head's q tiles adjacent (the last first), sharing K, V
+  const QBlock blk(H, K, blockIdx.x % n_qt, n_qt, blockIdx.x / n_qt);
+  const int Sk = mk.Sk;
+  const long long q_row = static_cast<long long>(blk.bh) * S;
+  const bf16* kp = k + static_cast<long long>(blk.kvh) * Sk * D;
+  const bf16* vp = v + static_cast<long long>(blk.kvh) * Sk * DV;
+  const int tid = threadIdx.x, t = tid & (kThreadsTC - 1);
+  const int warp = t >> 5, lane = tid & 31;
+  const int row0 = blk.q0 + warp * 16 + (lane >> 2);   // rows row0, row0 + 8
+  const int quad_col = 2 * (lane & 3);
+
+  // kv tile i of the walk into slot, by NT threads
+  const Tiles tiles = tiles_of(mk, blk.q0, S);
+  auto load_tile = [&](auto nt, int i, int slot, int ltid) {
+    constexpr int NT = decltype(nt)::value;
+    const int k0 = tiles[i] * kBK;
+    load_slabs<NQ, NT>(k_s + slot * NQ * kTileBytes, kp, k0, Sk, ltid);
+    load_slabs<NV, NT>(v_s + slot * NV * kTileBytes, vp, k0, Sk, ltid);
+  };
+  using All = std::integral_constant<int, kThreadsWG2>;
+  using One = std::integral_constant<int, kThreadsTC>;
+
+  // Q, dO and the first kv tile by the whole block; the second by
+  // warpgroup 1, handed over as every later one is
+  load_slabs<NQ, kThreadsWG2>(q_s, q + q_row * D, blk.q0, S, tid);
+  load_slabs<NV, kThreadsWG2>(do_s, dO + q_row * DV, blk.q0, S, tid);
+  if (tiles.n > 0) load_tile(All(), 0, 0, tid);
+  cp_async_commit();
+  if (kRole == 1 && tiles.n > 1) load_tile(One(), 1, 1, t);
+  cp_async_commit();
+  cp_async_wait<1>();
+  fence_async_smem();
+  bar_sync(0, kThreadsWG2);
+
+  if constexpr (kRole == 0) {
+    uint32_t qf[4 * NQ][4], df[4 * NV][4];
+    ldsm_a_slabs<NQ>(qf, q_s, warp * 16, lane);
+    ldsm_a_slabs<NV>(df, do_s, warp * 16, lane);
+    float l2[2], dl[2];
+    blk.rows(lse, delta, row0, S, l2, dl);
+    const float c2 = scale * kLog2e;
+    float x[8][4], y[8][4];   // S, then P, then dS; dP
+    for (int m = 0; m < tiles.n; ++m) {
+      const int slot = m % kSlots;
+      if (m > 0) bar_sync(kBarSlot + slot, kThreadsWG2);
+      wg_fence();
+      issue_product_t<NQ>(x, qf, k_s + slot * NQ * kTileBytes);
+      issue_product_t<NV>(y, df, v_s + slot * NV * kTileBytes);
+      wg_commit();
+      wg_wait_all();
+      wg_fence_acc(x);
+      wg_fence_acc(y);
+      p_from_s(x, l2, mk, blk.q0, tiles[m] * kBK, row0, quad_col, c2);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[j][e] *= y[j][e] - dl[e >> 1];
+      put_p(p_s, m, t, x);
+    }
+  } else {
+    float acc[8 * NQ][4];   // dQ
+#pragma unroll
+    for (int j = 0; j < 8 * NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+    float x[8][4];          // dS
+    uint32_t xh[4][4], xl[4][4];
+    for (int m = 0; m < tiles.n; ++m) {
+      if (m + 1 < tiles.n) slot_ready(m);
+      const float4* p = get_p(p_s, m, t);
+      if (m + 2 < tiles.n) {   // tile m - 1's slot: both are past it
+        load_tile(One(), m + 2, (m + 2) % kSlots, t);
+        cp_async_commit();
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 pj = p[j * kThreadsTC];
+        x[j][0] = pj.x, x[j][1] = pj.y, x[j][2] = pj.z, x[j][3] = pj.w;
+      }
+      issue_accumulate<NQ>(acc, x, xh, xl, k_s + (m % kSlots) * NQ * kTileBytes);
+      wg_done<NQ>(acc, x);
+    }
+    cp_async_wait<0>();
+    // staged in P's buffers, past the last dS
+    store_tile_bf16<D>(acc, reinterpret_cast<bf16*>(p_s), dq + q_row * D,
+                       blk.q0, S, t, scale, kBarWG1);
+  }
+}
+
+template <int D, int DV>
+__global__ void __launch_bounds__(kThreadsWG2, 1)
+dq_kernel_wg2(const bf16* __restrict__ q, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ dO,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dq, int H, int K, int S, Mask mk,
+              float scale, int n_qt, long long n_q_blocks,
+              CombineOf<D, DV> cb) {
+  if (blockIdx.x >= n_q_blocks) {   // the combine's, on the first warpgroup
+    if (threadIdx.x < kThreadsTC) cb.slice(blockIdx.x - n_q_blocks);
+    return;
+  }
+  if (threadIdx.x < kThreadsTC)
+    dq_wg2_role<0, D, DV>(q, k, v, dO, lse, delta, dq, H, K, S, mk, scale,
+                          n_qt);
+  else
+    dq_wg2_role<1, D, DV>(q, k, v, dO, lse, delta, dq, H, K, S, mk, scale,
+                          n_qt);
 }
 
 // ---------------------------------------------------------------------------
@@ -1365,6 +1940,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
       if ((err = allow_smem(dkdv_kernel_wg, s_kv)) != cudaSuccess) return err;
       dkdv_kernel_wg<<<grid_kv, kThreadsTC, s_kv, stream>>>(
           qb, kb, vb, db, lse, delta, pk, pv, H, K, S, mk, scale);
+    } else if constexpr (D == 192 && DV == 128) {
+      constexpr size_t s_kv = smem_bytes_wg2<D, DV>();
+      if ((err = allow_smem(dkdv_kernel_wg2<D, DV>, s_kv)) != cudaSuccess)
+        return err;
+      dkdv_kernel_wg2<D, DV><<<n_kt * B * H, kThreadsWG2, s_kv, stream>>>(
+          qb, kb, vb, db, lse, delta, pk, pv, static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), H, K, S, mk, scale);
     } else {
       constexpr size_t s_kv = smem_bytes_dkdv_tc<D, DV>();
       if ((err = allow_smem(dkdv_kernel_tc<D, DV>, s_kv)) != cudaSuccess)
@@ -1392,6 +1974,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
       if ((err = allow_smem(dq_kernel_wg, s_q)) != cudaSuccess) return err;
       dq_kernel_wg<<<grid_q, kThreadsTC, s_q, stream>>>(
           qb, kb, vb, db, lse, delta, dqb, H, K, S, mk, scale, n_qt, cb);
+    } else if constexpr (D == 192 && DV == 128) {
+      constexpr size_t s_q = smem_bytes_wg2<D, DV>();
+      if ((err = allow_smem(dq_kernel_wg2<D, DV>, s_q)) != cudaSuccess)
+        return err;
+      // the q tiles' blocks, then the combine's, none where dK/dV stored
+      // the gradients themselves (H == K)
+      const long long n_q_blocks = static_cast<long long>(n_qt) * B * H;
+      const int n_combine = H == K ? 0 : cb.rows(1);
+      dq_kernel_wg2<D, DV><<<static_cast<unsigned>(n_q_blocks + n_combine),
+                             kThreadsWG2, s_q, stream>>>(
+          qb, kb, vb, db, lse, delta, dqb, H, K, S, mk, scale, n_qt,
+          n_q_blocks, cb);
     } else {
       constexpr size_t s_q = smem_bytes_dq_tc<D, DV>();
       if ((err = allow_smem(dq_kernel_tc<D, DV>, s_q)) != cudaSuccess)

@@ -4,8 +4,10 @@ MLA's head dims (query/key ``Dqk`` apart from value ``Dv``), and the
 training step of deepseek-v3 cut as ``chip_smoke.py`` trains it.
 
 - ``ref.attention_ref_grads`` (the backward kernel's plain version) at
-  (Dqk, Dv) = (24, 16), the reduced MLA's, and (192, 128), deepseek-v3's,
-  causal, against ``jax.vjp`` of ``repro.models.attention.causal_attention``
+  (Dqk, Dv) = (24, 16), the reduced MLA's, and (192, 128), deepseek-v3's
+  (also at S = 64 and 65, either side of the (192, 128) kernel's 64-row
+  tile edge), causal, against ``jax.vjp`` of
+  ``repro.models.attention.causal_attention``
   on the same numpy inputs: every gradient within ``RTOL_GRAD`` of JAX's
   (``max|port - jax| <= RTOL * max|jax|``, float32);
 - the wrapper's padding (``kernels.flash_attention._pad_qk``: q and k
@@ -50,8 +52,11 @@ from repro_torch.train.step import init_train_state, make_train_step
 
 RTOL_GRAD = 1e-5
 RTOL_STEP = {"loss": 1e-5, "grad_norm": 1e-4}   # tests/test_torch_moe.py's
-# (B, H, S, Dqk, Dv): the reduced MLA and deepseek-v3's head dims
-GRAD_CASES = [(2, 4, 40, 24, 16), (1, 4, 70, 192, 128)]
+# (B, H, S, Dqk, Dv): the reduced MLA and deepseek-v3's head dims, the
+# latter also at S = 64 and 65, the edges of the card kernel's 64-row tiles
+GRAD_CASES = [(2, 4, 40, 24, 16), (1, 4, 70, 192, 128), (1, 2, 64, 192, 128),
+              (1, 2, 65, 192, 128)]
+GRAD_IDS = ["24-16", "192-128", "192-128-S64", "192-128-S65"]
 # two layers (the reduced config's one dense, one MoE), no MTP module;
 # phase 33's cut keeps two dense layers
 MLA_CUT = {"num_layers": 2, "mtp": False}
@@ -83,8 +88,7 @@ def _jax_grads(q, k, v, do):
     return vjp(jnp.asarray(do))
 
 
-@pytest.mark.parametrize("case", GRAD_CASES,
-                         ids=[f"{c[3]}-{c[4]}" for c in GRAD_CASES])
+@pytest.mark.parametrize("case", GRAD_CASES, ids=GRAD_IDS)
 def test_plain_mla_gradients_match_jax(case):
     """dq, dk, dv of ``attention_ref`` at Dqk != Dv against JAX's."""
     q, k, v, do = _inputs(*case)
