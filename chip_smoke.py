@@ -140,11 +140,12 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             (``MLA_BWD_CASES``: deepseek-v3's (4, 128, 128, 1,000) with
             query/key 192 and value 128, a ragged S, and the reduced 24 /
             16 padded to 32; float32 and bf16) against
-            ``ref.attention_ref_grads`` with the same gates, bit-equal twice
-            at the training shape, and its bf16 time beside its bound (6
-            Dqk + 4 Dv flops a visible score), the plain backward's and
-            SDPA's where a backend takes Dv != D; there also its three
-            kernels' device times, each beside its own bound
+            ``ref.attention_ref_grads`` with the same gates (the bf16
+            (192, 128) cases' forward on ``flash_kernel_wg``, once a case),
+            bit-equal twice at the training shape, and its bf16 time beside
+            its bound (6 Dqk + 4 Dv flops a visible score), the plain
+            backward's and SDPA's where a backend takes Dv != D; there also
+            its three kernels' device times, each beside its own bound
             (``attn_bwd_stage_bounds``), and its dK/dV and dQ kernels'
             route, registers and spills from the build's ``-Xptxas -v``
             report: the phase fails unless they run on wgmma with no spill
@@ -172,15 +173,21 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             value 128 at (4, 128, 128, 1,000) and on a ragged S, and the
             reduced MLA's 24 / 16 (q and k padded to 32), float32 and bf16,
             both treatments of p, phase 8's gates; at the full-width shapes
-            the kernel's time (``median_ms``), bound (2 Dqk + 2 Dv flops a
-            visible score), the plain version's and SDPA's where SDPA takes
-            the call;
+            the kernel's time (``median_ms``) with p in float32 (the
+            model's call) and with p rounded (SDPA's, like for like), bound
+            (2 Dqk + 2 Dv flops a visible score), the plain version's and
+            SDPA's where SDPA takes the call; the bf16 kernel at (128, 128)
+            and (192, 128) is ``flash_kernel_wg`` (wgmma; one wgmma launch
+            counted a call there, none elsewhere): its registers and spills
+            from the build's ``-Xptxas -v`` report, and the phase fails on
+            a spill store;
 23. moonshot moonshot-v1-16b-a3b at full width and depth (48 layers: 1
             dense, 47 MoE of 64 experts top-6 + 1 shared; 27.98 B bf16
             parameters from ``--seed``, each stacked leaf filled a layer at
             a time), served as phase 9 twice: 48 flash-attention launches a
-            generate (one a prefill layer) and no plain dispatch, tokens in
-            the vocabulary, logits finite, the two calls' tokens identical;
+            generate (one a prefill layer, on ``flash_kernel_wg``) and no
+            plain dispatch, tokens in the vocabulary, logits finite, the two
+            calls' tokens identical;
             init seconds and peak memory, prefill seconds, decode tokens/s,
             peak memory of a generate, and the least time of a decode
             step's expert stream (every expert's weights read once); the
@@ -201,7 +208,8 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             phi-3-vision-4.2b's prefill (4, 32, 32, 1,000, 96) and
             musicgen-medium's (4, 24, 24, 1,000, 64), as phase 22: float32
             and bf16, both treatments of p, phase 8's gates; each one's
-            time, bound, the plain version's and SDPA's;
+            time (p in float32 and rounded), bound, the plain version's and
+            SDPA's;
 27. vision phi-3-vision-4.2b, nothing cut (32 layers, d_model 3,072, 32
             heads of 96; 3,833,662,464 bf16 parameters from ``--seed``),
             served as phase 23 on 4 prompts of 576 patches of 1,024 (unit
@@ -275,8 +283,9 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             layers (both dense) without the MTP module (``TRAIN_MLA``:
             3,020,332,032 parameters), trained as phase 20 for
             ``TRAIN_MLA_STEPS`` steps on phase 20's batch: every loss and
-            grad_norm finite, 4 forward and 2 backward attention launches a
-            step at (192, 128), no plain dispatch; step seconds, tokens/s,
+            grad_norm finite, 4 forward (on ``flash_kernel_wg``) and 2
+            backward attention launches a step at (192, 128), no plain
+            dispatch; step seconds, tokens/s,
             peak memory, MFU and a profiled warm step.
 
 Each phase prints its seconds. It prints one ``{"kernels": [...]}`` line,
@@ -1686,11 +1695,16 @@ def mla_backward_checks(seed: int):
             o = kflash.flash_attention(*leaves, round_p=False)
             return torch.autograd.grad(o, leaves, do)
         n0 = kflash.flash_attention_bwd.launches
+        wg0 = kflash.flash_attention.wg_launches
         got = bwd()
         want = ref.attention_ref_grads(q, k, v, do)
         torch.cuda.synchronize()
         if kflash.flash_attention_bwd.launches != n0 + 1:
             fail("the MLA attention backward did not launch its kernel once")
+        wg = int(kflash.forward_kernel(D, Dv, dt) == "flash_kernel_wg")
+        if kflash.flash_attention.wg_launches - wg0 != wg:
+            fail(f"the MLA attention forward ({B, H, K, S, D, Dv, dtype}) did "
+                 f"not launch flash_kernel_wg {wg} times")
         gaps = rel_gaps(got, want)
         gate = RTOL_ATTN_BWD[dtype]
         label = f"flash_attention_bwd MLA {(B, H, K, S, D, Dv)} {dtype}"
@@ -1965,9 +1979,11 @@ def training_phase(seed: int, smi: str, arch: str = "hymba-1.5b",
     plain0 = [obs.value(c) for c in plain]
     for fn in routes.values():
         fn.launches = 0
+    kflash.flash_attention.wg_launches = 0
     rows = []
     for i in range(steps):
         before = {k: fn.launches for k, fn in routes.items()}
+        wg0 = kflash.flash_attention.wg_launches
         batch = data.next_batch()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1977,7 +1993,8 @@ def training_phase(seed: int, smi: str, arch: str = "hymba-1.5b",
         rows.append({"s": time.perf_counter() - t0, "loss": loss,
                      "grad_norm": gnorm, "lr": m["lr"],
                      "launches": {k: fn.launches - before[k]
-                                  for k, fn in routes.items()}})
+                                  for k, fn in routes.items()},
+                     "wg_launches": kflash.flash_attention.wg_launches - wg0})
         print(f"train step {i}: loss {loss:.6f}, grad_norm {gnorm:.6e}, lr "
               f"{m['lr']:.3e}, {rows[-1]['s']:.4f} s, launches "
               f"{rows[-1]['launches']}", flush=True)
@@ -1989,11 +2006,18 @@ def training_phase(seed: int, smi: str, arch: str = "hymba-1.5b",
     L_ssm = L if cfg.family == "hybrid" else 0
     want = {"flash_attention": 2 * L, "flash_attention_bwd": L,
             "ssm_scan": 2 * L_ssm, "ssm_scan_bwd": L_ssm}
-    bad = [r["launches"] for r in rows if r["launches"] != want]
+    dims = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim) if cfg.mla
+            else (cfg.head_dim, cfg.head_dim))
+    want_wg = 2 * L if kflash.forward_kernel(
+        *dims, getattr(torch, cfg.dtype)) == "flash_kernel_wg" else 0
+    bad = [r["launches"] for r in rows if r["launches"] != want
+           or r["wg_launches"] != want_wg]
     if bad or any(plain_calls):
         fail(f"training launches a step {bad or rows[0]['launches']} "
              f"(expected {want}: the forward kernels twice a layer under "
-             f"remat='full'), plain dispatches {plain_calls}")
+             f"remat='full', {want_wg} of them on flash_kernel_wg), plain "
+             f"dispatches {plain_calls}")
+    launches["flash_attention_wg"] = kflash.flash_attention.wg_launches
     peak = torch.cuda.max_memory_allocated()
     warm = float(np.median([r["s"] for r in rows[1:]]))
     flops = model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
@@ -2215,34 +2239,68 @@ def reduced_card_vs_cpu(rcfg, seed: int):
     return parity
 
 
+def fwd_wg_kernels():
+    """{kernel: ptxas report} and ptxas's wgmma notes of the bf16 forward's
+    wgmma kernel (``flash_kernel_wg<D, Dv, split>``, both treatments of p),
+    from the build's report kept beside the library."""
+    import re
+    from repro_torch.kernels import build
+    log = build.build_library("flash_attention").with_suffix(
+        ".log").read_text()
+    kernels = {}
+    for name, rep in ptxas_kernels(log).items():
+        m = re.search(r"flash_kernel_wgILi(\d+)ELi(\d+)ELb([01])E", name)
+        if m:
+            p = "p float32" if m[3] == "1" else "p rounded"
+            kernels[f"flash_kernel_wg<{m[1]}, {m[2]}> {p}"] = rep
+    notes = [line.strip() for line in log.splitlines()
+             if "wgmma" in line and "flash_kernel_wg" in line]
+    return kernels, notes
+
+
 def attention_shapes_phase(shapes, n_timed: int, seed: int):
     """Phases 22 and 26: the flash-attention kernel against its plain
     version at ``shapes`` ((B, H, K, S, D) or (B, H, K, S, Dqk, Dv); causal;
-    float32 and bf16, p rounded and in float32; the gates of phase 8), and
-    at the first ``n_timed`` (full-width) shapes its time (the model's
-    call: bf16, p in float32; ``median_ms``), its bound, the plain
-    version's time and SDPA's, where SDPA takes the call. Returns stats."""
+    float32 and bf16, p rounded and in float32; the gates of phase 8), one
+    wgmma launch a call where the forward runs ``flash_kernel_wg`` and none
+    elsewhere, and at the first ``n_timed`` (full-width) shapes its time
+    (``median_ms``) with p in float32 (the model's call) and rounded
+    (SDPA's p), its bound, the plain version's time and SDPA's, where SDPA
+    takes the call; where a shape runs ``flash_kernel_wg``, that kernel's
+    registers and spills (``fwd_wg_kernels``), failing on a spill store.
+    Returns stats."""
     import torch
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import ref
     dev = torch.device("cuda")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     stats = {"max_abs_err": 0.0, "max_ulps": 0.0, "max_share": 0.0,
-             "timing": {}}
+             "wg_max_abs_err": 0.0, "wg_launches": 0, "timing": {}}
     for shape in shapes:
+        D, Dv = shape[4], shape[5] if len(shape) > 5 else shape[4]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = attn_inputs(shape, dtype, seed, dev)
+            wg = kflash.forward_kernel(D, Dv, dtype) == "flash_kernel_wg"
             for round_p in (True, False):
+                n0 = kflash.flash_attention.wg_launches
                 got = kflash.flash_attention(q, k, v, round_p=round_p)
                 want = ref.attention_ref(q, k, v, round_p=round_p)
                 torch.cuda.synchronize()
                 label = (f"flash_attention {shape} {dtype} causal "
                          f"round_p={round_p}")
+                launched = kflash.flash_attention.wg_launches - n0
+                if launched != int(wg):
+                    fail(f"{label}: {launched} flash_kernel_wg launches, "
+                         f"expected {int(wg)}")
+                stats["wg_launches"] += launched
                 if not torch.isfinite(got).all() or got.shape != want.shape:
                     fail(f"{label}: output not finite or of shape "
                          f"{tuple(got.shape)}")
                 err = (got.float() - want.float()).abs().max().item()
                 stats["max_abs_err"] = max(stats["max_abs_err"], err)
+                if wg:
+                    stats["wg_max_abs_err"] = max(stats["wg_max_abs_err"],
+                                                  err)
                 if dtype == torch.bfloat16 and not round_p:
                     ulps, share = ref.bf16_ulp_gaps(got, want)
                     stats["max_ulps"] = max(stats["max_ulps"], ulps)
@@ -2258,6 +2316,21 @@ def attention_shapes_phase(shapes, n_timed: int, seed: int):
                 print(f"kernel {label}: max abs err {err:.3e} (tol {tol})")
                 if err > tol:
                     fail(f"{label}: max abs err {err:.3e} > {tol}")
+    if stats["wg_launches"]:
+        kernels, notes = fwd_wg_kernels()
+        spilled = {n: r for n, r in kernels.items()
+                   if r.get("spill_stores", 0) > 0}
+        print("route flash_attention bf16 (128, 128), (192, 128): wgmma; "
+              + "; ".join(f"{n} {r.get('registers')} registers, "
+                          f"{r.get('spill_stores')} B of spill stores, "
+                          f"{r.get('spill_loads')} B of spill loads"
+                          for n, r in sorted(kernels.items())), flush=True)
+        for line in notes:
+            print(f"ptxas: {line}", flush=True)
+        if len(kernels) != 4 or spilled:
+            fail(f"flash_kernel_wg: {len(kernels)} instantiations in the "
+                 f"build (want 4), spills {spilled}")
+        stats["registers"], stats["ptxas_notes"] = kernels, notes
     for shape in shapes[:n_timed]:
         B, H, K, S, D = shape[:5]
         Dv = shape[5] if len(shape) > 5 else D
@@ -2265,9 +2338,12 @@ def attention_shapes_phase(shapes, n_timed: int, seed: int):
         b_ms, b_by = attn_bound(B, H, K, S, D, 2, Dv=Dv)
         t = {"ms": median_ms(lambda: kflash.flash_attention(
                  q, k, v, round_p=False)),
+             "ms_round_p": median_ms(lambda: kflash.flash_attention(
+                 q, k, v, round_p=True)),
              "plain_ms": time_ms(lambda: ref.attention_ref(
                  q, k, v, round_p=False), 5, 1),
-             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+             "kernel": kflash.forward_kernel(D, Dv, torch.bfloat16)}
         try:
             t["library_ms"] = median_ms(lambda: sdpa(q, k, v, is_causal=True,
                                                      enable_gqa=True))
@@ -2275,8 +2351,11 @@ def attention_shapes_phase(shapes, n_timed: int, seed: int):
             print(f"SDPA does not take {shape}: {str(err).splitlines()[0]}")
         stats["timing"][str(shape)] = t
         lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
-        print(f"timing flash_attention {shape} bf16 causal, p float32: "
-              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA "
+        ratio = ("" if t["library_ms"] is None else
+                 f", {t['ms_round_p'] / t['library_ms']:.2f}x SDPA")
+        print(f"timing flash_attention {shape} bf16 causal ({t['kernel']}): "
+              f"kernel {t['ms']:.4f} ms with p float32, {t['ms_round_p']:.4f}"
+              f" ms with p rounded{ratio}, plain {t['plain_ms']:.4f} ms, SDPA "
               f"{lib} ms, bound {b_ms:.4f} ms ({b_by}), "
               f"{100 * b_ms / t['ms']:.1f} % of it", flush=True)
     return stats
@@ -2504,6 +2583,7 @@ def serve_full_phase(arch: str, n_layers, seed: int):
     import torch
     from repro_torch import obs
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as kflash
     from repro_torch.models import LM
     from repro_torch.serve.engine import Engine
     dev = torch.device("cuda")
@@ -2511,6 +2591,12 @@ def serve_full_phase(arch: str, n_layers, seed: int):
     if n_layers is not None:
         cfg = cfg.replace(num_layers=n_layers)
     attn_layers = 0 if cfg.family == "ssm" else cfg.num_layers
+    # the attention launches that run flash_kernel_wg (bf16 at D = 128 and
+    # MLA's (192, 128)): all of them, or none
+    dims = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim) if cfg.mla
+            else (cfg.head_dim, cfg.head_dim))
+    wg_layers = attn_layers if attn_layers and kflash.forward_kernel(
+        *dims, torch.bfloat16) == "flash_kernel_wg" else 0
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2552,12 +2638,14 @@ def serve_full_phase(arch: str, n_layers, seed: int):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         launches0 = kernel_launches()
+        wg0 = kflash.flash_attention.wg_launches
         t0 = time.perf_counter()
         outs.append(engine.generate(batch, steps=SERVE_STEPS))
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         launched = {k: v - launches0[k] for k, v in kernel_launches().items()}
         launches = launched.pop("flash_attention")
+        wg_launches = kflash.flash_attention.wg_launches - wg0
         plain = obs.value("kernels.dispatch.flash_attention.plain") - plain0
         dispatched = obs.value("kernels.dispatch.flash_attention.cuda") \
             - cuda0
@@ -2565,7 +2653,8 @@ def serve_full_phase(arch: str, n_layers, seed: int):
                "decode_tok_s": SERVE_REQUESTS * SERVE_STEPS
                / (total_s - rec["prefill_s"][-1]),
                "decode_step_s": (total_s - rec["prefill_s"][-1]) / SERVE_STEPS,
-               "launches": launches, "plain_dispatches": plain,
+               "launches": launches, "wg_launches": wg_launches,
+               "plain_dispatches": plain,
                "peak_gib": torch.cuda.max_memory_allocated() / gib}
         stats[call] = run
         logits = rec["logits"][n_logits:]
@@ -2580,16 +2669,19 @@ def serve_full_phase(arch: str, n_layers, seed: int):
             fail(f"{arch} ({call} call): tokens {outs[-1].shape} outside "
                  f"the vocabulary (expected {want_shape})")
         if launches != attn_layers or dispatched != launches or plain or \
-                any(launched.values()):
+                any(launched.values()) or wg_launches != wg_layers:
             fail(f"{arch} ({call} call): {launches} flash_attention launches "
                  f"(expected {attn_layers}, one an attention layer), "
-                 f"{dispatched} counted by kernels.dispatch.flash_attention."
-                 f"cuda, {plain} plain dispatches, other kernels {launched}")
+                 f"{wg_launches} of them on flash_kernel_wg (expected "
+                 f"{wg_layers}), {dispatched} counted by kernels.dispatch."
+                 f"flash_attention.cuda, {plain} plain dispatches, other "
+                 f"kernels {launched}")
         print(f"serve {arch} ({call} call): generate {total_s:.4f} s, prefill "
               f"{run['prefill_s']:.4f} s, decode {run['decode_tok_s']:.1f} "
               f"tokens/s ({1e3 * run['decode_step_s']:.2f} ms a step; {least}"
               f" {stats['step_least_ms']:.3f} ms), {launches} flash_attention "
-              f"launches, {plain} plain, no other kernel, peak "
+              f"launches ({wg_launches} on flash_kernel_wg), {plain} plain, "
+              f"no other kernel, peak "
               f"{run['peak_gib']:.2f} GiB, {len(logits)} logit sets and the "
               f"decode cache finite", flush=True)
     if not np.array_equal(outs[0], outs[1]):
@@ -3472,6 +3564,7 @@ def main() -> int:
     phase_done(33, "train deepseek", t_phase)
 
     main_shape = shapes["main"]
+    wg_main = moe_kernels["timing"][str(MOE_ATTN_SHAPES[0])]
     warm = serve["warm"]
     print(f"end-to-end: serve {cfg.name} {SERVE_REQUESTS} x {SERVE_PROMPT} "
           f"tokens + {SERVE_STEPS} steps: prefill "
@@ -3526,6 +3619,23 @@ def main() -> int:
                                "serve": family_serve,
                                "reduced_card_vs_cpu": family_parity,
                                "rtol_train_card_vs_cpu": RTOL_TRAIN_CPU}}, {
+        "name": "flash_attention_wg", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:68",
+        "instantiation": "flash_kernel_wg<128, 128>, <192, 128> (bf16, "
+                         "wgmma, two consumer warpgroups and a producer a "
+                         "block), both treatments of p",
+        "launches": sum(moe_serve[arch]["first"]["wg_launches"]
+                        for arch, _ in MOE_SERVE),
+        "max_abs_err": moe_kernels["wg_max_abs_err"], "tol": TOL_ATTN,
+        **{k: wg_main[k] for k in ("ms", "ms_round_p", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+        "shape": list(MOE_ATTN_SHAPES[0]), "timing": moe_kernels["timing"],
+        "registers": moe_kernels["registers"],
+        "launches_by_path": {
+            **{f"serve_{arch}": moe_serve[arch]["first"]["wg_launches"]
+               for arch, _ in MOE_SERVE},
+            "train_deepseek_step": train_mla["steps"][0]["wg_launches"]}}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:50",

@@ -25,17 +25,53 @@
 // pointer: the training call), it also writes each row's log-sum-exp, from
 // which flash_attention_bwd.cu recomputes p; the serving call does not ask.
 // The tile sizes, the mask, the tile walk and the mma helpers are in
-// flash_attention.cuh, shared with the backward.
+// flash_attention.cuh, the wgmma helpers in wgmma.cuh, both shared with
+// the backward.
 //
 // What bounds it on this card: at hymba's prefill shape (4, 25, 5, 1128, 64)
 // the causal work is ~16 GFLOP on ~35 MB, far above the bytes-per-op ridge,
 // so operations bound it, and in bf16 only the tensor cores reach them.
 //
-// bf16 inputs: tensor cores through mma.sync.m16n8k16 (fp32 accumulate),
-// the FlashAttention-2 layout. wgmma would reach a higher peak (and its
-// asynchronous issue would let one warpgroup's softmax overlap another's
-// products); mma.sync keeps to register fragments whose layout is fixed by
-// the instruction, with no shared-memory descriptors to get right.
+// bf16 inputs at (D, DV) = (128, 128) and (192, 128) (moonshot, granite,
+// qwen3, internlm2; deepseek-v3's MLA): Hopper's wgmma, flash_kernel_wg.
+// The mma.sync kernel below took 2.6-3.1x SDPA's time there: 2 blocks an
+// SM at 87-112 KB of shared memory, synchronous products that each warp
+// feeds from ldmatrix, the softmax waiting on a tile's products and the
+// next tile's products on the softmax, and 238-250 registers at D = 192.
+//   - one block of three warpgroups per (batch * head, 128-row q tile), over
+//     a (ceil(S / 128), B * H) grid, the q tiles in reverse order: two
+//     consumers, each owning 64 rows of the tile, and a producer that gives
+//     them its registers (setmaxnreg); one block an SM;
+//   - Q and the K and V tiles sit in shared memory as 64-column slabs in
+//     the 128-byte swizzle (wgmma.cuh), loaded by the producer with
+//     cp.async through a ring of 4 (K, V) slots and handed over at named
+//     barriers (slot loaded, to each consumer; slot free, to the producer);
+//   - S = Q K^T: wgmma m64n64k16 with both operands in shared memory
+//     (K-major), so Q holds no registers; O += P V: P from S's accumulator
+//     registers into register A operands, V read MN-major, one m64n64
+//     product a 64-column piece of O;
+//   - the consumers issue their products in turn (named barriers), so that
+//     one's softmax runs while the other's products are on the tensor
+//     cores; within a consumer, tile i's S and tile i - 1's PV are issued
+//     together;
+//   - the tile walk is the union of the two 64-row halves' (tiles_of with
+//     128 rows); the mask is applied per consumer, on its own 64 rows, as
+//     comparisons and selects (no branch per element), and a tile wholly
+//     masked for a consumer adds exactly nothing (p = 0, alpha = 1);
+//   - exp2 as ex2.approx.ftz (the SFU alone; relative error ~2^-22), p =
+//     2^(s c2 - m c2) in one FMA, with m c2 taken as 0 while a row has seen
+//     only masked keys; m, p's reference point, follows the row max only
+//     when the max grows by more than 2^8 (p <= 2^8, far inside fp32's
+//     and bf16's range), so most tiles rescale no O (a warp whose rows all
+//     kept theirs skips the multiplies); the row max and sum as trees; each
+//     lane sums its own part of l, reduced once at the end; o = acc * (1 /
+//     l);
+//   - round_p = 0: p's hi and lo products as in the mma.sync kernel;
+//   - 209 KB (D = 192) or 161 KB (128) of shared memory a block; -Xptxas
+//     -v: no spill stores (chip_smoke.py phase 22 prints the registers and
+//     fails on a spill).
+// Other bf16 (D, DV): tensor cores through mma.sync.m16n8k16 (fp32
+// accumulate), the FlashAttention-2 layout, flash_kernel_tc:
 //   - one block of 4 warps per (batch * head, 64-row q tile), over a
 //     (ceil(S / 64), B * H) grid, the q tiles in reverse order so that the
 //     longest causal rows start first; each warp owns 16 q rows;
@@ -74,7 +110,9 @@
 // first real key arrives. IEEE expf in the fp32 kernel, no
 // --use_fast_math anywhere.
 
-#include "flash_attention.cuh"
+#include <type_traits>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -270,6 +308,304 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at (D, DV) = (128, 128) and (192, 128): wgmma, two warpgroups a block
+// ---------------------------------------------------------------------------
+
+// two consumer warpgroups and a producer warpgroup, which hands most of its
+// registers over to them (setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 65,536;
+// at the 168 a thread an even split leaves, ptxas waits for a product
+// early to free registers, and the kernel ran slower)
+constexpr int kThreadsWG = 3 * kThreadsTC;
+constexpr int kRegsConsumer = 232, kRegsProducer = 40;
+// the ring of (K, V) tile pairs, tile i of the walk in slot i % kSlotsWG: a
+// slot is refilled once both warpgroups' products that read it are done
+constexpr int kSlotsWG = 4;
+// named barriers (0 is __syncthreads'): the issue turns of warpgroups 0 and
+// 1; slot s loaded, to warpgroup w (kBarFull + 2 s + w); slot s free, to the
+// producer (kBarEmpty + s)
+constexpr int kBarTurn = 1, kBarFull = 3, kBarEmpty = kBarFull + 2 * kSlotsWG;
+static_assert(kBarEmpty + kSlotsWG <= 16, "16 named barriers a block");
+
+template <int D, int DV>
+constexpr bool wgmma_forward() {
+  return (D == 128 || D == 192) && DV == 128;
+}
+
+template <int D, int DV>
+constexpr size_t smem_bytes_wg() {
+  // Q (two warpgroups' 64 rows), the ring, and 1 KB to align the slabs
+  return (2 * (D / 64) + kSlotsWG * (D / 64 + DV / 64)) * kTileBytes + 1024;
+}
+
+// p's reference point lags the row max by up to this much in the exponent
+constexpr float kLazyLog2 = 8.0f;
+
+// The online softmax of a warpgroup's 64 x 64 tile of scores s (the m64n64
+// accumulator; this thread's rows row0 and row0 + 8, keys k0 + 8 j +
+// quad_col + e % 2), in place: the mask where the tile cuts the
+// warpgroup's rows (from qw), the row's reference point m (its max, moved
+// lazily), p = 2^(s c2 - m c2) with m c2 taken as 0 while the row has seen
+// only masked keys (m = NEG: p is then 0, and the row's first real key
+// finds l = 0 and an accumulator of zeros), this lane's part of l, and
+// alpha, the factor of the accumulator. The output o = acc / l and lse =
+// m scale + log l do not depend on the reference point.
+// The mask is Mask::visible without branches: key k0 + quad_col + x (x = 8
+// j + e % 2, a constant) of row r is visible when x <= hi (causal: c <= r;
+// c < Sk) and (x >= lo (r - c < window) or x < sk (c < sink))
+__device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             const Mask& mk, int qw, int k0,
+                                             int row0, int quad_col,
+                                             float c2) {
+  if (mk.partial(qw, k0)) {
+    const int cb = k0 + quad_col;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h - cb;   // the row, less the first column
+      const int hi = mk.causal ? min(r, mk.Sk - 1 - cb) : mk.Sk - 1 - cb;
+      const bool win = mk.causal && mk.window > 0;
+      const int lo = win ? r - mk.window + 1 : -kBK;
+      const int sk = win ? mk.sink - cb : -kBK;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          const int x = 8 * j + (e & 1);
+          const bool vis = (x <= hi) & ((x >= lo) | (x < sk));
+          s[j][e] = vis ? s[j][e] : kNeg;
+        }
+    }
+  }
+  // the row max and sum as trees over the thread's 16 keys of a row
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float t[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = fmaxf(s[j][2 * h], s[j][2 * h + 1]);
+#pragma unroll
+    for (int w = 4; w >= 1; w >>= 1)
+#pragma unroll
+      for (int j = 0; j < w; ++j) t[j] = fmaxf(t[j], t[j + w]);
+    float mx = fmaxf(m[h], t[0]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    // p's reference point m moves to the new max only when the max grew
+    // by more than 8 in the exponent: p <= 2^8 otherwise, and O needs no
+    // rescale (alpha = 1)
+    const bool grow = (mx - m[h]) * c2 > kLazyLog2;
+    const float mr = grow ? mx : m[h];
+    const float mc = mr == kNeg ? 0.0f : mr * c2;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][2 * h] = ex2(fmaf(s[j][2 * h], c2, -mc));
+      s[j][2 * h + 1] = ex2(fmaf(s[j][2 * h + 1], c2, -mc));
+      t[j] = s[j][2 * h] + s[j][2 * h + 1];
+    }
+#pragma unroll
+    for (int w = 4; w >= 1; w >>= 1)
+#pragma unroll
+      for (int j = 0; j < w; ++j) t[j] += t[j + w];
+    const float ps = t[0];
+    alpha[h] = grow ? ex2((m[h] - mx) * c2) : 1.0f;
+    l[h] = l[h] * alpha[h] + ps;
+    m[h] = mr;
+  }
+}
+
+// One block a (batch * head, 128-row q tile): warpgroup w owns rows q0 +
+// 64 w.. and keeps its O (64 x DV fp32), its scores and P's A operands in
+// registers; the producer warpgroup loads Q and the walk's (K, V) tiles
+// into the ring with cp.async and hands each slot over at named barriers,
+// so that neither consumer waits for the other's loads. Iteration i (tiles
+// 1..n - 1 of the walk), in warpgroup w: slot i has landed; at w's turn (the
+// warpgroups issue their products in turn) S_i = Q K_i^T is issued (both
+// operands in shared memory), O is rescaled and O += P_{i-1} V_{i-1} issued
+// (P in registers: hi, and lo with kSplitP); S_i and PV_{i-1} are waited
+// for (ptxas puts the second wait ahead of the softmax wherever the source
+// has it), slot i - 1 is freed, and the softmax of S_i runs and P_i is made
+// while the other warpgroup's products are on the tensor cores. Every
+// product is waited for in the iteration that issues it: ptxas serializes
+// wgmma whose wait lies in a later iteration.
+template <int D, int DV, bool kSplitP>
+__global__ void __launch_bounds__(kThreadsWG, 1)
+flash_kernel_wg(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
+                const __nv_bfloat16* __restrict__ k,   // (B, K, Sk, D)
+                const __nv_bfloat16* __restrict__ v,   // (B, K, Sk, DV)
+                __nv_bfloat16* __restrict__ o,         // (B, H, S, DV)
+                float* __restrict__ lse,               // (B, H, S) or null
+                int H, int K, int S, Mask mk, float scale) {
+  constexpr int NQ = D / 64, NV = DV / 64;   // slabs of a q / k, v row
+  constexpr int kSlotBytes = (NQ + NV) * kTileBytes;   // K, then V
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base;                       // 2 x NQ slabs
+  const uint32_t ring = q_s + 2 * NQ * kTileBytes;   // kSlotsWG slots
+
+  const int bh = blockIdx.y;                    // b * H + h
+  const int kvh = (bh / H) * K + (bh % H) / (H / K);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQWG;
+  const int Sk = mk.Sk;
+  const Tiles tiles = tiles_of<kBQWG>(mk, q0, S);
+  const int n = tiles.n;
+  auto slot = [&](int i) { return ring + (i % kSlotsWG) * kSlotBytes; };
+  const int tid = threadIdx.x;
+  constexpr int kFull = 2 * kThreadsTC, kEmpty = 3 * kThreadsTC;
+
+  if (tid >= 2 * kThreadsTC) {   // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegsProducer));
+    const int t = tid - 2 * kThreadsTC;
+    const __nv_bfloat16* qp = q + static_cast<long long>(bh) * S * D;
+    const __nv_bfloat16* kp = k + static_cast<long long>(kvh) * Sk * D;
+    const __nv_bfloat16* vp = v + static_cast<long long>(kvh) * Sk * DV;
+    load_slabs<NQ, kThreadsTC>(q_s, qp, q0, S, t);
+    load_slabs<NQ, kThreadsTC>(q_s + NQ * kTileBytes, qp, q0 + 64, S, t);
+    auto handed = [&](int i) {   // tile i has landed: to both warpgroups
+      fence_async_smem();
+      bar_arrive(kBarFull + 2 * (i % kSlotsWG), kFull);
+      bar_arrive(kBarFull + 2 * (i % kSlotsWG) + 1, kFull);
+    };
+    for (int i = 0; i < n; ++i) {
+      if (i >= kSlotsWG) bar_sync(kBarEmpty + i % kSlotsWG, kEmpty);
+      const int k0 = tiles[i] * kBK;
+      load_slabs<NQ, kThreadsTC>(slot(i), kp, k0, Sk, t);
+      load_slabs<NV, kThreadsTC>(slot(i) + NQ * kTileBytes, vp, k0, Sk, t);
+      cp_async_commit();
+      if (i > 0) {
+        cp_async_wait<1>();
+        handed(i - 1);
+      }
+    }
+    cp_async_wait<0>();
+    handed(n - 1);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegsConsumer));
+
+  const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int qw = q0 + 64 * wg;                      // the warpgroup's rows
+  const int row0 = qw + warp * 16 + (lane >> 2);    // rows row0, row0 + 8
+  const int quad_col = 2 * (lane & 3);              // fragment column
+  const uint32_t qa = q_s + wg * NQ * kTileBytes;
+  auto landed = [&](int i) {
+    bar_sync(kBarFull + 2 * (i % kSlotsWG) + wg, kFull);
+  };
+  // tile i's products are done: the producer may refill its slot (if it
+  // will: a dangling arrival would outlive the block)
+  auto free_slot = [&](int i) {
+    if (i + kSlotsWG < n) bar_arrive(kBarEmpty + i % kSlotsWG, kEmpty);
+  };
+  // the turns: warpgroup 0 first, then each in turn (warpgroup 1 does not
+  // hand its last turn back, which no one would take)
+  auto my_turn = [&]() { bar_sync(kBarTurn + wg, 2 * kThreadsTC); };
+  auto your_turn = [&](bool last) {
+    if (!(last && wg == 1)) bar_arrive(kBarTurn + (wg ^ 1), 2 * kThreadsTC);
+  };
+  if (wg == 1) bar_arrive(kBarTurn, 2 * kThreadsTC);
+
+  const float c2 = scale * kLog2e;  // exp(x * scale) = exp2(x * c2)
+  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};   // l: this lane's part
+  float alpha[2];
+  float acc[8 * NV][4];
+#pragma unroll
+  for (int j = 0; j < 8 * NV; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  float s[8][4];                 // S, then P
+  uint32_t ph[4][4], pl[4][4];   // P's A operands, hi and lo
+  // P's operands and O's rescaled sums are made before the wgmma.fence
+  // that the products reading them follow: made after it, they would need
+  // one that ptxas inserts itself and, on the consumers' divergent path,
+  // serializes the products for
+  auto make_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      acc_to_a<kSplitP>(s, kk, ph[kk], pl[kk]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        asm volatile("" : "+r"(ph[kk][e])::"memory");
+        if constexpr (kSplitP) asm volatile("" : "+r"(pl[kk][e])::"memory");
+      }
+    }
+  };
+  auto rescale = [&]() {
+    // (a warp whose rows all kept their reference point skips it)
+    if (__any_sync(0xffffffffu, alpha[0] != 1.0f || alpha[1] != 1.0f))
+#pragma unroll
+    for (int j = 0; j < 8 * NV; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+#pragma unroll
+    for (int p = 0; p < NV; ++p) wg_fence_acc(piece(acc, p));
+  };
+  auto pv_done = [&]() {
+#pragma unroll
+    for (int p = 0; p < NV; ++p) wg_fence_acc(piece(acc, p));
+  };
+
+  landed(0);
+  my_turn();
+  wg_fence();
+  issue_product_ss<NQ>(s, qa, slot(0));
+  wg_commit();
+  your_turn(false);
+  wg_wait<0>();
+  wg_fence_acc(s);
+  softmax_tile(s, m, l, alpha, mk, qw, tiles[0] * kBK, row0, quad_col, c2);
+  make_p();
+  for (int i = 1; i < n; ++i) {
+    landed(i);
+    my_turn();
+    wg_fence();
+    issue_product_ss<NQ>(s, qa, slot(i));
+    wg_commit();
+    rescale();
+    wg_fence();
+    issue_accumulate_a<NV, kSplitP>(acc, ph, pl,
+                                    slot(i - 1) + NQ * kTileBytes);
+    wg_commit();
+    your_turn(false);
+    wg_wait<1>();   // S_i done; PV_{i-1} may still run
+    wg_fence_acc(s);
+    softmax_tile(s, m, l, alpha, mk, qw, tiles[i] * kBK, row0, quad_col, c2);
+    wg_wait<0>();
+    pv_done();
+    free_slot(i - 1);
+    make_p();
+  }
+  my_turn();
+  rescale();
+  wg_fence();
+  issue_accumulate_a<NV, kSplitP>(acc, ph, pl,
+                                  slot(n - 1) + NQ * kTileBytes);
+  wg_commit();
+  your_turn(true);
+  wg_wait<0>();
+  pv_done();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  __nv_bfloat16* op = o + static_cast<long long>(bh) * S * DV;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= S) continue;
+    const float denom = fmaxf(l[h], 1e-30f);
+    // m is the unscaled row max: p = exp((s - m) * scale)
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[static_cast<long long>(bh) * S + row] = m[h] * scale + logf(denom);
+    const float inv = 1.0f / denom;
+#pragma unroll
+    for (int j = 0; j < 8 * NV; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(
+          op + static_cast<long long>(row) * DV + 8 * j + quad_col) =
+          __floats2bfloat162_rn(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fp32: IEEE FMAs
 // ---------------------------------------------------------------------------
 
@@ -415,18 +751,34 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
         mk, scale);
     return cudaGetLastError();
   }
-  constexpr size_t smem = smem_bytes_tc<D, DV>();
-  auto kernel = round_p ? flash_kernel_tc<D, DV, false>
-                        : flash_kernel_tc<D, DV, true>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreadsTC, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse, H, K, S, mk, scale);
+  if constexpr (wgmma_forward<D, DV>()) {
+    constexpr size_t smem = smem_bytes_wg<D, DV>();
+    auto kernel = round_p ? flash_kernel_wg<D, DV, false>
+                          : flash_kernel_wg<D, DV, true>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3((S + kBQWG - 1) / kBQWG, B * H), kThreadsWG, smem,
+             stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(o), lse, H, K, S, mk, scale);
+  } else {
+    constexpr size_t smem = smem_bytes_tc<D, DV>();
+    auto kernel = round_p ? flash_kernel_tc<D, DV, false>
+                          : flash_kernel_tc<D, DV, true>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kThreadsTC, smem, stream>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<__nv_bfloat16*>(o), lse, H, K, S, mk, scale);
+  }
   return cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 // What the flash-attention forward (flash_attention.cu) and backward
 // (flash_attention_bwd.cu) kernels share: the tile sizes, the mask and the
 // kv tiles a q tile visits (so that the backward visits exactly the tiles
-// the forward does), and the mma.sync / ldmatrix / cp.async helpers of the
-// bf16 tensor-core kernels.
+// the forward does; a 128-row q tile of the wgmma forward visits those of
+// its two 64-row halves), and the mma.sync / ldmatrix / cp.async helpers
+// of the bf16 tensor-core kernels (the wgmma ones are in wgmma.cuh).
 
 #pragma once
 
@@ -13,6 +14,7 @@
 namespace fa {
 
 constexpr int kBQ = 64;        // q rows per block
+constexpr int kBQWG = 128;     // q rows per block of the wgmma forward
 constexpr int kBK = 64;        // kv rows per tile (ref.BLOCK_K)
 // -0.7 * FLT_MAX, rounded once from double, as the plain version has it
 constexpr float kNeg = static_cast<float>(-0.7 * 3.4028234663852886e38);
@@ -47,11 +49,14 @@ struct Tiles {
   }
 };
 
+// the Tiles of the q tile of kRows rows from q0 (kBQ; kBQWG in the wgmma
+// forward)
+template <int kRows = kBQ>
 __device__ __forceinline__ Tiles tiles_of(const Mask& mk, int q0, int S) {
   int hi = (mk.Sk + kBK - 1) / kBK - 1;
   int first = 0, n_sink = 0;
   if (mk.causal) {
-    hi = min(hi, (min(q0 + kBQ, S) - 1) / kBK);
+    hi = min(hi, (min(q0 + kRows, S) - 1) / kBK);
     if (mk.window > 0) {
       first = max(0, q0 - mk.window + 1) / kBK;
       n_sink = min((mk.sink + kBK - 1) / kBK, first);

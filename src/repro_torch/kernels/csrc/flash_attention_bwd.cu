@@ -125,7 +125,7 @@
 
 #include <type_traits>
 
-#include "flash_attention.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -178,117 +178,6 @@ delta_kernel_bf16(const bf16* __restrict__ o, const bf16* __restrict__ dO,
   for (int m = 4; m >= 1; m >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, m);
   if (row < rows && l8 == 0) delta[row] = acc;
-}
-
-// ---------------------------------------------------------------------------
-// wgmma helpers (bf16, D = 64)
-// ---------------------------------------------------------------------------
-
-constexpr int kTileBytes = 64 * 128;   // 64 rows of 64 bf16
-
-// byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile
-__device__ __forceinline__ uint32_t sw128(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
-}
-
-// 4 bytes global -> shared, asynchronously; in = false writes a zero
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool in) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(in ? 4 : 0)
-               : "memory");
-}
-
-// rows [row0, row0 + 64) of src (n_rows rows of 64 bf16) into the swizzled
-// tile at shared address dst; rows past n_rows are zero-filled
-__device__ __forceinline__ void load_tile_sw(uint32_t dst, const bf16* src,
-                                             int row0, int n_rows, int tid) {
-  for (int i = tid; i < 64 * 8; i += kThreadsTC) {
-    const int r = i >> 3, c = i & 7;
-    const bool in = row0 + r < n_rows;
-    cp_async16(dst + sw128(r, c),
-               src + static_cast<long long>(in ? row0 + r : 0) * 64 + 8 * c,
-               in ? 16 : 0);
-  }
-}
-
-// The wgmma descriptor of a 128-byte-swizzled tile from shared address
-// addr: 8-row groups 1,024 bytes apart (SBO), 128-byte swizzle; the leading
-// offset is unused at these shapes. K-major (the K of the product along a
-// row) steps 16 columns by +32 bytes, MN-major 16 rows by +2,048 bytes.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// every wgmma the warpgroup committed is done
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// the accumulator registers are live here (no move of them across a wait)
-__device__ __forceinline__ void wg_fence_acc(float (&d)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
-}
-// shared memory written by cp.async becomes visible to wgmma's reads
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// d (64 x 64 fp32, the m64n64 accumulator layout: warp w rows 16 w.., n-tile
-// j, element e as mma.sync's) (+)= A B, A and B from shared memory
-template <int kTransB>
-__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransB));
-}
-// the same with A (16 columns of the 64 rows) in registers, in the
-// mma.sync A-fragment layout of each warp's 16 rows
-template <int kTransB>
-__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
-                                         const uint32_t (&a)[4], uint64_t db,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(accumulate), "n"(kTransB));
 }
 
 // ---------------------------------------------------------------------------
@@ -1113,124 +1002,6 @@ constexpr int kThreadsWG2 = 2 * kThreadsTC;
 constexpr int kSlots = 3;
 constexpr int kBarP = 1, kBarSlot = 3, kBarWG1 = kBarSlot + kSlots;
 constexpr int kBarWG0 = kBarWG1 + 1;   // warpgroup 0 alone
-
-// named barrier `id` over n threads, which may wait at different places
-// in the code: bar_arrive does not wait; bar_sync waits for n arrivals,
-// and the shared-memory writes made before them are visible after it
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-// rows [row0, row0 + 64) of src (n_rows rows of 64 NS bf16) into NS
-// swizzled slabs at shared address dst (slab s: columns 64 s..), by NT
-// threads (tid < NT), 512 / NT 16-byte chunks a thread a slab, eight
-// neighbouring threads on a row's 128 bytes; rows past n_rows are
-// zero-filled
-template <int NS, int NT>
-__device__ __forceinline__ void load_slabs(uint32_t dst, const bf16* src,
-                                           int row0, int n_rows, int tid) {
-#pragma unroll
-  for (int m = 0; m < 64 * 8 / NT; ++m) {
-    const int i = tid + m * NT, r = i >> 3, c = i & 7;
-    const bool in = row0 + r < n_rows;
-    const bf16* row =
-        src + static_cast<long long>(in ? row0 + r : 0) * (64 * NS) + 8 * c;
-#pragma unroll
-    for (int s = 0; s < NS; ++s)
-      cp_async16(dst + s * kTileBytes + sw128(r, c), row + 64 * s,
-                 in ? 16 : 0);
-  }
-}
-
-// 2^x on the SFU, results below 2^-126 flushed to zero
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// the register A operands of rows [r0, r0 + 16) of NS swizzled slabs at t,
-// every k-step kk (16 columns, in slab kk / 4): ldmatrix, lane l at row
-// r0 + l % 16, 16-byte chunk 2 (kk % 4) + l / 16
-template <int NS>
-__device__ __forceinline__ void ldsm_a_slabs(uint32_t (&a)[4 * NS][4],
-                                             uint32_t t, int r0, int lane) {
-  const int r = r0 + (lane & 15);
-#pragma unroll
-  for (int kk = 0; kk < 4 * NS; ++kk)
-    ldsm_x4(a[kk], t + (kk >> 2) * kTileBytes +
-                       sw128(r, 2 * (kk & 3) + (lane >> 4)));
-}
-
-// piece s (columns 64 s..) of a 64-row accumulator 8 N wide, as the m64n64
-// accumulator a wgmma takes
-using Acc64 = float[8][4];
-template <int N>
-__device__ __forceinline__ Acc64& piece(float (&acc)[N][4], int s) {
-  return *reinterpret_cast<Acc64*>(acc[8 * s]);
-}
-
-// issue c (64 x 64) = a (64 rows, 16 NS columns, register A operands)
-// b^T, b the 64 rows of NS swizzled slabs at b_s read K-major
-template <int NS>
-__device__ __forceinline__ void issue_product_t(float (&c)[8][4],
-                                                const uint32_t (&a)[4 * NS][4],
-                                                uint32_t b_s) {
-#pragma unroll
-  for (int kk = 0; kk < 4 * NS; ++kk)
-    wgmma_rs<0>(c, a[kk], desc_sw128(b_s + (kk >> 2) * kTileBytes) +
-                              2 * (kk & 3),
-                kk);
-}
-// the same, waited for
-template <int NS>
-__device__ __forceinline__ void wg_product_t(float (&c)[8][4],
-                                             const uint32_t (&a)[4 * NS][4],
-                                             uint32_t b_s) {
-  wg_fence();
-  issue_product_t<NS>(c, a, b_s);
-  wg_commit();
-  wg_wait_all();
-  wg_fence_acc(c);
-}
-
-// issue acc (64 x 64 NS) += x b, x (64 x 64 fp32) as bf16 hi + lo register
-// A operands (xh, xl: read by the products until they are done), b the 64
-// rows of NS swizzled slabs at b_s read MN-major, one m64n64 piece of acc a
-// slab; each k-step's operands are made just before its products, so that
-// the first products start while the rest are converted
-template <int NS>
-__device__ __forceinline__ void issue_accumulate(float (&acc)[8 * NS][4],
-                                                 const float (&x)[8][4],
-                                                 uint32_t (&xh)[4][4],
-                                                 uint32_t (&xl)[4][4],
-                                                 uint32_t b_s) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    acc_to_a<true>(x, kk, xh[kk], xl[kk]);
-    wg_fence();
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      const uint64_t b = desc_sw128(b_s + s * kTileBytes + kk * 2048);
-      wgmma_rs<1>(piece(acc, s), xh[kk], b, 1);
-      wgmma_rs<1>(piece(acc, s), xl[kk], b, 1);
-    }
-  }
-}
-
-// every product the warpgroup issued is done: its accumulators and x live
-template <int NS>
-__device__ __forceinline__ void wg_done(float (&acc)[8 * NS][4],
-                                        float (&x)[8][4]) {
-  wg_commit();
-  wg_wait_all();
-#pragma unroll
-  for (int s = 0; s < NS; ++s) wg_fence_acc(piece(acc, s));
-  wg_fence_acc(x);
-}
 
 // P^T of a (64 keys x 64 q rows) tile pair in place from S^T's accumulator
 // fragments, as p_ds_t has it (fragment (j, e): key key0 + 8 (e / 2), q row

@@ -11,7 +11,10 @@ backward slices the padded columns' gradients off dq and dk.
 On CUDA tensors the forward launches the hand-written kernel of
 ``kernels/csrc/flash_attention.cu`` (built on first use by
 ``kernels.build``), counted in ``flash_attention.launches`` and the
-``kernels.dispatch.flash_attention.cuda`` counter. When autograd will need
+``kernels.dispatch.flash_attention.cuda`` counter; which of the library's
+kernels a launch runs is ``forward_kernel``'s answer (bf16 at
+``WGMMA_PAIRS``: the wgmma kernel, also counted in
+``flash_attention.wg_launches``). When autograd will need
 the gradient it runs as ``_FlashAttention`` (a ``torch.autograd.Function``):
 the forward also writes each row's log-sum-exp, and the backward launches
 ``kernels/csrc/flash_attention_bwd.cu``, counted in
@@ -40,6 +43,10 @@ HEAD_DIMS = (16, 32, 64, 96, 128)   # the D the kernels take with Dv = D
 # the (D, Dv) the forward kernel is instantiated for: Dv = D, MLA's (192,
 # 128) and the reduced MLA's, whose query/key dim 24 pads to 32
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((32, 16), (192, 128))
+# the (D, Dv) whose bf16 forward runs on wgmma (flash_kernel_wg: two
+# warpgroups a block); the other bf16 pairs run flash_kernel_tc (mma.sync),
+# float32 flash_kernel_f32
+WGMMA_PAIRS = ((128, 128), (192, 128))
 _MAX_GRID_Y = 65535                 # B * H blocks along the grid's y axis
 
 _C_CUDA = obs.counter("kernels.dispatch.flash_attention.cuda")
@@ -117,6 +124,17 @@ def kernel_dim(D: int, Dv: int) -> int:
     return min(fits)
 
 
+def forward_kernel(D: int, Dv: int, dtype: torch.dtype) -> str:
+    """The kernel of ``csrc/flash_attention.cu`` that the forward runs
+    for q/k head dim D (padded to ``kernel_dim``), v head dim Dv and
+    ``dtype``: ``flash_kernel_wg``, ``flash_kernel_tc`` or
+    ``flash_kernel_f32``."""
+    if dtype != torch.bfloat16:
+        return "flash_kernel_f32"
+    return ("flash_kernel_wg" if (kernel_dim(D, Dv), Dv) in WGMMA_PAIRS
+            else "flash_kernel_tc")
+
+
 def _pad_qk(q, k, Dv: int):
     """q and k padded with zero columns to ``kernel_dim``, which leave
     every score as it is (q and k themselves where they fit)."""
@@ -156,6 +174,8 @@ def _forward(q, k, v, causal, window, sink, round_p, *, with_lse: bool):
                      0 if window is None else int(window), int(sink),
                      int(round_p), stream)
     flash_attention.launches += 1
+    if bf16 and (D, Dv) in WGMMA_PAIRS:
+        flash_attention.wg_launches += 1
     _C_CUDA.inc()
     sanitize.check_kernel("flash_attention", (q, k, v), (o,))
     return o, lse
@@ -227,4 +247,5 @@ class _FlashAttention(torch.autograd.Function):
 
 
 flash_attention.launches = 0
+flash_attention.wg_launches = 0
 flash_attention_bwd.launches = 0

@@ -401,6 +401,93 @@ def test_flash_attention_kernel_window_sink_and_p_modes(cuda, case, dtype,
                                    atol=tol)
 
 
+# (B, H, K, S, D, Dv, causal, window, sink) of the bf16 forward's wgmma
+# kernel (flash_kernel_wg, at (128, 128) and MLA's (192, 128)):
+# moonshot-v1-16b-a3b's and deepseek-v3's prefill, the D = 128 window and
+# sink case of chip_smoke.py's ATTN_MASK_CASES, ragged S (333, 517; one
+# row; one past a 64-row half), granite-34b's MQA (48 q heads on one kv
+# head), GQA, and keys and queries apart without a causal mask
+WG_CASES = [(4, 16, 16, 1000, 128, 128, True, None, 0),
+            (4, 128, 128, 1000, 192, 128, True, None, 0),
+            (2, 6, 2, 517, 128, 128, True, 128, 70),
+            (1, 16, 16, 333, 192, 128, True, None, 0),
+            (2, 4, 2, 333, 128, 128, True, None, 0),
+            (1, 4, 4, 517, 192, 128, True, None, 0),
+            (2, 4, 2, 517, 128, 128, True, None, 0),
+            (1, 2, 2, 1, 192, 128, True, None, 0),
+            (1, 2, 2, 65, 128, 128, True, None, 0),
+            (1, 48, 1, 512, 128, 128, True, None, 0),
+            (2, 6, 3, 300, 192, 128, False, None, 0)]
+# the row log-sum-exps against plain torch's: fp32 sums of 2^x taken with
+# ex2.approx (relative error ~2^-22 an exponential) in another order
+ATOL_LSE = 1e-4
+
+
+def _wg_inputs(cuda, case, seed=5):
+    B, H, K, S, D, Dv = case[:6]
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.normal(size=(B, h, S, d)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+        for h, d in ((H, D), (K, D), (K, Dv)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WG_CASES, ids=str)
+@pytest.mark.parametrize("round_p", [True, False], ids=["p-rounded", "p-f32"])
+def test_wgmma_forward_matches_plain_version(cuda, case, round_p):
+    """One launch, on flash_kernel_wg, within phase 8's gates of the plain
+    version (p rounded: TOL_ATTN; p in float32: 1 bf16 ulp, at most 1 % of
+    the elements apart), and bit-equal over two runs."""
+    causal, window, sink = case[6:]
+    q, k, v = _wg_inputs(cuda, case)
+    kw = dict(causal=causal, window=window, sink=sink, round_p=round_p)
+    before = (kflash.flash_attention.launches,
+              kflash.flash_attention.wg_launches)
+    got = kflash.flash_attention(q, k, v, **kw)
+    again = kflash.flash_attention(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert (kflash.flash_attention.launches,
+            kflash.flash_attention.wg_launches) == (before[0] + 2,
+                                                    before[1] + 2)
+    assert got.shape == q.shape[:3] + v.shape[3:]
+    assert torch.equal(got, again)
+    if round_p:
+        tol = TOL_ATTN[torch.bfloat16]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    else:
+        ulps, share = ref.bf16_ulp_gaps(got, want)
+        assert ulps <= 1.0 and share <= 0.01, (ulps, share)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WG_CASES, ids=str)
+def test_wgmma_forward_lse_matches_plain_logsumexp(cuda, case):
+    """The training call's row log-sum-exps (what the backward recomputes p
+    from) against torch.logsumexp of the scaled, masked float32 scores."""
+    import math
+    causal, window, sink = case[6:]
+    q, k, v = _wg_inputs(cuda, case)
+    o, lse = kflash._forward(q, k, v, causal, window, sink, False,
+                             with_lse=True)
+    G = q.shape[1] // k.shape[1]
+    s = (q.float() @ k.float().repeat_interleave(G, 1).transpose(-1, -2)) \
+        / math.sqrt(q.shape[-1])
+    if causal:
+        r = torch.arange(s.shape[-2], device=cuda)[:, None]
+        c = torch.arange(s.shape[-1], device=cuda)[None]
+        vis = c <= r
+        if window is not None:
+            vis &= (r - c < window) | (c < sink)
+        s = s.masked_fill(~vis, -math.inf)
+    want = torch.logsumexp(s, -1)
+    assert torch.isfinite(lse).all()
+    assert (lse - want).abs().max().item() <= ATOL_LSE
+    assert torch.equal(o, kflash.flash_attention(
+        q, k, v, causal=causal, window=window, sink=sink, round_p=False))
+
+
 # (B, S, di, n): the reference's shapes, a di that no block divides,
 # hymba-1.5b's full width (di = 2 * 1600, n = 16, S = 128 + 1,000), n = 4
 # and 32 (the other instantiations), S = 1, B = 1 at hymba's di, and S one

@@ -453,12 +453,14 @@ def _cuh_int(name):
 
 
 BQ, BK = _cuh_int("kBQ"), _cuh_int("kBK")   # q rows, keys a tile
+BQWG = _cuh_int("kBQWG")   # q rows a block of the wgmma forward
 
 
-def _tiles_of(S, Sk, window, sink, q0):
-    """flash_attention.cuh ``tiles_of`` (causal): (n_sink, first, n) of the
-    kv tiles the forward's walk of the q tile from row q0 visits."""
-    hi = min(-(-Sk // BK) - 1, (min(q0 + BQ, S) - 1) // BK)
+def _tiles_of(S, Sk, window, sink, q0, rows=BQ):
+    """flash_attention.cuh ``tiles_of<rows>`` (causal): (n_sink, first, n)
+    of the kv tiles the forward's walk of the q tile of ``rows`` rows from
+    row q0 visits."""
+    hi = min(-(-Sk // BK) - 1, (min(q0 + rows, S) - 1) // BK)
     first = n_sink = 0
     if window:
         first = max(0, q0 - window + 1) // BK
@@ -495,18 +497,18 @@ def _bwd_split(B, H, S, window, sink):
     return tiles, dkdv, dq
 
 
-def _visible_tile_pairs(S, window, sink):
-    """(q tile, kv tile) pairs holding a (row, key) the mask leaves visible:
-    key c visible to row r when c <= r and (no window, r - c < window or
-    c < sink)."""
+def _visible_tile_pairs(S, window, sink, rows=BQ):
+    """(q tile, kv tile) pairs, q tiles of ``rows`` rows, holding a (row,
+    key) the mask leaves visible: key c visible to row r when c <= r and
+    (no window, r - c < window or c < sink)."""
     r, c = np.arange(S)[:, None], np.arange(S)[None, :]
     vis = c <= r
     if window is not None:
         vis &= (r - c < window) | (c < sink)
-    n_qt, n_kt = -(-S // BQ), -(-S // BK)
-    pad = np.zeros((n_qt * BQ, n_kt * BK), bool)
+    n_qt, n_kt = -(-S // rows), -(-S // BK)
+    pad = np.zeros((n_qt * rows, n_kt * BK), bool)
     pad[:S, :S] = vis
-    any_ = pad.reshape(n_qt, BQ, n_kt, BK).any(axis=(1, 3))
+    any_ = pad.reshape(n_qt, rows, n_kt, BK).any(axis=(1, 3))
     return {(int(qt), int(t)) for qt, t in zip(*np.nonzero(any_))}
 
 
@@ -514,6 +516,42 @@ def _attn_bwd_cases():
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
     return chip_smoke.ATTN_BWD_CASES
+
+
+def _walk_cases():
+    """(S, window, sink) of chip_smoke.py's ATTN_BWD_CASES and
+    ATTN_MASK_CASES (causal)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return ([(c[3], c[5], c[6]) for c in chip_smoke.ATTN_BWD_CASES]
+            + [(c[3], c[5], c[6]) for c in chip_smoke.ATTN_MASK_CASES])
+
+
+@pytest.mark.parametrize("case", _walk_cases(), ids=str)
+def test_forward_walk_of_a_128_row_q_tile_visits_each_visible_pair_once(
+        case):
+    """The wgmma forward's walk (``tiles_of<kBQWG>``, the row count read
+    from the header) visits every (q tile, kv tile) pair of its 128-row q
+    tiles that holds a visible score exactly once and no other, and is the
+    union of the walks of its two 64-row halves (the tiles its
+    warpgroups' rows see); the 64-row walk (``tiles_of``'s default, the
+    mma.sync kernels' and the backward's) still visits exactly the visible
+    pairs of its 64-row q tiles."""
+    S, window, sink = case
+    text = (_CSRC / "flash_attention.cuh").read_text()
+    assert "template <int kRows = kBQ>" in text
+    assert "(min(q0 + kRows, S) - 1) / kBK" in text
+    for rows in (BQ, BQWG):
+        walks = [_walk(_tiles_of(S, S, window, sink, qt * rows, rows))
+                 for qt in range(-(-S // rows))]
+        assert all(len(set(w)) == len(w) for w in walks)
+        assert {(qt, t) for qt, w in enumerate(walks) for t in w} \
+            == _visible_tile_pairs(S, window, sink, rows)
+    for qt in range(-(-S // BQWG)):
+        halves = {t for q0 in (qt * BQWG, qt * BQWG + BQ) if q0 < S
+                  for t in _walk(_tiles_of(S, S, window, sink, q0))}
+        assert set(_walk(_tiles_of(S, S, window, sink, qt * BQWG, BQWG))) \
+            == halves
 
 
 @pytest.mark.parametrize("case", _attn_bwd_cases(), ids=str)

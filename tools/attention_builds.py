@@ -1,30 +1,32 @@
 #!/usr/bin/env python3
 """The flash-attention forward and backward kernels of two checkouts on the
-card: bit for bit, and within the backward's gate where the bf16 MLA
-backward's sum order changed.
+card: bit for bit, and within phase 8's gates where the bf16 forward at D =
+128 and (192, 128) changed kernels.
 
     python3 tools/attention_builds.py PARENT_ROOT CHANGE_ROOT
 
 Each checkout's kernel is built from its own sources (into its own
 ``build/repro_torch/``) and run in a process of its own, importing that
 checkout's ``repro_torch``, in the order parent, change, change, parent.
-Each run computes the kernel's output at every shape of ``chip_smoke.py``'s
-``ATTN_SHAPES`` (causal and not) and ``ATTN_MASK_CASES``, in float32 and
-bf16, with p rounded and in float32, from the same numpy inputs
-(``chip_smoke.attn_inputs``, seed 0), the backward kernel's (dq, dk, dv)
-at every case of ``chip_smoke.ATTN_BWD_CASES`` (the upstream gradient from
-seed 1) and, through the autograd wrapper, at every case of
-``chip_smoke.MLA_BWD_CASES`` (MLA's (192, 128) and the reduced 24 / 16),
-and times the hymba-1.5b serving call (bf16, window 1,024, sink 128, p in
-float32), its backward and the bf16 MLA backward at deepseek-v3's training
-shape with ``chip_smoke.median_ms``.
+Each run computes the forward kernel's output at every shape of
+``chip_smoke.py``'s ``ATTN_SHAPES`` (causal and not), ``ATTN_MASK_CASES``
+and ``MOE_ATTN_SHAPES``, in float32 and bf16, with p rounded and in
+float32, from the same numpy inputs (``chip_smoke.attn_inputs``, seed 0),
+and the backward kernel's (dq, dk, dv) at every case of
+``chip_smoke.ATTN_BWD_CASES`` and ``chip_smoke.MLA_BWD_CASES`` (the upstream
+gradient from seed 1) on o and lse from the plain version, so that both
+builds' backward kernels see the same inputs; and it times (``chip_smoke.
+median_ms``) the hymba-1.5b serving call (bf16, window 1,024, sink 128, p
+in float32) and its backward, the moonshot-v1-16b-a3b and deepseek-v3 MLA
+serving calls (bf16, p in float32 and rounded), and the bf16 MLA backward
+at deepseek-v3's training shape.
 Every output must be bit-equal across the four runs, except the bf16
-backward at (192, 128), whose kernels differ in sum order between builds:
-there each build's two runs must be bit-equal and the parent's and the
-change's gradients within ``chip_smoke.RTOL_ATTN_BWD`` of each other
-(max|a - b| / max|b|). Outputs compared bit for bit are kept as SHA-256
-digests. The script prints each run's times and the comparisons, and exits
-1 if one fails.
+forward at (D, Dv) in ``REDESIGNED``, whose kernel the change replaced:
+there each build's two runs must be bit-equal and the change's output lie
+within phase 8's gates of the parent's (p in float32: ``chip_smoke.
+MAX_ULPS_P_F32`` and ``MAX_SHARE_P_F32``; p rounded: ``chip_smoke.TOL_ATTN``).
+Outputs compared bit for bit are kept as SHA-256 digests. The script
+prints each run's times and the comparisons, and exits 1 if one fails.
 It needs one CUDA device and ``nvcc``.
 """
 from __future__ import annotations
@@ -47,71 +49,104 @@ def digest(t) -> str:
         t.view(-1).view(torch.uint8).numpy().tobytes()).hexdigest())
 
 
+# the bf16 forward instantiations whose kernel the change replaced
+# (flash_kernel_tc -> flash_kernel_wg)
+REDESIGNED = {(128, 128), (192, 128)}
+# the serving calls timed: moonshot-v1-16b-a3b's and deepseek-v3's prefill
+SERVE_SHAPES = ((4, 16, 16, 1000, 128), (4, 128, 128, 1000, 192, 128))
+
+
+def plain_lse(q, k, causal=True, window=None, sink=0):
+    """Each row's log-sum-exp of the scaled, masked scores, in float32, by
+    plain torch (the forward kernels' lse, from no kernel)."""
+    import math
+    import torch
+    G = q.shape[1] // k.shape[1]
+    s = (q.float() @ k.float().repeat_interleave(G, 1).transpose(-1, -2)) \
+        / math.sqrt(q.shape[-1])
+    if causal:
+        r = torch.arange(s.shape[-2], device=s.device)[:, None]
+        c = torch.arange(s.shape[-1], device=s.device)[None]
+        vis = c <= r
+        if window is not None:
+            vis &= (r - c < window) | (c < sink)
+        s = s.masked_fill(~vis, -math.inf)
+    return torch.logsumexp(s, -1)
+
+
 def dump(root: Path, out: Path) -> None:
-    """Every output of ``root``'s kernel into ``out`` (``torch.save``)."""
+    """Every output of ``root``'s kernels and their times into ``out``
+    (``torch.save``)."""
     sys.path.insert(0, str(HERE))
     import chip_smoke as cs                 # puts HERE/src on sys.path
     sys.path.insert(0, str(root / "src"))   # ... and root's ahead of it
+    import numpy as np
     import torch
     from repro_torch.kernels import flash_attention as kflash
+    from repro_torch.kernels import ref
     if not Path(kflash.__file__).resolve().is_relative_to(root.resolve()):
         raise SystemExit(f"imported {kflash.__file__}, not {root}'s")
     dev = torch.device("cuda")
     cases = ([(s, causal, None, 0) for s in cs.ATTN_SHAPES
               for causal in (True, False)]
-             + [(c[:5], True, c[5], c[6]) for c in cs.ATTN_MASK_CASES])
+             + [(c[:5], True, c[5], c[6]) for c in cs.ATTN_MASK_CASES]
+             + [(s, True, None, 0) for s in cs.MOE_ATTN_SHAPES])
     outs = {}
     for shape, causal, window, sink in cases:
+        D, Dv = shape[4], shape[5] if len(shape) > 5 else shape[4]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = cs.attn_inputs(shape, dtype, 0, dev)
             for round_p in (True, False):
                 o = kflash.flash_attention(q, k, v, causal, window=window,
                                            sink=sink, round_p=round_p)
-                outs[f"{shape} {dtype} causal={causal} window={window} "
-                     f"sink={sink} round_p={round_p}"] = digest(o)
-    for B, H, K, S, D, window, sink, dtype in cs.ATTN_BWD_CASES:
-        shape, dt = (B, H, K, S, D), getattr(torch, dtype)
+                key = (f"{shape} {dtype} causal={causal} window={window} "
+                       f"sink={sink} round_p={round_p}")
+                outs[key] = (o.cpu() if dtype == torch.bfloat16
+                             and (D, Dv) in REDESIGNED else digest(o))
+    bwd_cases = ([((B, H, K, S, D), window, sink, dtype)
+                  for B, H, K, S, D, window, sink, dtype in cs.ATTN_BWD_CASES]
+                 + [((B, H, K, S, D, Dv), None, 0, dtype)
+                    for B, H, K, S, D, Dv, dtype in cs.MLA_BWD_CASES])
+    for shape, window, sink, dtype in bwd_cases:
+        dt = getattr(torch, dtype)
         q, k, v = cs.attn_inputs(shape, dt, 0, dev)
-        do = cs.attn_inputs(shape, dt, 1, dev)[0]
-        o, lse = kflash._forward(q, k, v, True, window, sink, False,
-                                 with_lse=True)
+        Dv = v.shape[-1]
+        do = torch.from_numpy(np.random.default_rng(1).normal(
+            size=q.shape[:3] + (Dv,)).astype(np.float32)).to(dev, dt)
+        o = ref.attention_ref(q, k, v, window=window, sink=sink,
+                              round_p=False)
+        lse = plain_lse(q, k, True, window, sink)
         for name, g in zip(("dq", "dk", "dv"), kflash.flash_attention_bwd(
                 q, k, v, o, do, lse, True, window, sink)):
             outs[f"bwd {shape} {dtype} window={window} sink={sink} "
                  f"{name}"] = digest(g)
-    import numpy as np
-    for B, H, K, S, D, Dv, dtype in cs.MLA_BWD_CASES:
-        dt = getattr(torch, dtype)
-        q, k, v = cs.attn_inputs((B, H, K, S, D, Dv), dt, 0, dev)
-        do = torch.from_numpy(np.random.default_rng(1).normal(
-            size=(B, H, S, Dv)).astype(np.float32)).to(dev, dt)
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        o = kflash.flash_attention(*leaves, round_p=False)
-        for name, g in zip(("dq", "dk", "dv"),
-                           torch.autograd.grad(o, leaves, do)):
-            # only the bf16 (192, 128) backward changes its sum order
-            outs[f"mla {(B, H, K, S, D, Dv)} {dtype} {name}"] = (
-                g.cpu() if (D, Dv, dtype) == (192, 128, "bfloat16")
-                else digest(g))
-        del leaves, o
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    ms = {}
     B, H, K, S, D, Dv, _ = cs.MLA_BWD_CASES[0]
     q, k, v = cs.attn_inputs((B, H, K, S, D, Dv), torch.bfloat16, 0, dev)
     do = torch.from_numpy(np.random.default_rng(1).normal(
         size=(B, H, S, Dv)).astype(np.float32)).to(dev, torch.bfloat16)
     o, lse = kflash._forward(q, k, v, True, None, 0, False, with_lse=True)
-    mla_bwd_ms = cs.median_ms(lambda: kflash.flash_attention_bwd(
+    ms["mla_bwd"] = cs.median_ms(lambda: kflash.flash_attention_bwd(
         q, k, v, o, do, lse))
     del q, k, v, do, o, lse
     torch.cuda.empty_cache()
+    for shape in SERVE_SHAPES:
+        q, k, v = cs.attn_inputs(shape, torch.bfloat16, 0, dev)
+        for round_p in (False, True):
+            ms[f"{shape} round_p={round_p}"] = cs.median_ms(
+                lambda: kflash.flash_attention(q, k, v, round_p=round_p))
+        del q, k, v
+        torch.cuda.empty_cache()
     q, k, v = cs.attn_inputs((4, 25, 5, 1128, 64), torch.bfloat16, 0, dev)
-    ms = cs.median_ms(lambda: kflash.flash_attention(
+    ms["hymba"] = cs.median_ms(lambda: kflash.flash_attention(
         q, k, v, window=1024, sink=128, round_p=False))
     do = cs.attn_inputs((4, 25, 5, 1128, 64), torch.bfloat16, 1, dev)[0]
     o, lse = kflash._forward(q, k, v, True, 1024, 128, False, with_lse=True)
-    bwd_ms = cs.median_ms(lambda: kflash.flash_attention_bwd(
+    ms["hymba_bwd"] = cs.median_ms(lambda: kflash.flash_attention_bwd(
         q, k, v, o, do, lse, True, 1024, 128))
-    torch.save({"outs": outs, "ms": ms, "bwd_ms": bwd_ms,
-                "mla_bwd_ms": mla_bwd_ms}, out)
+    torch.save({"outs": outs, "ms": ms}, out)
 
 
 def main() -> int:
@@ -142,24 +177,31 @@ def main() -> int:
     differ = sorted({key for _, r in runs[1:] for key in bit
                      if r["outs"][key] != parent[key]})
     for label, r in runs:
-        print(f"{label}: hymba-1.5b (4, 25, 5, 1128, 64) bf16, window 1024, "
-              f"sink 128, p float32: forward {r['ms']:.4f} ms, backward "
-              f"{r['bwd_ms']:.4f} ms; MLA backward "
-              f"{cs.MLA_BWD_CASES[0][:6]} bf16 {r['mla_bwd_ms']:.4f} ms")
+        print(f"{label}: " + ", ".join(f"{name} {t:.4f} ms"
+                                       for name, t in r["ms"].items()))
     print(f"{len(bit)} outputs compared bit for bit, {len(differ)} differ "
           f"between the four runs")
     for key in differ:
         print(f"  differs: {key}")
-    gate = cs.RTOL_ATTN_BWD["bfloat16"]
     failed = list(differ)
+    from repro_torch.kernels import ref
     for key in tol:
         same = all(torch.equal(runs[i][1]["outs"][key], runs[j][1]["outs"][key])
                    for i, j in ((0, 3), (1, 2)))
-        a, b = change[key].float(), parent[key].float()
-        gap = ((a - b).abs().max() / b.abs().max()).item()
-        print(f"{key}: each build twice bit-equal {same}, max|change - "
-              f"parent| / max|parent| {gap:.3e} (gate {gate})")
-        if not same or gap > gate:
+        a, b = change[key], parent[key]
+        err = (a.float() - b.float()).abs().max().item()
+        if key.endswith("round_p=True"):
+            ok = err <= cs.TOL_ATTN["bfloat16"]
+            gap = f"max abs {err:.3e} (gate {cs.TOL_ATTN['bfloat16']})"
+        else:
+            ulps, share = ref.bf16_ulp_gaps(a, b)
+            ok = ulps <= cs.MAX_ULPS_P_F32 and share <= cs.MAX_SHARE_P_F32
+            gap = (f"max abs {err:.3e}, {ulps:.3g} ulp, {100 * share:.4f} % "
+                   f"of elements (gates {cs.MAX_ULPS_P_F32} ulp, "
+                   f"{100 * cs.MAX_SHARE_P_F32} %)")
+        print(f"{key}: each build twice bit-equal {same}, change vs parent "
+              f"{gap}")
+        if not same or not ok:
             failed.append(key)
     return 1 if failed else 0
 
