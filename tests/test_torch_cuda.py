@@ -406,7 +406,8 @@ def test_flash_attention_kernel_window_sink_and_p_modes(cuda, case, dtype,
 # moonshot-v1-16b-a3b's and deepseek-v3's prefill, the D = 128 window and
 # sink case of chip_smoke.py's ATTN_MASK_CASES, ragged S (333, 517; one
 # row; one past a 64-row half), granite-34b's MQA (48 q heads on one kv
-# head), GQA, and keys and queries apart without a causal mask
+# head; at its serving prefill of 4 x 1,000 too), GQA, and keys and
+# queries apart without a causal mask
 WG_CASES = [(4, 16, 16, 1000, 128, 128, True, None, 0),
             (4, 128, 128, 1000, 192, 128, True, None, 0),
             (2, 6, 2, 517, 128, 128, True, 128, 70),
@@ -417,6 +418,7 @@ WG_CASES = [(4, 16, 16, 1000, 128, 128, True, None, 0),
             (1, 2, 2, 1, 192, 128, True, None, 0),
             (1, 2, 2, 65, 128, 128, True, None, 0),
             (1, 48, 1, 512, 128, 128, True, None, 0),
+            (4, 48, 1, 1000, 128, 128, True, None, 0),
             (2, 6, 3, 300, 192, 128, False, None, 0)]
 # the row log-sum-exps against plain torch's: fp32 sums of 2^x taken with
 # ex2.approx (relative error ~2^-22 an exponential) in another order
@@ -530,16 +532,21 @@ RTOL_ATTN_BWD = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 RTOL_SSM_BWD = 1e-4
 
 # (B, H, K, S, D, window, sink): GQA, ragged S, a window with a sink no tile
-# boundary meets, D = 16 (the reduced hymba) and 128, in both dtypes; and
+# boundary meets, D = 16 (the reduced hymba) and 128, in both dtypes;
 # hymba-1.5b's training shapes (the 29 sliding-window layers and the 3
-# global ones) in bf16, the model's dtype
+# global ones) in bf16, the model's dtype; and the dense family's bf16
+# (128, 128) backward (dkdv_kernel_tc / dq_kernel_tc) with two query heads
+# a kv head on a ragged S and at granite-34b's 48 on one (MQA: the dK/dV
+# combine sums 48 heads' partials)
 _SMALL = [(1, 6, 2, 77, 32, None, 0), (2, 4, 4, 200, 64, None, 0),
           (1, 4, 2, 300, 64, 100, 20), (2, 2, 1, 130, 128, 64, 0),
           (2, 4, 2, 44, 16, 16, 4)]
 ATTN_BWD_CASES = [(c, dt) for c in _SMALL
                   for dt in (torch.float32, torch.bfloat16)] + [
     ((4, 25, 5, 1128, 64, 1024, 128), torch.bfloat16),
-    ((4, 25, 5, 1128, 64, None, 0), torch.bfloat16)]
+    ((4, 25, 5, 1128, 64, None, 0), torch.bfloat16),
+    ((2, 4, 2, 333, 128, None, 0), torch.bfloat16),
+    ((1, 48, 1, 256, 128, None, 0), torch.bfloat16)]
 
 
 def _rel_gaps(got, want):

@@ -31,7 +31,8 @@ from repro_torch.train.step import init_train_state, make_train_step
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + sorted((ROOT / "tools").glob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("torch_*.py")) \
+    + [ROOT / "scripts" / "smoke_models_torch.py", ROOT / "chip_smoke.py"]
 
 
 def test_import_pulls_in_neither_jax_nor_repro():
