@@ -122,9 +122,14 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             (``ref.attention_ref_grads``, ``ref.ssm_scan_ref_grads``):
             attention at hymba-1.5b's training shapes (4, 25, 5, 1,128, 64)
             in bf16 with window 1,024 and sink 128 and without a window,
-            internlm2-1.8b's (4, 16, 8, 1,128, 128) in bf16 (the dense
-            family's (128, 128) backward, ``dkdv_kernel_tc`` /
-            ``dq_kernel_tc``: their registers and spills printed), and
+            internlm2-1.8b's (4, 16, 8, 1,128, 128) and moonshot's (4, 16,
+            16, 1,128, 128) in bf16, and granite-34b's MQA heads (1, 48, 1,
+            1,128, 128) (the dense family's (128, 128) backward,
+            ``dkdv_kernel_wg2`` / ``dq_kernel_wg2``: their registers,
+            spills and ptxas's wgmma notes printed; the phase fails unless
+            they run on wgmma with no spill stores; each timed case prints
+            how many query heads a dK/dV block sums and whether the launch
+            wrote fp32 partials and combined them), and
             small shapes in bf16 and float32; the scan at (4, 1,128, 3,200,
             16) and small shapes, float32; max|kernel - plain| / max|plain|
             per gradient against ``RTOL_ATTN_BWD`` / ``RTOL_SSM_BWD``; at
@@ -320,7 +325,9 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             family's first single-card training through the (128, 128)
             backward): 48 forward (on ``flash_kernel_wg``: each layer's
             forward and its recomputation under remat ``full``) and 24
-            backward attention launches a step, no plain dispatch; step
+            backward attention launches a step (all 24 on the wgmma pair
+            ``kflash.backward_kernel`` names, counted in
+            ``flash_attention_bwd.wg_launches``), no plain dispatch; step
             seconds, tokens/s, peak memory, MFU and a profiled warm step;
 41. examples ``scripts/smoke_models_torch.py``'s ``main`` over the 10
             reduced archs (finite, no plain dispatch) and the four
@@ -494,13 +501,19 @@ RTOL_ATTN_BWD = {"float32": 2e-5, "bfloat16": 1e-2}
 RTOL_SSM_BWD = 1e-4
 # (B, H, K, S, D, window, sink, dtype): hymba-1.5b's training shapes (the
 # sliding-window layers; the global ones), internlm2-1.8b's (phase 40's
-# batch: 16 heads of 128 on 8 kv heads), and small shapes in both dtypes
-# (the reduced hymba's layer: window 16, 4 meta tokens, D 16); the first
-# ATTN_BWD_TIMED are bit-equal twice and timed
-ATTN_BWD_TIMED = ("SWA", "global", "internlm2")
+# batch: 16 heads of 128 on 8 kv heads; a dK/dV block sums a kv head's 2),
+# moonshot-v1-16b-a3b's on the same batch (16 heads of 128, as many kv
+# heads), granite-34b's MQA heads on one sequence (48 on one kv head: a
+# dK/dV block a query head, fp32 partials and the dQ launch's combine),
+# and small shapes in both dtypes (the reduced hymba's layer: window 16, 4
+# meta tokens, D 16); the first ATTN_BWD_TIMED are bit-equal twice and
+# timed
+ATTN_BWD_TIMED = ("SWA", "global", "internlm2", "moonshot")
 ATTN_BWD_CASES = [(4, 25, 5, 1128, 64, 1024, 128, "bfloat16"),
                   (4, 25, 5, 1128, 64, None, 0, "bfloat16"),
                   (4, 16, 8, 1128, 128, None, 0, "bfloat16"),
+                  (4, 16, 16, 1128, 128, None, 0, "bfloat16"),
+                  (1, 48, 1, 1128, 128, None, 0, "bfloat16"),
                   (2, 4, 2, 300, 64, 100, 20, "bfloat16"),
                   (2, 4, 2, 300, 64, 100, 20, "float32"),
                   (4, 4, 2, 68, 16, 16, 4, "float32")]
@@ -1513,22 +1526,25 @@ def attn_bwd_bound(B, H, K, S, D, itemsize, window=None, sink=0, Dv=None):
 
 
 def attn_bwd_stage_bounds(B, H, K, S, D, Dv, itemsize, window=None,
-                          sink=0):
+                          sink=0, partials=False):
     """{stage of ``ATTN_BWD_KERNELS``: (bound ms, 'bytes' | 'operations')}
     of a bf16 attention backward launch (self-attention, Sk = S), each
     stage with its own products and bytes as the launch splits the work:
     delta reads o and dO and writes Delta; dK/dV does S, dP, dV and dK (4 D
     + 4 Dv flops a visible score) and reads q, k, v, dO, lse and Delta; dQ
     + combine recomputes S and dP beside dQ (4 D + 2 Dv), reads the same
-    and writes dq. With GQA (H > K) dK/dV writes the fp32 partials of every
-    query head, which the combine reads to write dk and dv; with H == K
-    dK/dV writes dk and dv itself. The dQ pass's recomputation makes the
-    stages' bounds sum to more than the launch's (``attn_bwd_bound``)."""
+    and writes dq. With ``partials`` (a dK/dV block a query head: every
+    pair but the two-warpgroup one, and that one where
+    ``kflash.backward_heads_per_block`` is 1 < H / K) dK/dV writes the fp32
+    partials of every query head, which the combine reads to write dk and
+    dv; else dK/dV writes dk and dv itself. The dQ pass's recomputation
+    makes the stages' bounds sum to more than the launch's
+    (``attn_bwd_bound``)."""
     scores = B * H * visible_scores(S, window, sink)
     rows = B * H * S
     inputs = (rows + B * K * S) * (D + Dv) * itemsize + 8 * rows
     dkdv = B * K * S * (D + Dv) * itemsize
-    partials = 4 * rows * (D + Dv) if H > K else 0
+    partials = 4 * rows * (D + Dv) if partials else 0
 
     def one(flops, elem_ops, nbytes):
         t_ops = max(flops / PEAK_BF16_TC, elem_ops / PEAK_FP32_OPS)
@@ -1539,10 +1555,10 @@ def attn_bwd_stage_bounds(B, H, K, S, D, Dv, itemsize, window=None,
     return {"delta": one(0, 2 * rows * Dv, 2 * rows * Dv * itemsize
                          + 4 * rows),
             "dkdv": one(scores * 4 * (D + Dv), elem,
-                        inputs + (partials if H > K else dkdv)),
+                        inputs + (partials or dkdv)),
             "dq+combine": one(scores * (4 * D + 2 * Dv), elem,
                               inputs + rows * D * itemsize
-                              + (partials + dkdv if H > K else 0))}
+                              + (partials + dkdv if partials else 0))}
 
 
 def ptxas_kernels(log: str) -> dict:
@@ -1926,26 +1942,51 @@ def backward_kernels_phase(seed: int):
         del o_plain
         backend, lib_ms = sdpa_backward_ms(leaves, do)
         b_ms, b_by = attn_bwd_bound(B, H, K, S, D, 2, window, sink)
+        pair = kflash.backward_kernel(D, D, torch.bfloat16)
+        nh = kflash.backward_heads_per_block(B, H, K, S, D, D,
+                                             torch.bfloat16)
+        partials = pair[0] != "dkdv_kernel_wg2" or nh < H // K
+        stage_bounds = attn_bwd_stage_bounds(B, H, K, S, D, D, 2, window,
+                                             sink, partials)
         out["flash_attention_bwd"][label] = {
             "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "library": f"SDPA backward, {backend}", "bound_ms": b_ms,
             "bound_by": b_by, "unqueued_ms": unqueued_ms,
-            "stages_ms": stages_ms}
+            "stages_ms": stages_ms,
+            "stage_bounds": {n: {"ms": t, "by": by}
+                             for n, (t, by) in stage_bounds.items()},
+            "kernels": list(pair), "heads_per_block": nh,
+            "partials": partials}
         print(f"timing flash_attention_bwd {(B, H, K, S, D)} bf16 {label} "
               f"(window {window}, sink {sink}): kernel {ms:.4f} ms (un-"
               f"queued {unqueued_ms:.4f}; on the device: "
-              + ", ".join(f"{n} {fmt_ms(t)}" for n, t in stages_ms.items())
+              + ", ".join(f"{n} {fmt_ms(t)} (bound {stage_bounds[n][0]:.4f}"
+                          f", {stage_bounds[n][1]})"
+                          for n, t in stages_ms.items())
               + f"), plain "
               f"{plain_ms:.4f} ms, SDPA backward on {backend} (causal, GQA; "
               f"the mask is the same at this S) {lib_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
+              f"{b_ms:.4f} ms ({b_by}); {pair[0]} / {pair[1]}, "
+              f"{nh} query head(s) a dK/dV block, "
+              + ("fp32 partials and the combine" if partials else
+                 "no partials, no combine"), flush=True)
         del leaves
-    route, kernels, _ = bwd_kernels(128, 128)
+    route, kernels, notes = bwd_kernels(128, 128)
     out["flash_attention_bwd"]["registers_128"] = kernels
+    out["flash_attention_bwd"]["ptxas_notes_128"] = notes
     print(f"route flash_attention_bwd bf16 (128, 128): {route}; "
           + "; ".join(f"{n} {r.get('registers')} registers, "
-                      f"{r.get('spill_stores')} B of spill stores"
+                      f"{r.get('spill_stores')} B of spill stores, "
+                      f"{r.get('spill_loads')} B of spill loads"
                       for n, r in sorted(kernels.items())), flush=True)
+    for line in notes:
+        print(f"ptxas: {line}", flush=True)
+    spilled = {n: r for n, r in kernels.items()
+               if r.get("spill_stores", 0) > 0}
+    if route != "wgmma" or spilled or len(kernels) != 2:
+        fail(f"the bf16 attention backward at (128, 128) runs {sorted(kernels)}"
+             f" on {route}, spills {spilled}: want dkdv_kernel_wg2 and "
+             f"dq_kernel_wg2 on wgmma, no spill stores")
     shape = SSM_BWD_SHAPES[0]
     xs = ssm_inputs(shape, seed, dev)
     dy = ssm_inputs(shape, seed + 1, dev)[0]
@@ -2062,10 +2103,12 @@ def training_phase(seed: int, smi: str, arch: str = "hymba-1.5b",
     for fn in routes.values():
         fn.launches = 0
     kflash.flash_attention.wg_launches = 0
+    kflash.flash_attention_bwd.wg_launches = 0
     rows = []
     for i in range(steps):
         before = {k: fn.launches for k, fn in routes.items()}
         wg0 = kflash.flash_attention.wg_launches
+        bwd_wg0 = kflash.flash_attention_bwd.wg_launches
         batch = data.next_batch()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2076,7 +2119,9 @@ def training_phase(seed: int, smi: str, arch: str = "hymba-1.5b",
                      "grad_norm": gnorm, "lr": m["lr"],
                      "launches": {k: fn.launches - before[k]
                                   for k, fn in routes.items()},
-                     "wg_launches": kflash.flash_attention.wg_launches - wg0})
+                     "wg_launches": kflash.flash_attention.wg_launches - wg0,
+                     "bwd_wg_launches":
+                         kflash.flash_attention_bwd.wg_launches - bwd_wg0})
         print(f"train step {i}: loss {loss:.6f}, grad_norm {gnorm:.6e}, lr "
               f"{m['lr']:.3e}, {rows[-1]['s']:.4f} s, launches "
               f"{rows[-1]['launches']}", flush=True)
@@ -2090,16 +2135,26 @@ def training_phase(seed: int, smi: str, arch: str = "hymba-1.5b",
             "ssm_scan": 2 * L_ssm, "ssm_scan_bwd": L_ssm}
     dims = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim) if cfg.mla
             else (cfg.head_dim, cfg.head_dim))
+    dtype = getattr(torch, cfg.dtype)
     want_wg = 2 * L if kflash.forward_kernel(
-        *dims, getattr(torch, cfg.dtype)) == "flash_kernel_wg" else 0
+        *dims, dtype) == "flash_kernel_wg" else 0
+    bwd_pair = kflash.backward_kernel(*dims, dtype)
+    want_bwd_wg = L if "_wg" in bwd_pair[0] else 0
     bad = [r["launches"] for r in rows if r["launches"] != want
-           or r["wg_launches"] != want_wg]
+           or r["wg_launches"] != want_wg
+           or r["bwd_wg_launches"] != want_bwd_wg]
     if bad or any(plain_calls):
         fail(f"training launches a step {bad or rows[0]['launches']} "
              f"(expected {want}: the forward kernels twice a layer under "
-             f"remat='full', {want_wg} of them on flash_kernel_wg), plain "
-             f"dispatches {plain_calls}")
+             f"remat='full', {want_wg} of them on flash_kernel_wg, "
+             f"{want_bwd_wg} backward launches on {bwd_pair} (wgmma)), "
+             f"plain dispatches {plain_calls}")
     launches["flash_attention_wg"] = kflash.flash_attention.wg_launches
+    launches["flash_attention_bwd_wg"] = \
+        kflash.flash_attention_bwd.wg_launches
+    print(f"train: {cfg.name}'s attention backward runs {bwd_pair[0]} / "
+          f"{bwd_pair[1]}: {rows[0]['bwd_wg_launches']} launches a step on "
+          f"wgmma (expected {want_bwd_wg})", flush=True)
     peak = torch.cuda.max_memory_allocated()
     warm = float(np.median([r["s"] for r in rows[1:]]))
     flops = model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
@@ -3937,6 +3992,12 @@ def main() -> int:
         "gradient_of": "causal_attention, by autodiff in the JAX model; the "
                        "TPU kernel src/repro/kernels/flash_attention.py:68 "
                        "is forward only",
+        "instantiation": "bf16: dkdv_kernel_wg<64, 64> / dq_kernel_wg<64, "
+                         "64> (hymba, wgmma, one warpgroup a block), "
+                         "dkdv_kernel_wg2<128, 128> / dq_kernel_wg2<128, "
+                         "128> (the dense family, moonshot; wgmma, two "
+                         "warpgroups a block), dkdv_kernel_tc / dq_kernel_tc "
+                         "(mma.sync) at the other pairs; the float32 pair",
         "launches": train["launches"]["flash_attention_bwd"],
         "max_abs_err": max(c["max_abs_err"]
                            for c in bwd["flash_attention_bwd"]["cases"]),
@@ -3951,7 +4012,13 @@ def main() -> int:
             "library", "unqueued_ms", "stages_ms")},
         "global": bwd["flash_attention_bwd"]["global"],
         "internlm2": bwd["flash_attention_bwd"]["internlm2"],
+        "moonshot": bwd["flash_attention_bwd"]["moonshot"],
         "registers_128": bwd["flash_attention_bwd"]["registers_128"],
+        "ptxas_notes_128": bwd["flash_attention_bwd"]["ptxas_notes_128"],
+        "wgmma_launches_by_path": {
+            "train_hymba_step": train["steps"][0]["bwd_wg_launches"],
+            f"train_{TRAIN_DENSE}_step": train_dense["steps"][0][
+                "bwd_wg_launches"]},
         "launches_by_path": {
             "train_hymba_step": train["launches"]["flash_attention_bwd"],
             f"train_{TRAIN_DENSE}_step": train_dense["steps"][0][

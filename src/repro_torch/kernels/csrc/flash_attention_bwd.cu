@@ -75,17 +75,19 @@
 //   - occupancy (-Xptxas -v): dK/dV 168 registers under its launch bound,
 //     3 blocks an SM; dQ 122 registers, 4 blocks; 51 KB of shared memory
 //     a block.
-// bf16 at MLA's (D, DV) = (192, 128) (deepseek-v3's training path): wgmma
-// too, with two warpgroups a block (dkdv_kernel_wg2, dq_kernel_wg2). One
-// warpgroup cannot hold a dK/dV block's sums (dK 96 fp32 registers a
-// thread, dV 64, S^T and dP^T 32 each: the mma.sync kernel this replaces
-// held 255 registers and spilled 428 bytes). Of the two splits weighed --
-// (a) two consumer warpgroups sharing P^T and dS^T through shared memory,
-// (b) dK and dV in blocks of their own, S^T computed in both (+23 % of the
-// stage's products) -- this is (a), split by gradient rather than by
-// columns: dK's and dV's 96 + 96 / 64 + 64 columns would need MN-major
-// operands starting inside a 128-byte swizzle atom of Q's and dO's slabs,
-// and S^T cut by q columns (m64n32) reads more shared memory a flop.
+// bf16 at (D, DV) = (128, 128) (the dense family's heads, moonshot's) and
+// MLA's (192, 128) (deepseek-v3's training path): wgmma too, with two
+// warpgroups a block (dkdv_kernel_wg2, dq_kernel_wg2). One warpgroup cannot
+// hold a dK/dV block's sums (at (192, 128) dK 96 fp32 registers a thread,
+// dV 64, S^T and dP^T 32 each; at (128, 128) 64 + 64 + 32 + 32: the
+// mma.sync kernels these replace held 255 registers and spilled 428 and 128
+// bytes). Of the two splits weighed -- (a) two consumer warpgroups sharing
+// P^T and dS^T through shared memory, (b) dK and dV in blocks of their own,
+// S^T computed in both (+23 % of the stage's products at (192, 128)) --
+// this is (a), split by gradient rather than by columns: dK's and dV's 96 +
+// 96 / 64 + 64 columns would need MN-major operands starting inside a
+// 128-byte swizzle atom of Q's and dO's slabs, and S^T cut by q columns
+// (m64n32) reads more shared memory a flop.
 //   - dK/dV: warpgroup 0 computes S^T = K Q^T, P^T and dV += P^T dO;
 //     warpgroup 1 dP^T = V dO^T, dS^T = P^T (dP^T - Delta) and dK += dS^T
 //     Q. P^T goes over in fp32 through shared memory at a named barrier, so
@@ -95,30 +97,53 @@
 //     group 0 computes S = Q K^T and dP = dO V^T (Q's and dO's A operands in
 //     registers) and dS, warpgroup 1 dQ += dS K;
 //   - the streamed tiles (Q, dO with lse and Delta; K, V) are 64-column
-//     slabs in the 128-byte swizzle (Q and K 3 slabs, dO and V 2), read
-//     K-major by the first products and MN-major by the second, each 64-
-//     column piece of dK, dV, dQ one m64n64k16 chain; they pass through a
-//     ring of three slots that warpgroup 1 fills two items ahead with
-//     cp.async and hands over at named barriers, and warpgroup 0 runs up
-//     to an item ahead of it;
-//   - a one-dimensional grid with a head's tiles adjacent, so that the
-//     blocks on the card at once share their heads' streamed tiles in L2
-//     (with the tile on the slow axis, as the other widths have it, the
-//     launch took 2.66 ms instead of 2.13-2.16 at deepseek-v3's shape);
+//     slabs in the 128-byte swizzle (D / 64 for Q and K, DV / 64 for dO and
+//     V), read K-major by the first products and MN-major by the second
+//     (m64n64k16 chains; m64n128k16 over two slabs, below); they pass
+//     through a ring of three slots that warpgroup 1 fills two items ahead
+//     with cp.async and hands over at named barriers, and warpgroup 0 runs
+//     up to an item ahead of it;
+//   - the query heads of a dK/dV block: where the launch still has
+//     kSumHeadsBlocks (512, ~4 waves of one block an SM) blocks with one
+//     a kv head, a block takes the kv head's G query heads in turn (its
+//     items are G x its q tiles, (head, q tile) packed in an int so that a
+//     step divides nothing) and stores dK and dV itself (bf16, through
+//     shared memory, 16 bytes a store), so at one query head a kv head
+//     always; else (granite-34b's MQA: 72 such blocks at (4, 48, 1,
+//     1,128)) a block a query head writes its fp32 partials, which the dQ
+//     launch's combine blocks sum in head order (Combine::slice, on the
+//     first warpgroup: with all 256 threads, each thread's loads of a
+//     head in flight together, half as many blocks left granite's combine
+//     on 71 of the 132 SMs, and slower). At
+//     internlm2-1.8b's shape (G = 2, 576 blocks) the partials' round trip
+//     and the combine cost more than the longer blocks' imbalance, which
+//     PR 19 left this design for at G = 5 and which the key tile as the
+//     slow axis keeps small here (2 to 36 items a block, ~83 an SM);
+//   - a one-dimensional grid of these units by key tiles: the key tile
+//     the slow axis (the blocks with the most items start first) where a
+//     block sums G > 1 heads (the blocks of a kv head walk the same Q and
+//     dO together) or every head's Q and dO fit in the L2 (kL2Bytes: 37
+//     MB at internlm2's and moonshot's shapes); a unit's tiles adjacent
+//     otherwise, so that the blocks on the card at once share their heads'
+//     streamed tiles in L2 (at deepseek-v3's shape, 328 MB of Q and dO:
+//     2.13-2.16 ms against 2.66 with the tile on the slow axis); dQ's grid
+//     has a head's q tiles adjacent, the last first (the q tile as the
+//     slow axis was no faster);
 //   - each item's second product is issued together with the next item's
 //     first (hi + lo operands converted a k-step at a time, just before its
 //     products), so one warpgroup's elementwise work runs under the
-//     other's products;
-//   - at one query head a kv head (MLA's), the dK/dV blocks store dK and dV
-//     themselves (bf16, through shared memory, 16 bytes a store) and the
-//     dQ launch has no combine rows: the fp32 partials' round trip cost
-//     ~2 ms at deepseek-v3's shape; with GQA they write partials as the
-//     other widths do;
-//   - 195 KB of shared memory and 256 threads a block, one block an SM;
-//     -Xptxas -v: no spill stores (chip_smoke.py phase 19 prints the
-//     registers and fails on a spill).
-// Other (D, DV): mma.sync.m16n8k16 with the same work split (4 warps of 16
-// keys or rows, ldmatrix fragments, rows padded by 16 bytes).
+//     other's products (issuing warpgroup 0's next S^T first and making
+//     P^T under dV, or splitting dQ's work as dK/dV's, was no faster), and
+//     a product over two 64-column slabs (dV; dK and dQ at D = 128) is one
+//     m64n128k16 a k-step, the same sums bit for bit as two m64n64k16;
+//     each choice measured by tools/attention_bwd_variants.py (PERF.md,
+//     PR 28);
+//   - 195 KB (192, 128) / 163 KB (128, 128) of shared memory and 256
+//     threads a block, one block an SM; -Xptxas -v: no spill stores
+//     (chip_smoke.py phase 19 prints the registers and fails on a spill).
+// Other bf16 (D, DV) -- (96, 96), (32, 32), (16, 16), (32, 16): mma.sync.
+// m16n8k16 with the same work split as D = 64 (dkdv_kernel_tc, dq_kernel_tc:
+// 4 warps of 16 keys or rows, ldmatrix fragments, rows padded by 16 bytes).
 // fp32 inputs: IEEE fp32 FMAs out of shared memory (no TF32), four threads
 // a key (dK, dV) or a q row (dQ); their dK/dV kernel sums the G heads
 // inside the block. No --use_fast_math.
@@ -156,19 +181,30 @@ delta_kernel(const float* __restrict__ o, const float* __restrict__ dO,
   if (lane == 0) delta[row] = acc;
 }
 
-// bf16: 8 lanes a row, 8 values (16 bytes) a load
+// bf16: 8 lanes a row, 8 values (16 bytes) a load, a lane's loads all
+// issued before its sums
+template <int DV>
 __global__ void __launch_bounds__(256)
 delta_kernel_bf16(const bf16* __restrict__ o, const bf16* __restrict__ dO,
-                  float* __restrict__ delta, long long rows, int Dv) {
+                  float* __restrict__ delta, long long rows) {
+  constexpr int kChunks = DV / 8, kPer = (kChunks + 7) / 8;
   const long long row = blockIdx.x * 32LL + (threadIdx.x >> 3);
   const int l8 = threadIdx.x & 7;
   float acc = 0.0f;
   if (row < rows) {
-    for (int c = l8; c < Dv / 8; c += 8) {
-      const uint4 ov = *reinterpret_cast<const uint4*>(o + row * Dv + 8 * c);
-      const uint4 dv = *reinterpret_cast<const uint4*>(dO + row * Dv + 8 * c);
-      const bf16* op = reinterpret_cast<const bf16*>(&ov);
-      const bf16* dp = reinterpret_cast<const bf16*>(&dv);
+    uint4 ov[kPer], dv[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = l8 + 8 * i;
+      if (c >= kChunks) continue;
+      ov[i] = *reinterpret_cast<const uint4*>(o + row * DV + 8 * c);
+      dv[i] = *reinterpret_cast<const uint4*>(dO + row * DV + 8 * c);
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if (l8 + 8 * i >= kChunks) continue;
+      const bf16* op = reinterpret_cast<const bf16*>(&ov[i]);
+      const bf16* dp = reinterpret_cast<const bf16*>(&dv[i]);
 #pragma unroll
       for (int e = 0; e < 8; ++e)
         acc = fmaf(__bfloat162float(dp[e]), __bfloat162float(op[e]), acc);
@@ -203,6 +239,16 @@ struct KvBlock {
   __device__ __forceinline__ int next(const Mask& mk, int qt, int S) const {
     for (; qt < n_qt; ++qt)
       if (tiles_of(mk, qt * kBQ, S).visits(t_kv)) return qt;
+    return -1;
+  }
+  // over the nh query heads bh, bh + 1, ..: items g << 16 | qt (q tile
+  // qt of head bh + g; no division a step); the first item at or past it
+  // whose q tile visits the key tile, or -1
+  __device__ __forceinline__ int next_item(const Mask& mk, int it, int S,
+                                           int nh) const {
+    for (int g = it >> 16, qt = it & 0xFFFF; g < nh; ++g, qt = 0)
+      for (; qt < n_qt; ++qt)
+        if (tiles_of(mk, qt * kBQ, S).visits(t_kv)) return g << 16 | qt;
     return -1;
   }
 };
@@ -990,10 +1036,15 @@ dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// wgmma at MLA's (D, DV) = (192, 128): two warpgroups a block
+// wgmma at (D, DV) = (128, 128) and MLA's (192, 128): two warpgroups a block
 // ---------------------------------------------------------------------------
 
 constexpr int kThreadsWG2 = 2 * kThreadsTC;
+// the dK/dV blocks (of one an SM) a launch needs before a block sums the
+// G query heads of its kv head: ~4 waves of an H100's 132 SMs
+constexpr long long kSumHeadsBlocks = 512;
+// an H100's L2 cache
+constexpr long long kL2Bytes = 50LL << 20;
 // the ring of streamed tiles (Q and dO in dK/dV, K and V in dQ), and the
 // named barriers of the hand-overs between the warpgroups (0 is
 // __syncthreads'): P (dS in dQ) of item m from warpgroup 0 to 1 (kBarP +
@@ -1136,17 +1187,21 @@ __device__ __forceinline__ void slot_ready(int m) {
 // One warpgroup of a dK/dV block. kRole 0: S^T = K Q^T, P^T (to the other
 // warpgroup through shared memory), dV += P^T dO; kRole 1: dP^T = V dO^T,
 // dS^T = P^T (dP^T - Delta), dK += dS^T Q. K's (role 0) or V's (role 1)
-// A operands stay in registers for the whole q-tile walk. Items (q tiles)
-// stream through a ring of kSlots slots of Q, dO, lse and Delta:
-// warpgroup 1 loads item m + 2 while it works on item m (into the slot
-// item m - 1 left), and warpgroup 0 runs up to one item ahead of it.
+// A operands stay in registers for the whole walk. The block takes nh query
+// heads (1, or the G of its kv head) and its items are their (head, q tile)
+// pairs, a head's q tiles in turn; they stream through a ring of kSlots
+// slots of Q, dO, lse and Delta: warpgroup 1 loads item m + 2 while it
+// works on item m (into the slot item m - 1 left), and warpgroup 0 runs up
+// to one item ahead of it. With nh = G the sums are dK and dV, else the
+// head's fp32 partials.
 template <int kRole, int D, int DV>
 __device__ __forceinline__ void dkdv_wg2_role(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const bf16* __restrict__ dO,
     const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ pk, float* __restrict__ pv, bf16* __restrict__ dk,
-    bf16* __restrict__ dv, int H, int K, int S, const Mask& mk, float scale) {
+    bf16* __restrict__ dv, int H, int K, int S, const Mask& mk, float scale,
+    int nh, int tile_slow) {
   constexpr int NQ = D / 64, NV = DV / 64;   // slabs of a q / k, v / dO row
   constexpr int NA = kRole == 0 ? NQ : NV;   // slabs of the fixed A operand
   constexpr int NO = kRole == 0 ? NV : NQ;   // 64-column pieces of the sum
@@ -1161,20 +1216,25 @@ __device__ __forceinline__ void dkdv_wg2_role(
   float* lse_s = reinterpret_cast<float*>(p_s + 16 * kThreadsTC);
   float* dl_s = lse_s + kSlots * kBQ;                      // kSlots x kBQ
 
-  // a one-dimensional grid, a head's key tiles adjacent (first first), so
-  // that the blocks running together share their heads' Q and dO in L2
-  const int n_kt = (mk.Sk + kBK - 1) / kBK;
-  const KvBlock blk(H, K, S, blockIdx.x / n_kt, blockIdx.x % n_kt);
+  // a one-dimensional grid of units (unit u: query heads u nh..) by key
+  // tiles: with tile_slow the key tile is the slow axis (the blocks of the
+  // first key tiles, which take the most items, start first), else a
+  // unit's key tiles are adjacent (first first), so that the blocks
+  // running together share their heads' Q and dO in L2
+  const int n_kt = (mk.Sk + kBK - 1) / kBK, n_units = gridDim.x / n_kt;
+  const int unit = tile_slow ? blockIdx.x % n_units : blockIdx.x / n_kt;
+  const int tile = tile_slow ? blockIdx.x / n_units : blockIdx.x % n_kt;
+  const KvBlock blk(H, K, S, unit * nh, tile);
   const int tid = threadIdx.x, t = tid & (kThreadsTC - 1);
   const int warp = t >> 5, lane = tid & 31;
   const int key0 = blk.k0 + warp * 16 + (lane >> 2);   // keys key0, key0 + 8
   const int quad_col = 2 * (lane & 3);
-  const long long qo = static_cast<long long>(blk.bh) * S;
 
-  // item qt into slot, by NT threads
-  auto load_item = [&](auto nt, int qt, int slot, int ltid) {
+  // item it into slot, by NT threads
+  auto load_item = [&](auto nt, int it, int slot, int ltid) {
     constexpr int NT = decltype(nt)::value;
-    const int q0 = qt * kBQ;
+    const long long qo = static_cast<long long>(blk.bh + (it >> 16)) * S;
+    const int q0 = (it & 0xFFFF) * kBQ;
     load_slabs<NQ, NT>(q_s + slot * NQ * kTileBytes, q + qo * D, q0, S, ltid);
     load_slabs<NV, NT>(do_s + slot * NV * kTileBytes, dO + qo * DV, q0, S,
                        ltid);
@@ -1193,11 +1253,11 @@ __device__ __forceinline__ void dkdv_wg2_role(
   const long long kv_row = static_cast<long long>(blk.kvh) * mk.Sk;
   load_slabs<NQ, kThreadsWG2>(k_s, k + kv_row * D, blk.k0, mk.Sk, tid);
   load_slabs<NV, kThreadsWG2>(v_s, v + kv_row * DV, blk.k0, mk.Sk, tid);
-  int qt = blk.next(mk, 0, S);
-  int qt1 = qt >= 0 ? blk.next(mk, qt + 1, S) : -1;
-  if (qt >= 0) load_item(All(), qt, 0, tid);
+  int it = blk.next_item(mk, 0, S, nh);
+  int it1 = it >= 0 ? blk.next_item(mk, it + 1, S, nh) : -1;
+  if (it >= 0) load_item(All(), it, 0, tid);
   cp_async_commit();
-  if (kRole == 1 && qt1 >= 0) load_item(One(), qt1, 1, t);
+  if (kRole == 1 && it1 >= 0) load_item(One(), it1, 1, t);
   cp_async_commit();
   cp_async_wait<1>();
   fence_async_smem();
@@ -1218,22 +1278,22 @@ __device__ __forceinline__ void dkdv_wg2_role(
   // then; its result is unused): a wgmma in a branch would be serialized.
   float x[8][4];   // S^T, then P^T (role 0); dP^T, then dS^T (role 1)
   uint32_t xh[4][4], xl[4][4];
-  if (qt >= 0) wg_product_t<NA>(x, af, kRole == 0 ? q_s : do_s);
-  for (int m = 0; qt >= 0; ++m) {
-    const int qt2 = qt1 >= 0 ? blk.next(mk, qt1 + 1, S) : -1;
+  if (it >= 0) wg_product_t<NA>(x, af, kRole == 0 ? q_s : do_s);
+  for (int m = 0; it >= 0; ++m) {
+    const int it2 = it1 >= 0 ? blk.next_item(mk, it1 + 1, S, nh) : -1;
     const int slot = m % kSlots, slot1 = (m + 1) % kSlots;
     if constexpr (kRole == 0) {
-      p_from_st(x, lse_s + slot * kBQ, mk, qt * kBQ, blk.k0, key0, quad_col,
-                c2);
+      p_from_st(x, lse_s + slot * kBQ, mk, (it & 0xFFFF) * kBQ, blk.k0, key0,
+                quad_col, c2);
       put_p(p_s, m, t, x);
-      if (qt1 >= 0) bar_sync(kBarSlot + slot1, kThreadsWG2);
+      if (it1 >= 0) bar_sync(kBarSlot + slot1, kThreadsWG2);
       issue_accumulate<NO>(acc, x, xh, xl, do_s + slot * NV * kTileBytes);
       issue_product_t<NA>(x, af, q_s + slot1 * NQ * kTileBytes);
     } else {
-      if (qt1 >= 0) slot_ready(m);
+      if (it1 >= 0) slot_ready(m);
       const float4* p = get_p(p_s, m, t);
-      if (qt2 >= 0) {   // item m - 1's slot: both warpgroups are past it
-        load_item(One(), qt2, (m + 2) % kSlots, t);
+      if (it2 >= 0) {   // item m - 1's slot: both warpgroups are past it
+        load_item(One(), it2, (m + 2) % kSlots, t);
         cp_async_commit();
       }
       const float* dl = dl_s + slot * kBQ;
@@ -1250,13 +1310,19 @@ __device__ __forceinline__ void dkdv_wg2_role(
       issue_product_t<NA>(x, af, do_s + slot1 * NV * kTileBytes);
     }
     wg_done<NO>(acc, x);
-    qt = qt1;
-    qt1 = qt2;
+    it = it1;
+    it1 = it2;
   }
   cp_async_wait<0>();
-  if (H == K) {   // one query head a kv head: the sums are dK and dV
-    // staged where neither warpgroup reads any more: K's slabs (role 0,
-    // whose A operands they were) and P's buffers (role 1, past its last P)
+  if (nh == H / K) {   // the kv head's every query head: dK and dV
+    // staged where neither warpgroup reads any more once both are past
+    // their walks: K's slabs and on into V's (role 0; 17 KB of stage, 16 KB
+    // of K at D = 128) and P's buffers (role 1)
+    static_assert(64 * (DV + 8) * sizeof(bf16) <= (NQ + NV) * kTileBytes &&
+                  64 * (D + 8) * sizeof(bf16) <= 16 * kThreadsTC *
+                                                     sizeof(float4),
+                  "the dK / dV stage does not fit");
+    bar_sync(0, kThreadsWG2);
     if constexpr (kRole == 0)
       store_tile_bf16<DV>(acc, reinterpret_cast<bf16*>(smem_raw + (base - raw)),
                           dv + kv_row * DV, blk.k0, mk.Sk, t, 1.0f, kBarWG0);
@@ -1282,13 +1348,14 @@ dkdv_kernel_wg2(const bf16* __restrict__ q,      // (B, H, S, D)
                 float* __restrict__ pv,          // (B, H, Sk, DV)
                 bf16* __restrict__ dk,           // (B, K, Sk, D)
                 bf16* __restrict__ dv,           // (B, K, Sk, DV)
-                int H, int K, int S, Mask mk, float scale) {
+                int H, int K, int S, Mask mk, float scale, int nh,
+                int tile_slow) {
   if (threadIdx.x < kThreadsTC)
     dkdv_wg2_role<0, D, DV>(q, k, v, dO, lse, delta, pk, pv, dk, dv, H, K, S,
-                            mk, scale);
+                            mk, scale, nh, tile_slow);
   else
     dkdv_wg2_role<1, D, DV>(q, k, v, dO, lse, delta, pk, pv, dk, dv, H, K, S,
-                            mk, scale);
+                            mk, scale, nh, tile_slow);
 }
 
 // One warpgroup of a dQ block. kRole 0: S = Q K^T and dP = dO V^T (Q's and
@@ -1668,17 +1735,34 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// the scratch, in floats: Delta (B H S), then, for bf16, the fp32 dK and dV
-// partials of every query head (B H Sk D and B H Sk Dv), from a multiple
-// of 4
+// whether the bf16 kernels at (D, Dv) are the two-warpgroup wgmma pair
+constexpr bool wg2_pair(int D, int Dv) {
+  return Dv == 128 && (D == 128 || D == 192);
+}
+
+// the query heads a dK/dV block of the two-warpgroup pair takes: the kv
+// head's G where that leaves the launch kSumHeadsBlocks blocks or more
+// (the block then writes dK and dV itself), else one
+int wg2_heads(int B, int K, int Sk, int G) {
+  const long long n_kt = (Sk + kBK - 1) / kBK;
+  return static_cast<long long>(B) * K * n_kt >= kSumHeadsBlocks ? G : 1;
+}
+
+// the scratch, in floats: Delta (B H S), then, for bf16 where a dK/dV
+// block takes one query head of several, the fp32 dK and dV partials of
+// every query head (B H Sk D and B H Sk Dv), from a multiple of 4
 struct Scratch {
   long long delta, part_k, part_v;
   long long part_at() const { return (delta + 3) & ~3LL; }
   long long floats() const { return part_at() + part_k + part_v; }
 };
 
-Scratch scratch_of(int B, int H, int S, int Sk, int D, int Dv, int bf16_in) {
-  const long long rows = bf16_in ? static_cast<long long>(B) * H * Sk : 0;
+Scratch scratch_of(int B, int H, int K, int S, int Sk, int D, int Dv,
+                   int bf16_in) {
+  const int G = H / K;
+  const bool partials =
+      bf16_in && !(wg2_pair(D, Dv) && wg2_heads(B, K, Sk, G) == G);
+  const long long rows = partials ? static_cast<long long>(B) * H * Sk : 0;
   return Scratch{static_cast<long long>(B) * H * S, rows * D, rows * Dv};
 }
 
@@ -1688,11 +1772,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    long long scratch_floats, void* dq, void* dk, void* dv,
                    int B, int H, int K, int S, Mask mk, float scale,
                    int bf16_in, cudaStream_t stream) {
-  const Scratch sc = scratch_of(B, H, S, mk.Sk, D, DV, bf16_in);
+  const Scratch sc = scratch_of(B, H, K, S, mk.Sk, D, DV, bf16_in);
   if (sc.floats() > scratch_floats) return cudaErrorInvalidValue;
   float* delta = scratch;
   const long long rows = static_cast<long long>(B) * H * S;
   const int n_kt = (mk.Sk + kBK - 1) / kBK, n_qt = (S + kBQ - 1) / kBQ;
+  // the bf16 pairs on two wgmma warpgroups a block; the query heads their
+  // dK/dV blocks take: the kv head's G where that leaves the card
+  // kSumHeadsBlocks blocks or more (no partials, no combine), else one;
+  // and their grid's order: the key tile the slow axis where a block
+  // takes G > 1 heads (the blocks of a kv head walk the same Q and dO
+  // together) or where every head's Q and dO fit in L2, a unit's key tiles
+  // adjacent otherwise
+  constexpr bool kWG2 = wg2_pair(D, DV);
+  const int G = H / K, nh = wg2_heads(B, K, mk.Sk, G);
+  const int tile_slow =
+      nh > 1 || rows * (D + DV) * static_cast<long long>(sizeof(bf16)) <=
+                    kL2Bytes;
   cudaError_t err;
   if (bf16_in) {
     const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
@@ -1703,21 +1799,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
     // the key tile (dK/dV) and the q tile (dQ) are the slow grid axes, so
     // the blocks with the most tiles to visit start first
     const dim3 grid_kv(B * H, n_kt);
-    delta_kernel_bf16<<<static_cast<unsigned>((rows + 31) / 32), 256, 0,
-                        stream>>>(ob, db, delta, rows, DV);
+    delta_kernel_bf16<DV><<<static_cast<unsigned>((rows + 31) / 32), 256, 0,
+                            stream>>>(ob, db, delta, rows);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     if constexpr (D == 64 && DV == 64) {
       constexpr size_t s_kv = smem_bytes_wg();
       if ((err = allow_smem(dkdv_kernel_wg, s_kv)) != cudaSuccess) return err;
       dkdv_kernel_wg<<<grid_kv, kThreadsTC, s_kv, stream>>>(
           qb, kb, vb, db, lse, delta, pk, pv, H, K, S, mk, scale);
-    } else if constexpr (D == 192 && DV == 128) {
+    } else if constexpr (kWG2) {
       constexpr size_t s_kv = smem_bytes_wg2<D, DV>();
       if ((err = allow_smem(dkdv_kernel_wg2<D, DV>, s_kv)) != cudaSuccess)
         return err;
-      dkdv_kernel_wg2<D, DV><<<n_kt * B * H, kThreadsWG2, s_kv, stream>>>(
+      dkdv_kernel_wg2<D, DV><<<n_kt * B * H / nh, kThreadsWG2, s_kv,
+                               stream>>>(
           qb, kb, vb, db, lse, delta, pk, pv, static_cast<bf16*>(dk),
-          static_cast<bf16*>(dv), H, K, S, mk, scale);
+          static_cast<bf16*>(dv), H, K, S, mk, scale, nh, tile_slow);
     } else {
       constexpr size_t s_kv = smem_bytes_dkdv_tc<D, DV>();
       if ((err = allow_smem(dkdv_kernel_tc<D, DV>, s_kv)) != cudaSuccess)
@@ -1745,14 +1842,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
       if ((err = allow_smem(dq_kernel_wg, s_q)) != cudaSuccess) return err;
       dq_kernel_wg<<<grid_q, kThreadsTC, s_q, stream>>>(
           qb, kb, vb, db, lse, delta, dqb, H, K, S, mk, scale, n_qt, cb);
-    } else if constexpr (D == 192 && DV == 128) {
+    } else if constexpr (kWG2) {
       constexpr size_t s_q = smem_bytes_wg2<D, DV>();
       if ((err = allow_smem(dq_kernel_wg2<D, DV>, s_q)) != cudaSuccess)
         return err;
       // the q tiles' blocks, then the combine's, none where dK/dV stored
-      // the gradients themselves (H == K)
+      // the gradients themselves (nh = G)
       const long long n_q_blocks = static_cast<long long>(n_qt) * B * H;
-      const int n_combine = H == K ? 0 : cb.rows(1);
+      const int n_combine = nh == G ? 0 : cb.rows(1);
       dq_kernel_wg2<D, DV><<<static_cast<unsigned>(n_q_blocks + n_combine),
                              kThreadsWG2, s_q, stream>>>(
           qb, kb, vb, db, lse, delta, dqb, H, K, S, mk, scale, n_qt,
@@ -1803,7 +1900,7 @@ extern "C" long long flash_attention_bwd_scratch_floats(int B, int H, int K,
                                                         int Dv, int bf16_in) {
   if (B <= 0 || H <= 0 || K <= 0 || S < 0 || Sk < 0 || !takes(D, Dv))
     return 0;
-  return scratch_of(B, H, S, Sk, D, Dv, bf16_in).floats();
+  return scratch_of(B, H, K, S, Sk, D, Dv, bf16_in).floats();
 }
 
 // Launch on `stream`; returns the cudaError_t of the first launch that

@@ -1,9 +1,10 @@
 // The Hopper wgmma machinery of the bf16 attention kernels
 // (flash_attention.cu's forward at D = 128 and (192, 128),
-// flash_attention_bwd.cu's backward at D = 64 and (192, 128)): 64-row tiles
-// of 64 bf16 columns ("slabs") in shared memory in the 128-byte swizzle,
-// filled by cp.async; their wgmma descriptors; wgmma m64n64k16 with A from
-// shared memory or registers; the fences and waits around it; named
+// flash_attention_bwd.cu's backward at D = 64, (128, 128) and (192, 128)):
+// 64-row tiles of 64 bf16 columns ("slabs") in shared memory in the
+// 128-byte swizzle, filled by cp.async; their wgmma descriptors; wgmma
+// m64n64k16 with A from shared memory or registers (and m64n128k16, A in
+// registers, over two slabs); the fences and waits around it; named
 // barriers; and the products built from them.
 
 #pragma once
@@ -51,6 +52,14 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) |
          (static_cast<uint64_t>(1) << 62);
+}
+
+// desc_sw128 with its leading byte offset set to lbo: for an MN-major
+// operand wider than one 64-column slab, the stride between its slabs
+__device__ __forceinline__ uint64_t desc_sw128_lbo(uint32_t addr,
+                                                   uint32_t lbo) {
+  return (desc_sw128(addr) & ~(static_cast<uint64_t>(0x3FFF) << 16)) |
+         (static_cast<uint64_t>(lbo >> 4) << 16);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -121,6 +130,42 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate), "n"(kTransB));
+}
+
+// the same (A in registers) at N = 128: d the 64 x 128 accumulator, n-tile
+// j (columns 8 j..) as above; b an MN-major operand two 64-column slabs
+// wide, its descriptor's leading byte offset the slabs' stride
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs128(float (&d)[16][4],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate), "n"(kTransB));
 }
@@ -238,11 +283,17 @@ __device__ __forceinline__ void issue_accumulate(float (&acc)[8 * NS][4],
   for (int kk = 0; kk < 4; ++kk) {
     acc_to_a<true>(x, kk, xh[kk], xl[kk]);
     wg_fence();
+    if constexpr (NS == 2) {   // one m64n128k16 product over both slabs
+      const uint64_t b = desc_sw128_lbo(b_s + kk * 2048, kTileBytes);
+      wgmma_rs128<1>(acc, xh[kk], b, 1);
+      wgmma_rs128<1>(acc, xl[kk], b, 1);
+    } else {
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      const uint64_t b = desc_sw128(b_s + s * kTileBytes + kk * 2048);
-      wgmma_rs<1>(piece(acc, s), xh[kk], b, 1);
-      wgmma_rs<1>(piece(acc, s), xl[kk], b, 1);
+      for (int s = 0; s < NS; ++s) {
+        const uint64_t b = desc_sw128(b_s + s * kTileBytes + kk * 2048);
+        wgmma_rs<1>(piece(acc, s), xh[kk], b, 1);
+        wgmma_rs<1>(piece(acc, s), xl[kk], b, 1);
+      }
     }
   }
 }

@@ -19,7 +19,13 @@ the gradient it runs as ``_FlashAttention`` (a ``torch.autograd.Function``):
 the forward also writes each row's log-sum-exp, and the backward launches
 ``kernels/csrc/flash_attention_bwd.cu``, counted in
 ``flash_attention_bwd.launches`` and ``kernels.dispatch.flash_attention_bwd.
-cuda``. Neither falls back. On CPU tensors it runs the plain version,
+cuda``; which kernel pair a backward launch runs is ``backward_kernel``'s
+answer (bf16 at D = 64: ``dkdv_kernel_wg`` / ``dq_kernel_wg``, one wgmma
+warpgroup a block; at ``WGMMA_PAIRS``, (128, 128) and (192, 128):
+``dkdv_kernel_wg2`` / ``dq_kernel_wg2``, two; the other bf16 pairs
+``dkdv_kernel_tc`` / ``dq_kernel_tc`` on mma.sync; float32 the ``_f32``
+pair), the wgmma ones also counted in ``flash_attention_bwd.wg_launches``.
+Neither falls back. On CPU tensors it runs the plain version,
 ``kernels.ref.attention_ref`` (counted in
 ``kernels.dispatch.flash_attention.plain``), under plain autograd; on meta
 tensors inside ``kernels.meta.shapes_only()`` (the dry run) it returns the
@@ -44,9 +50,18 @@ HEAD_DIMS = (16, 32, 64, 96, 128)   # the D the kernels take with Dv = D
 # 128) and the reduced MLA's, whose query/key dim 24 pads to 32
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((32, 16), (192, 128))
 # the (D, Dv) whose bf16 forward runs on wgmma (flash_kernel_wg: two
-# warpgroups a block); the other bf16 pairs run flash_kernel_tc (mma.sync),
-# float32 flash_kernel_f32
+# warpgroups a block) and whose bf16 backward runs on two wgmma warpgroups
+# (dkdv_kernel_wg2, dq_kernel_wg2); the other bf16 pairs run flash_kernel_tc
+# (mma.sync), float32 flash_kernel_f32
 WGMMA_PAIRS = ((128, 128), (192, 128))
+# the (D, Dv) whose bf16 backward runs on one wgmma warpgroup a block
+# (dkdv_kernel_wg, dq_kernel_wg); the others not in WGMMA_PAIRS on
+# mma.sync (dkdv_kernel_tc, dq_kernel_tc)
+WGMMA_BWD_ONE = ((64, 64),)
+# the dK/dV blocks a two-warpgroup backward launch needs before a block sums
+# the G query heads of its kv head (csrc/flash_attention_bwd.cu's
+# kSumHeadsBlocks)
+SUM_HEADS_BLOCKS = 512
 _MAX_GRID_Y = 65535                 # B * H blocks along the grid's y axis
 
 _C_CUDA = obs.counter("kernels.dispatch.flash_attention.cuda")
@@ -135,6 +150,34 @@ def forward_kernel(D: int, Dv: int, dtype: torch.dtype) -> str:
             else "flash_kernel_tc")
 
 
+def backward_kernel(D: int, Dv: int, dtype: torch.dtype):
+    """The (dK/dV, dQ) kernel pair of ``csrc/flash_attention_bwd.cu`` that
+    the backward runs for q/k head dim D (padded to ``kernel_dim``), v head
+    dim Dv and ``dtype``: ``("dkdv_kernel_wg2", "dq_kernel_wg2")``,
+    ``("dkdv_kernel_wg", "dq_kernel_wg")`` (both on wgmma),
+    ``("dkdv_kernel_tc", "dq_kernel_tc")`` (mma.sync) or the ``_f32``
+    pair."""
+    if dtype != torch.bfloat16:
+        return "dkdv_kernel_f32", "dq_kernel_f32"
+    pair = (kernel_dim(D, Dv), Dv)
+    kind = ("wg2" if pair in WGMMA_PAIRS else
+            "wg" if pair in WGMMA_BWD_ONE else "tc")
+    return f"dkdv_kernel_{kind}", f"dq_kernel_{kind}"
+
+
+def backward_heads_per_block(B: int, H: int, K: int, Sk: int, D: int,
+                             Dv: int, dtype: torch.dtype) -> int:
+    """The query heads a dK/dV block of the backward takes, as the
+    library's launch decides: on the two-warpgroup pair
+    (``backward_kernel``), the kv head's G = H / K where B K ceil(Sk / 64)
+    >= ``SUM_HEADS_BLOCKS`` (the block writes dk and dv itself), else 1 (a
+    block a query head: with G > 1 it writes fp32 partials, which the dQ
+    launch's combine blocks sum; the other pairs always do)."""
+    if backward_kernel(D, Dv, dtype)[0] != "dkdv_kernel_wg2":
+        return 1
+    return H // K if B * K * -(-Sk // 64) >= SUM_HEADS_BLOCKS else 1
+
+
 def _pad_qk(q, k, Dv: int):
     """q and k padded with zero columns to ``kernel_dim``, which leave
     every score as it is (q and k themselves where they fit)."""
@@ -221,6 +264,8 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=None,
                      Sk, D, Dv, 1.0 / math.sqrt(Dqk), int(bf16), int(causal),
                      0 if window is None else int(window), int(sink), stream)
     flash_attention_bwd.launches += 1
+    if "_wg" in backward_kernel(D, Dv, q.dtype)[0]:
+        flash_attention_bwd.wg_launches += 1
     _C_BWD.inc()
     sanitize.check_kernel("flash_attention_bwd", (q, k, v, o, do, lse),
                           (dq, dk, dv))
@@ -249,3 +294,4 @@ class _FlashAttention(torch.autograd.Function):
 flash_attention.launches = 0
 flash_attention.wg_launches = 0
 flash_attention_bwd.launches = 0
+flash_attention_bwd.wg_launches = 0

@@ -535,9 +535,9 @@ RTOL_SSM_BWD = 1e-4
 # boundary meets, D = 16 (the reduced hymba) and 128, in both dtypes;
 # hymba-1.5b's training shapes (the 29 sliding-window layers and the 3
 # global ones) in bf16, the model's dtype; and the dense family's bf16
-# (128, 128) backward (dkdv_kernel_tc / dq_kernel_tc) with two query heads
-# a kv head on a ragged S and at granite-34b's 48 on one (MQA: the dK/dV
-# combine sums 48 heads' partials)
+# (128, 128) backward (dkdv_kernel_wg2 / dq_kernel_wg2) with two query
+# heads a kv head on a ragged S and at granite-34b's 48 on one (MQA: the
+# dK/dV combine sums 48 heads' partials)
 _SMALL = [(1, 6, 2, 77, 32, None, 0), (2, 4, 4, 200, 64, None, 0),
           (1, 4, 2, 300, 64, 100, 20), (2, 2, 1, 130, 128, 64, 0),
           (2, 4, 2, 44, 16, 16, 4)]
@@ -757,6 +757,111 @@ def test_flash_attention_bwd_at_mla_head_dims_is_bit_equal_twice(cuda):
     second = kflash.flash_attention_bwd(q, k, v, o, do, lse)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
+
+# the dense family's bf16 backward at (128, 128), on two wgmma warpgroups a
+# block (dkdv_kernel_wg2 / dq_kernel_wg2), (B, H, K, S, window, sink): with
+# B K ceil(S / 64) >= 512 a dK/dV block sums its kv head's query heads
+# (internlm2-1.8b's training shape, 16 / 8; qwen3-8b's, 32 / 8; 8 / 4 on a
+# ragged S with a window and a sink no tile boundary meets), below it a
+# block takes one head and writes fp32 partials that the dQ launch's
+# combine blocks sum (qwen3-8b's heads on a ragged S, the window case of
+# ATTN_BWD_CASES, a window with a sink, granite-34b's MQA 48 / 1, qwen3-32b's
+# 64 / 8, one position and S = 64 and 65: the 64-row tiles' edges), and at
+# one query head a kv head the blocks store dK and dV themselves
+# (moonshot's 16 / 16; a window with a sink)
+DENSE_BWD_CASES = [(4, 16, 8, 1128, None, 0), (1, 32, 8, 333, None, 0),
+                   (4, 16, 16, 1128, None, 0), (2, 2, 1, 130, 64, 0),
+                   (1, 6, 2, 300, 100, 20), (2, 4, 4, 300, 100, 70),
+                   (1, 48, 1, 256, None, 0), (1, 64, 8, 200, None, 0),
+                   (2, 4, 2, 1, None, 0), (1, 4, 2, 64, None, 0),
+                   (1, 4, 2, 65, None, 0), (4, 32, 8, 1128, None, 0),
+                   (8, 8, 4, 1000, 300, 70)]
+
+
+def _dense_bwd_inputs(case, cuda, seed=9):
+    B, H, K, S = case[:4]
+    return _mla_inputs((B, H, K, S, 128, 128), torch.bfloat16, cuda, seed)
+
+
+@pytest.mark.cuda
+def test_dense_bwd_runs_on_wgmma_without_spills(cuda):
+    """bf16 (128, 128) names the two-warpgroup wgmma pair, the built
+    library's ``-Xptxas -v`` report holds ``dkdv_kernel_wg2<128, 128>`` and
+    ``dq_kernel_wg2<128, 128>`` with no spill store, and no mma.sync kernel
+    at (128, 128), and its scratch holds fp32 partials only where a dK/dV
+    block takes one query head of several."""
+    import re
+    from repro_torch.kernels import build
+    assert kflash.backward_kernel(128, 128, torch.bfloat16) == (
+        "dkdv_kernel_wg2", "dq_kernel_wg2")
+    log = build.build_library("flash_attention_bwd").with_suffix(
+        ".log").read_text()
+    spills, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"((?:dkdv|dq)_kernel_\w+?)ILi128ELi128E", m[1])
+            name = None if k is None or k[1].endswith("_f32") else k[1]
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spills[name] = int(m[1])
+    assert spills == {"dkdv_kernel_wg2": 0, "dq_kernel_wg2": 0}, spills
+    # the scratch: Delta alone where a dK/dV block sums its kv head's heads
+    # (internlm2's shape) or there is one a kv head (moonshot's), Delta and
+    # every head's fp32 dK / dV partials where a block takes one of several
+    # (granite-34b's MQA on one sequence)
+    for (B, H, K, S), partials in (((4, 16, 8, 1128), False),
+                                   ((4, 16, 16, 1128), False),
+                                   ((1, 48, 1, 1128), True)):
+        floats = build.scratch_floats("flash_attention_bwd", B, H, K, S, S,
+                                      128, 128, 1)
+        want = -(-B * H * S // 4) * 4 + (B * H * S * 256 if partials else 0)
+        assert floats == want, (B, H, K, S, floats, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DENSE_BWD_CASES, ids=str)
+def test_dense_bwd_on_wgmma_matches_plain_gradients(cuda, case):
+    """One backward launch a gradient, on the wgmma pair, (dq, dk, dv) of
+    q's, k's and v's shapes within ``RTOL_ATTN_BWD`` of autograd of
+    ``attention_ref`` (``_mla_gaps``: at S = 1 dq and dk are zero)."""
+    window, sink = case[4:]
+    q, k, v, do = _dense_bwd_inputs(case, cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (kflash.flash_attention_bwd.launches,
+              kflash.flash_attention_bwd.wg_launches)
+    o = kflash.flash_attention(*leaves, window=window, sink=sink,
+                               round_p=False)
+    got = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    assert (kflash.flash_attention_bwd.launches,
+            kflash.flash_attention_bwd.wg_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert [g.shape for g in got] == [t.shape for t in (q, k, v)]
+    assert all(torch.isfinite(g).all() for g in got)
+    gaps = _mla_gaps(got, ref.attention_ref_grads(q, k, v, do, window=window,
+                                                  sink=sink))
+    assert max(gaps) <= RTOL_ATTN_BWD[torch.bfloat16], gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [DENSE_BWD_CASES[i]
+                                  for i in (0, 1, 4, 6, 12)], ids=str)
+def test_dense_bwd_on_wgmma_is_bit_equal_twice(cuda, case):
+    """The (128, 128) backward gives the same bits twice at internlm2's
+    training shape and with a window and a sink (a block summing its kv
+    head's heads), and through the per-head partials' combine at 4, 3 and
+    48 query heads a kv head (no atomics)."""
+    window, sink = case[4:]
+    q, k, v, do = _dense_bwd_inputs(case, cuda)
+    o, lse = kflash._forward(q, k, v, True, window, sink, False,
+                             with_lse=True)
+    first = kflash.flash_attention_bwd(q, k, v, o, do, lse, True, window,
+                                       sink)
+    second = kflash.flash_attention_bwd(q, k, v, o, do, lse, True, window,
+                                        sink)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 # (B, S, di, n): the reference's shapes, S and di no block or chunk divides,
 # n = 4, 8 (the reduced hymba) and 32, S below one saved-state interval, and

@@ -580,6 +580,195 @@ def test_backward_work_split_takes_each_visited_tile_pair_once(case):
     assert items == sorted(items, reverse=True)
 
 
+
+@pytest.mark.parametrize("dims,dtype,pair", [
+    ((128, 128), torch.bfloat16, "wg2"), ((192, 128), torch.bfloat16, "wg2"),
+    ((64, 64), torch.bfloat16, "wg"), ((96, 96), torch.bfloat16, "tc"),
+    ((32, 32), torch.bfloat16, "tc"), ((16, 16), torch.bfloat16, "tc"),
+    ((24, 16), torch.bfloat16, "tc"), ((100, 128), torch.bfloat16, "wg2"),
+    ((128, 128), torch.float32, "f32"), ((64, 64), torch.float32, "f32")],
+    ids=str)
+def test_backward_kernel_names_the_pair_the_launch_runs(dims, dtype, pair):
+    """``backward_kernel`` names the (dK/dV, dQ) pair the library's
+    ``launch`` routes (D, Dv) to after the wrapper pads q and k to
+    ``kernel_dim``: bf16 at (128, 128) and (192, 128) the two-warpgroup
+    wgmma kernels (``constexpr bool kWG2`` in ``flash_attention_bwd.cu``),
+    at D = 64 the one-warpgroup ones, mma.sync at the other bf16 pairs,
+    the float32 pair for float32."""
+    text = (_CSRC / "flash_attention_bwd.cu").read_text()
+    assert "constexpr bool kWG2 = wg2_pair(D, DV);" in text
+    assert "return Dv == 128 && (D == 128 || D == 192);" in text
+    assert "if constexpr (D == 64 && DV == 64) {" in text
+    assert kflash.backward_kernel(*dims, dtype) == (
+        f"dkdv_kernel_{pair}", f"dq_kernel_{pair}")
+
+
+@pytest.mark.parametrize("case", [
+    ((4, 16, 8, 1128), 2), ((4, 64, 8, 1128), 8), ((4, 48, 1, 1128), 1),
+    ((4, 16, 16, 1128), 1), ((1, 32, 8, 333), 1), ((8, 8, 4, 1000), 2),
+    ((8, 8, 4, 1024), 2), ((8, 8, 4, 960), 1)], ids=str)
+def test_backward_heads_per_block_follows_the_launch(case):
+    """``backward_heads_per_block`` restates ``launch``'s choice (the
+    kv head's G query heads a dK/dV block where B K ceil(Sk / 64) >=
+    kSumHeadsBlocks, read from the source, else one) at (128, 128) bf16,
+    and is 1 on the other pairs and in float32."""
+    (B, H, K, S), nh = case
+    assert kflash.SUM_HEADS_BLOCKS == _bwd_int("kSumHeadsBlocks")
+    assert kflash.backward_heads_per_block(B, H, K, S, 128, 128,
+                                           torch.bfloat16) == nh
+    for D, dtype in ((64, torch.bfloat16), (96, torch.bfloat16),
+                     (128, torch.float32)):
+        assert kflash.backward_heads_per_block(B, H, K, S, D, D, dtype) == 1
+
+def _bwd_int(name):
+    """A ``constexpr`` integer of ``flash_attention_bwd.cu`` (``int`` or
+    ``long long``, a literal or ``a << b``)."""
+    text = (_CSRC / "flash_attention_bwd.cu").read_text()
+    m = re.search(rf"constexpr (?:int|long long) {name} = (\d+)(?:LL)?"
+                  rf"(?: << (\d+))?;", text)
+    return int(m.group(1)) << int(m.group(2) or 0)
+
+
+def _warpgroup_threads():
+    """The threads of a warpgroup, from the header's ``kThreadsTC = 32 *
+    kWarps``."""
+    assert "constexpr int kThreadsTC = 32 * kWarps;" in \
+        (_CSRC / "flash_attention.cuh").read_text()
+    return 32 * _cuh_int("kWarps")
+
+
+def _wg2_split(B, H, K, S, D, window, sink):
+    """The one-dimensional grids of ``dkdv_kernel_wg2`` and
+    ``dq_kernel_wg2`` as ``flash_attention_bwd.cu``'s ``launch`` sets them
+    up, restated. dK/dV: a block takes nh query heads, the kv head's G
+    where B K n_kt >= kSumHeadsBlocks, else one; block b of the n_units =
+    B H / nh units by n_kt key tiles is (unit b % n_units, key tile b /
+    n_units) where nh > 1 or the heads' Q and dO (B H S 2 D bf16) fit in
+    kL2Bytes, else (b / n_kt, b % n_kt); it walks items g << 16 | qt (head
+    unit nh + g, q tile qt), heads in turn, whose q tile visits its key
+    tile (``KvBlock::next_item``). dQ block b < n_q_blocks is ``QBlock(H, K, b %
+    n_qt, n_qt, b / n_qt)``: head b / n_qt, q tile n_qt - 1 - b % n_qt,
+    over its walk. Where nh < G, ``rows(1)`` combine blocks follow, thread
+    t < kThreadsTC of block c taking float4 (c kIters + r) kThreadsTC + t of
+    dK and of dV for r < kIters (``Combine::slice``), below n4 = B K S D /
+    4. Returns (nh, tile_slow, the dK/dV blocks' (head, q tile,
+    key tile) lists, the dQ blocks', the combine blocks' float4 index
+    arrays, n4)."""
+    n_qt, n_kt = -(-S // BQ), -(-S // BK)
+    tiles = [_tiles_of(S, S, window, sink, qt * BQ) for qt in range(n_qt)]
+    G = H // K
+    nh = G if B * K * n_kt >= _bwd_int("kSumHeadsBlocks") else 1
+    tile_slow = nh > 1 or B * H * S * 2 * D * 2 <= _bwd_int("kL2Bytes")
+    n_units = B * H // nh
+    dkdv = []
+    for b in range(n_kt * n_units):
+        unit, t = (b % n_units, b // n_units) if tile_slow \
+            else (b // n_kt, b % n_kt)
+        dkdv.append([(unit * nh + g, qt, t) for g in range(nh)
+                     for qt in range(n_qt) if _visits(tiles[qt], t)])
+    n_q_blocks = n_qt * B * H
+    dq = []
+    for b in range(n_q_blocks):
+        qt = n_qt - 1 - b % n_qt
+        dq.append([(b // n_qt, qt, t) for t in _walk(tiles[qt])])
+    kiters, nt = _bwd_int("kIters"), _warpgroup_threads()
+    n4 = B * K * S * D // 4
+    n_combine = 0 if nh == G else -(-n4 // (kiters * nt))
+    idx = np.arange(kiters)[:, None] * nt + np.arange(nt)[None, :]
+    combine = [(c * kiters * nt + idx).ravel() for c in range(n_combine)]
+    combine = [i[i < n4] for i in combine]
+    return nh, tile_slow, dkdv, dq, combine, n4
+
+
+def _dense_split_cases():
+    """(B, H, K, S, D, window, sink): the dense family's training shapes on
+    phase 40's batch (internlm2-1.8b 16 / 8, qwen3-8b 32 / 8, qwen3-32b 64 /
+    8: a block sums its kv head's heads; granite-34b's MQA 48 / 1: a block
+    a head, and the combine; moonshot's 16 / 16 heads of 128), a ragged S
+    of qwen3-8b's heads, and chip_smoke.py's ATTN_BWD_CASES."""
+    return ([(4, h, k, 1128, 128, None, 0)
+             for h, k in ((16, 8), (32, 8), (64, 8), (48, 1), (16, 16))]
+            + [(1, 32, 8, 333, 128, None, 0)]
+            + [c[:7] for c in _attn_bwd_cases()])
+
+
+@pytest.mark.parametrize("case", _dense_split_cases(), ids=str)
+def test_wg2_backward_grid_takes_each_pair_and_float4_once(case):
+    """The two-warpgroup backward's one-dimensional grids (the formulas
+    asserted in ``flash_attention_bwd.cu``'s text; the tile sizes, the
+    warpgroup's threads, kIters, kSumHeadsBlocks and kL2Bytes read from its
+    sources):
+    the dK/dV blocks and the dQ blocks each take every visited (head, q
+    tile, kv tile) exactly once and no other; a dK/dV block's heads share
+    one kv head and its items come in (head, q tile) order (the order its
+    sums take them in); with the key tile as the slow axis the blocks of
+    the first key tiles come first, else a unit's blocks are adjacent, as
+    a head's dQ blocks are; where a block takes one of G > 1 heads the
+    combine blocks' slices cover dK's and dV's float4s exactly once, each
+    summing the G query heads of its kv head in head order (the heads whose
+    dK/dV blocks wrote it: ``KvBlock``'s kv head of each); where it takes
+    all G the dQ launch has no combine block."""
+    B, H, K, S, D, window, sink = case
+    text = (_CSRC / "flash_attention_bwd.cu").read_text()
+    for formula in (
+            "const int G = H / K, nh = wg2_heads(B, K, mk.Sk, G);",
+            "return static_cast<long long>(B) * K * n_kt >= kSumHeadsBlocks ? "
+            "G : 1;",
+            "nh > 1 || rows * (D + DV) * static_cast<long long>(sizeof(bf16)) "
+            "<=\n                    kL2Bytes;",
+            "const int n_kt = (mk.Sk + kBK - 1) / kBK, n_units = gridDim.x / "
+            "n_kt;",
+            "const int unit = tile_slow ? blockIdx.x % n_units : blockIdx.x / "
+            "n_kt;",
+            "const int tile = tile_slow ? blockIdx.x / n_units : blockIdx.x % "
+            "n_kt;",
+            "const KvBlock blk(H, K, S, unit * nh, tile);",
+            "static_cast<long long>(blk.bh + (it >> 16)) * S;",
+            "for (int g = it >> 16, qt = it & 0xFFFF; g < nh; ++g, qt = 0)",
+            "if (tiles_of(mk, qt * kBQ, S).visits(t_kv)) return g << 16 | qt;",
+            "QBlock blk(H, K, blockIdx.x % n_qt, n_qt, blockIdx.x / n_qt);",
+            "const long long i = (blk * kIters + r) * kThreadsTC + "
+            "threadIdx.x;",
+            "if (threadIdx.x < kThreadsTC) cb.slice(blockIdx.x - n_q_blocks);",
+            "const int n_combine = nh == G ? 0 : cb.rows(1);",
+            "const long long h0 = (bkv / K) * H + (bkv % K) * G;",
+            "kvh = (bh / H) * K + (bh % H) / (H / K);"):
+        assert formula in text, formula
+    nh, tile_slow, dkdv, dq, combine, n4 = _wg2_split(B, H, K, S, D, window,
+                                                       sink)
+    G = H // K
+    n_qt = -(-S // BQ)
+    tiles = [_tiles_of(S, S, window, sink, qt * BQ) for qt in range(n_qt)]
+    visited = Counter((bh, qt, t) for bh in range(B * H)
+                      for qt in range(n_qt) for t in _walk(tiles[qt]))
+    for blocks in (dkdv, dq):
+        assert Counter(p for block in blocks for p in block) == visited
+    for block in dkdv:
+        assert len({(bh // H) * K + (bh % H) // G for bh, _, _ in block}) <= 1
+        assert block == sorted(block)
+    firsts = [(block[0][0], block[0][2]) for block in dkdv if block]
+    if tile_slow:
+        assert [t for _, t in firsts] == sorted(t for _, t in firsts)
+    else:
+        assert [bh for bh, _ in firsts] == sorted(bh for bh, _ in firsts)
+    heads = [block[0][0] for block in dq if block]
+    assert heads == sorted(heads)
+    if nh == G:
+        assert combine == []
+        return
+    taken = np.concatenate(combine)
+    assert np.array_equal(np.sort(taken), np.arange(n4))
+    # the heads each float4 sums: kv head bkv = (4 i) / (S D), query heads
+    # h0 .. h0 + G - 1 in that order, h0 = (bkv / K) H + (bkv % K) G; the
+    # dK/dV blocks of exactly those heads map to kv head bkv
+    bkv = (4 * taken) // (S * D)
+    h0 = (bkv // K) * H + (bkv % K) * G
+    for g in range(G):
+        bh = h0 + g
+        assert np.array_equal((bh // H) * K + (bh % H) // G, bkv)
+    writers = Counter(((bh // H) * K + (bh % H) // G) for bh in range(B * H))
+    assert set(writers.values()) == {G} and len(writers) == B * K
+
 if __name__ == "__main__":
     print("gradients vs jax.grad of the model attention, worst of dq, dk, "
           f"dv: {max(max(attention_grad_gaps(c)) for c in GRAD_CASES):.2e} "

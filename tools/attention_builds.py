@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The flash-attention forward and backward kernels of two checkouts on the
 card: bit for bit, and within phase 8's gates where the bf16 forward at D =
-128 and (192, 128) changed kernels.
+128 and (192, 128) changed kernels, and within phase 19's gate where the
+bf16 backward at (128, 128) did.
 
     python3 tools/attention_builds.py PARENT_ROOT CHANGE_ROOT
 
@@ -18,13 +19,20 @@ gradient from seed 1) on o and lse from the plain version, so that both
 builds' backward kernels see the same inputs; and it times (``chip_smoke.
 median_ms``) the hymba-1.5b serving call (bf16, window 1,024, sink 128, p
 in float32) and its backward, the moonshot-v1-16b-a3b and deepseek-v3 MLA
-serving calls (bf16, p in float32 and rounded), and the bf16 MLA backward
-at deepseek-v3's training shape.
+serving calls (bf16, p in float32 and rounded), the bf16 MLA backward
+at deepseek-v3's training shape, and the bf16 (128, 128) backward at
+internlm2-1.8b's and moonshot's training shapes (``chip_smoke.
+ATTN_BWD_CASES``) with SDPA's backward on cuDNN beside it
+(``chip_smoke.sdpa_backward_ms``).
 Every output must be bit-equal across the four runs, except the bf16
-forward at (D, Dv) in ``REDESIGNED``, whose kernel the change replaced:
-there each build's two runs must be bit-equal and the change's output lie
-within phase 8's gates of the parent's (p in float32: ``chip_smoke.
-MAX_ULPS_P_F32`` and ``MAX_SHARE_P_F32``; p rounded: ``chip_smoke.TOL_ATTN``).
+forward at (D, Dv) in ``REDESIGNED`` and the bf16 backward at (D, Dv) in
+``REDESIGNED_BWD``, whose kernels the change replaced: there each build's
+two runs must be bit-equal and the change's output lie within phase 8's
+gates of the parent's (p in float32: ``chip_smoke.MAX_ULPS_P_F32`` and
+``MAX_SHARE_P_F32``; p rounded: ``chip_smoke.TOL_ATTN``), or, for the
+backward, each gradient within phase 19's ``chip_smoke.RTOL_ATTN_BWD`` of
+the parent's (max|change - parent| / max|parent|: the products' summation
+order changed).
 Outputs compared bit for bit are kept as SHA-256 digests. The script
 prints each run's times and the comparisons, and exits 1 if one fails.
 It needs one CUDA device and ``nvcc``.
@@ -52,6 +60,11 @@ def digest(t) -> str:
 # the bf16 forward instantiations whose kernel the change replaced
 # (flash_kernel_tc -> flash_kernel_wg)
 REDESIGNED = {(128, 128), (192, 128)}
+# the bf16 backward instantiations whose kernels the change replaced
+# (dkdv_kernel_tc / dq_kernel_tc -> dkdv_kernel_wg2 / dq_kernel_wg2)
+REDESIGNED_BWD = {(128, 128)}
+# the bf16 (128, 128) backward's timed shapes, by ATTN_BWD_CASES' labels
+BWD_TIMED = ("internlm2", "moonshot")
 # the serving calls timed: moonshot-v1-16b-a3b's and deepseek-v3's prefill
 SERVE_SHAPES = ((4, 16, 16, 1000, 128), (4, 128, 128, 1000, 192, 128))
 
@@ -116,13 +129,29 @@ def dump(root: Path, out: Path) -> None:
         o = ref.attention_ref(q, k, v, window=window, sink=sink,
                               round_p=False)
         lse = plain_lse(q, k, True, window, sink)
+        tol = dtype == "bfloat16" and (shape[4], Dv) in REDESIGNED_BWD
         for name, g in zip(("dq", "dk", "dv"), kflash.flash_attention_bwd(
                 q, k, v, o, do, lse, True, window, sink)):
             outs[f"bwd {shape} {dtype} window={window} sink={sink} "
-                 f"{name}"] = digest(g)
+                 f"{name}"] = g.cpu() if tol else digest(g)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     ms = {}
+    for label, case in zip(cs.ATTN_BWD_TIMED, cs.ATTN_BWD_CASES):
+        if label not in BWD_TIMED:
+            continue
+        shape, window, sink = case[:5], case[5], case[6]
+        q, k, v = cs.attn_inputs(shape, torch.bfloat16, 0, dev)
+        do = cs.attn_inputs(shape, torch.bfloat16, 1, dev)[0]
+        o, lse = kflash._forward(q, k, v, True, window, sink, False,
+                                 with_lse=True)
+        ms[f"{label}_bwd"] = cs.median_ms(lambda: kflash.flash_attention_bwd(
+            q, k, v, o, do, lse, True, window, sink))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        backend, ms[f"{label}_bwd_sdpa"] = cs.sdpa_backward_ms(leaves, do)
+        ms[f"{label}_bwd_sdpa_backend"] = backend
+        del q, k, v, do, o, lse, leaves
+        torch.cuda.empty_cache()
     B, H, K, S, D, Dv, _ = cs.MLA_BWD_CASES[0]
     q, k, v = cs.attn_inputs((B, H, K, S, D, Dv), torch.bfloat16, 0, dev)
     do = torch.from_numpy(np.random.default_rng(1).normal(
@@ -177,8 +206,9 @@ def main() -> int:
     differ = sorted({key for _, r in runs[1:] for key in bit
                      if r["outs"][key] != parent[key]})
     for label, r in runs:
-        print(f"{label}: " + ", ".join(f"{name} {t:.4f} ms"
-                                       for name, t in r["ms"].items()))
+        print(f"{label}: " + ", ".join(
+            f"{name} {t:.4f} ms" if isinstance(t, float) else f"{name} {t}"
+            for name, t in r["ms"].items()))
     print(f"{len(bit)} outputs compared bit for bit, {len(differ)} differ "
           f"between the four runs")
     for key in differ:
@@ -190,7 +220,13 @@ def main() -> int:
                    for i, j in ((0, 3), (1, 2)))
         a, b = change[key], parent[key]
         err = (a.float() - b.float()).abs().max().item()
-        if key.endswith("round_p=True"):
+        if key.startswith("bwd "):
+            gate = cs.RTOL_ATTN_BWD["bfloat16"]
+            rel = err / b.float().abs().max().item()
+            ok = rel <= gate
+            gap = (f"max abs {err:.3e}, {rel:.3e} of max|parent| (gate "
+                   f"{gate})")
+        elif key.endswith("round_p=True"):
             ok = err <= cs.TOL_ATTN["bfloat16"]
             gap = f"max abs {err:.3e} (gate {cs.TOL_ATTN['bfloat16']})"
         else:
