@@ -37,7 +37,9 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             ``Engine.generate`` of 4 requests x 1,000-token prompts, 32
             greedy decode steps, max_seq 1,040 (the SWA ring wraps). Both
             kernels launch once a layer (32 attention: 3 global and 29
-            sliding-window layers; 32 scan launches a call), every
+            sliding-window layers, as many on ``flash_kernel_wg`` as
+            ``kflash.forward_kernel`` routes there: all 32 since D = 64
+            runs on wgmma; 32 scan launches a call), every
             logit is finite, two calls give identical tokens; prefill
             seconds and decode tokens/s, first call and warm; decode-vs-
             prefill logit agreement at this width with the depth cut to
@@ -186,9 +188,10 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             (2 Dqk + 2 Dv flops a visible score), the plain version's and
             SDPA's where SDPA takes the call; the bf16 kernel at (128, 128)
             and (192, 128) is ``flash_kernel_wg`` (wgmma; one wgmma launch
-            counted a call there, none elsewhere): its registers and spills
-            from the build's ``-Xptxas -v`` report, and the phase fails on
-            a spill store;
+            counted a call there, none elsewhere): the registers and spills
+            of its 8 instantiations (``kflash.WGMMA_FWD_PAIRS``, both
+            treatments of p) from the build's ``-Xptxas -v`` report, and
+            the phase fails on a spill store;
 23. moonshot moonshot-v1-16b-a3b at full width and depth (48 layers: 1
             dense, 47 MoE of 64 experts top-6 + 1 shared; 27.98 B bf16
             parameters from ``--seed``, each stacked leaf filled a layer at
@@ -215,20 +218,23 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
 26. vis-attn the flash-attention kernel against its plain version at
             phi-3-vision-4.2b's prefill (4, 32, 32, 1,000, 96) and
             musicgen-medium's (4, 24, 24, 1,000, 64), as phase 22: float32
-            and bf16, both treatments of p, phase 8's gates; each one's
-            time (p in float32 and rounded), bound, the plain version's and
-            SDPA's;
+            and bf16, both treatments of p, phase 8's gates, one
+            ``flash_kernel_wg`` launch a bf16 call (D = 96 on three
+            32-column slabs, D = 64 on one); each one's time (p in float32
+            and rounded), bound, the plain version's and SDPA's, and the
+            wgmma kernel's registers and spills, failing on a spill store;
 27. vision phi-3-vision-4.2b, nothing cut (32 layers, d_model 3,072, 32
             heads of 96; 3,833,662,464 bf16 parameters from ``--seed``),
             served as phase 23 on 4 prompts of 576 patches of 1,024 (unit
-            normal) + 424 text tokens: 32 attention launches a generate,
-            no plain dispatch, no other kernel; the decode step's least
+            normal) + 424 text tokens: 32 attention launches a generate
+            (32 on ``flash_kernel_wg``), no plain dispatch, no other
+            kernel; the decode step's least
             time is every bf16 weight read once;
 28. audio  musicgen-medium, nothing cut (48 layers, 24 heads of 64, 4
             codebooks, cross attention over 64 condition tokens of 768;
             1,838,507,520 parameters), served the same way on 4 x 1,000
-            frames: 48 launches a generate, tokens (4, 32, 4) in the 2,048
-            codes;
+            frames: 48 launches a generate (48 on ``flash_kernel_wg``),
+            tokens (4, 32, 4) in the 2,048 codes;
 29. xlstm  xlstm-125m, nothing cut (12 layers: mLSTM and sLSTM at layers 2
             and 8; 198,916,688 parameters), served the same way on 4 x
             1,000 tokens: no kernel launch at all (the recurrence is a
@@ -2496,16 +2502,19 @@ def attention_shapes_phase(shapes, n_timed: int, seed: int):
         kernels, notes = fwd_wg_kernels()
         spilled = {n: r for n, r in kernels.items()
                    if r.get("spill_stores", 0) > 0}
-        print("route flash_attention bf16 (128, 128), (192, 128): wgmma; "
-              + "; ".join(f"{n} {r.get('registers')} registers, "
-                          f"{r.get('spill_stores')} B of spill stores, "
-                          f"{r.get('spill_loads')} B of spill loads"
-                          for n, r in sorted(kernels.items())), flush=True)
+        pairs = kflash.WGMMA_FWD_PAIRS
+        print(f"route flash_attention bf16 {', '.join(map(str, pairs))}: "
+              "wgmma; " + "; ".join(f"{n} {r.get('registers')} registers, "
+                                    f"{r.get('spill_stores')} B of spill "
+                                    f"stores, {r.get('spill_loads')} B of "
+                                    f"spill loads"
+                                    for n, r in sorted(kernels.items())),
+              flush=True)
         for line in notes:
             print(f"ptxas: {line}", flush=True)
-        if len(kernels) != 4 or spilled:
+        if len(kernels) != 2 * len(pairs) or spilled:
             fail(f"flash_kernel_wg: {len(kernels)} instantiations in the "
-                 f"build (want 4), spills {spilled}")
+                 f"build (want {2 * len(pairs)}), spills {spilled}")
         stats["registers"], stats["ptxas_notes"] = kernels, notes
     for shape in shapes[:n_timed]:
         B, H, K, S, D = shape[:5]
@@ -2767,8 +2776,8 @@ def serve_full_phase(arch: str, n_layers, seed: int):
     if n_layers is not None:
         cfg = cfg.replace(num_layers=n_layers)
     attn_layers = 0 if cfg.family == "ssm" else cfg.num_layers
-    # the attention launches that run flash_kernel_wg (bf16 at D = 128 and
-    # MLA's (192, 128)): all of them, or none
+    # the attention launches that run flash_kernel_wg (bf16 at the pairs
+    # kflash.WGMMA_FWD_PAIRS names): all of them, or none
     dims = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim) if cfg.mla
             else (cfg.head_dim, cfg.head_dim))
     wg_layers = attn_layers if attn_layers and kflash.forward_kernel(
@@ -3375,6 +3384,7 @@ def main() -> int:
     outs = []
     for call in ("first", "warm"):
         kflash.flash_attention.launches = kssm.ssm_scan.launches = 0
+        kflash.flash_attention.wg_launches = 0
         kretention.retention_batch.launches = 0
         n_logits = len(rec["logits"])
         torch.cuda.synchronize()
@@ -3388,7 +3398,8 @@ def main() -> int:
             / (total_s - rec["prefill_s"][-1]),
             "launches": {"flash_attention": kflash.flash_attention.launches,
                          "ssm_scan": kssm.ssm_scan.launches,
-                         "retention": kretention.retention_batch.launches}}
+                         "retention": kretention.retention_batch.launches},
+            "wg_launches": kflash.flash_attention.wg_launches}
         logits = rec["logits"][n_logits:]
         if not all(torch.isfinite(t).all().item() for t in logits):
             fail(f"serve ({call} call): non-finite logits")
@@ -3398,12 +3409,23 @@ def main() -> int:
               f"{serve[call]['launches']}, {len(logits)} logit sets finite",
               flush=True)
     serve_launches = serve["first"]["launches"]
+    # the attention launches on flash_kernel_wg: all, where the forward
+    # routes hymba's heads there
+    serve_wg = cfg.num_layers if kflash.forward_kernel(
+        cfg.head_dim, cfg.head_dim, torch.bfloat16) == "flash_kernel_wg" \
+        else 0
     if serve_launches["flash_attention"] != cfg.num_layers or \
-            serve_launches["ssm_scan"] != cfg.num_layers:
-        fail(f"serve launches {serve_launches}, expected "
+            serve_launches["ssm_scan"] != cfg.num_layers or \
+            serve["first"]["wg_launches"] != serve_wg:
+        fail(f"serve launches {serve_launches}, "
+             f"{serve['first']['wg_launches']} on flash_kernel_wg; expected "
              f"{cfg.num_layers} flash_attention ({len(cfg.full_attn_every)} "
              f"global, {cfg.num_layers - len(cfg.full_attn_every)} "
-             f"sliding-window) and {cfg.num_layers} ssm_scan")
+             f"sliding-window; {serve_wg} on flash_kernel_wg) and "
+             f"{cfg.num_layers} ssm_scan")
+    print(f"serve: {serve['first']['wg_launches']} of the "
+          f"{serve_launches['flash_attention']} attention launches a "
+          f"generate on flash_kernel_wg (expected {serve_wg})", flush=True)
     if not np.array_equal(outs[0], outs[1]) or outs[0].shape != (
             SERVE_REQUESTS, SERVE_STEPS):
         fail("serve: two generate calls gave different tokens")
@@ -3951,23 +3973,29 @@ def main() -> int:
         "name": "flash_attention_wg", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:68",
-        "instantiation": "flash_kernel_wg<128, 128>, <192, 128> (bf16, "
-                         "wgmma, two consumer warpgroups and a producer a "
-                         "block), both treatments of p",
-        "launches": sum(moe_serve[arch]["first"]["wg_launches"]
-                        for arch, _ in MOE_SERVE)
-        + sum(st["first"]["wg_launches"] for st in dense_serve.values()),
+        "instantiation": "flash_kernel_wg<64, 64>, <96, 96>, <128, 128>, "
+                         "<192, 128> (bf16, wgmma, two consumer warpgroups "
+                         "and a producer a block; D = 96 on three 32-column "
+                         "slabs in the 64-byte swizzle), both treatments "
+                         "of p",
+        "launches": serve["first"]["wg_launches"]
+        + sum(st["first"]["wg_launches"]
+              for st in {**moe_serve, **family_serve,
+                         **dense_serve}.values()),
         "max_abs_err": moe_kernels["wg_max_abs_err"], "tol": TOL_ATTN,
         **{k: wg_main[k] for k in ("ms", "ms_round_p", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")},
         "shape": list(MOE_ATTN_SHAPES[0]), "timing": moe_kernels["timing"],
         "registers": moe_kernels["registers"],
+        "ptxas_notes": moe_kernels["ptxas_notes"],
         "dense_timing": dense_kernels["timing"],
+        "family_timing": family_kernels["timing"],
         "launches_by_path": {
-            **{f"serve_{arch}": moe_serve[arch]["first"]["wg_launches"]
-               for arch, _ in MOE_SERVE},
+            "serve_hymba": serve["first"]["wg_launches"],
             **{f"serve_{arch}": st["first"]["wg_launches"]
-               for arch, st in dense_serve.items()},
+               for arch, st in {**moe_serve, **family_serve,
+                                **dense_serve}.items()},
+            "train_hymba_step": train["steps"][0]["wg_launches"],
             "train_deepseek_step": train_mla["steps"][0]["wg_launches"],
             f"train_{TRAIN_DENSE}_step":
                 train_dense["steps"][0]["wg_launches"]}}, {

@@ -32,24 +32,30 @@
 // the causal work is ~16 GFLOP on ~35 MB, far above the bytes-per-op ridge,
 // so operations bound it, and in bf16 only the tensor cores reach them.
 //
-// bf16 inputs at (D, DV) = (128, 128) and (192, 128) (moonshot, granite,
-// qwen3, internlm2; deepseek-v3's MLA): Hopper's wgmma, flash_kernel_wg.
-// The mma.sync kernel below took 2.6-3.1x SDPA's time there: 2 blocks an
-// SM at 87-112 KB of shared memory, synchronous products that each warp
-// feeds from ldmatrix, the softmax waiting on a tile's products and the
-// next tile's products on the softmax, and 238-250 registers at D = 192.
+// bf16 inputs at (D, DV) = (64, 64) (hymba, musicgen), (96, 96)
+// (phi-3-vision), (128, 128) (moonshot, granite, qwen3, internlm2) and
+// (192, 128) (deepseek-v3's MLA): Hopper's wgmma, flash_kernel_wg. The
+// mma.sync kernel below took 2.6-3.1x SDPA's time at D = 128 and 1.9x at
+// D = 64 and 96: 2 blocks an SM at 87-112 KB of shared memory, synchronous
+// products that each warp feeds from ldmatrix, the softmax waiting on a
+// tile's products and the next tile's products on the softmax, and 238-250
+// registers at D = 192.
 //   - one block of three warpgroups per (batch * head, 128-row q tile), over
 //     a (ceil(S / 128), B * H) grid, the q tiles in reverse order: two
 //     consumers, each owning 64 rows of the tile, and a producer that gives
-//     them its registers (setmaxnreg); one block an SM;
-//   - Q and the K and V tiles sit in shared memory as 64-column slabs in
-//     the 128-byte swizzle (wgmma.cuh), loaded by the producer with
-//     cp.async through a ring of 4 (K, V) slots and handed over at named
-//     barriers (slot loaded, to each consumer; slot free, to the producer);
+//     them its registers (setmaxnreg); one block an SM (the consumer count
+//     is wg_consumers, the barriers and registers follow it: WgShape);
+//   - Q and the K and V tiles sit in shared memory as 64-row slabs
+//     (wgmma.cuh): of 64 columns in the 128-byte swizzle, or at D = 96,
+//     whose 192-byte rows are no whole number of those, of 32 columns in
+//     the 64-byte swizzle (one swizzle for all three operands, and PV one
+//     m64n96k16 product a k-step); loaded by the producer with cp.async
+//     through a ring of 4 (K, V) slots and handed over at named barriers
+//     (slot loaded, to each consumer; slot free, to the producer);
 //   - S = Q K^T: wgmma m64n64k16 with both operands in shared memory
 //     (K-major), so Q holds no registers; O += P V: P from S's accumulator
 //     registers into register A operands, V read MN-major, one m64n64
-//     product a 64-column piece of O;
+//     product a 64-column piece of O (m64n96 at D = 96);
 //   - the consumers issue their products in turn (named barriers), so that
 //     one's softmax runs while the other's products are on the tensor
 //     cores; within a consumer, tile i's S and tile i - 1's PV are issued
@@ -67,9 +73,9 @@
 //     lane sums its own part of l, reduced once at the end; o = acc * (1 /
 //     l);
 //   - round_p = 0: p's hi and lo products as in the mma.sync kernel;
-//   - 209 KB (D = 192) or 161 KB (128) of shared memory a block; -Xptxas
-//     -v: no spill stores (chip_smoke.py phase 22 prints the registers and
-//     fails on a spill).
+//   - 209 KB (D = 192), 161 KB (128), 121 KB (96) or 81 KB (64) of shared
+//     memory a block; -Xptxas -v: no spill stores (chip_smoke.py phases
+//     22 and 26 print the registers and fail on a spill).
 // Other bf16 (D, DV): tensor cores through mma.sync.m16n8k16 (fp32
 // accumulate), the FlashAttention-2 layout, flash_kernel_tc:
 //   - one block of 4 warps per (batch * head, 64-row q tile), over a
@@ -308,33 +314,79 @@ flash_kernel_tc(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 at (D, DV) = (128, 128) and (192, 128): wgmma, two warpgroups a block
+// bf16 at (D, DV) = (64, 64), (96, 96), (128, 128) and (192, 128): wgmma,
+// consumer warpgroups and a producer warpgroup a block
 // ---------------------------------------------------------------------------
-
-// two consumer warpgroups and a producer warpgroup, which hands most of its
-// registers over to them (setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 65,536;
-// at the 168 a thread an even split leaves, ptxas waits for a product
-// early to free registers, and the kernel ran slower)
-constexpr int kThreadsWG = 3 * kThreadsTC;
-constexpr int kRegsConsumer = 232, kRegsProducer = 40;
-// the ring of (K, V) tile pairs, tile i of the walk in slot i % kSlotsWG: a
-// slot is refilled once both warpgroups' products that read it are done
-constexpr int kSlotsWG = 4;
-// named barriers (0 is __syncthreads'): the issue turns of warpgroups 0 and
-// 1; slot s loaded, to warpgroup w (kBarFull + 2 s + w); slot s free, to the
-// producer (kBarEmpty + s)
-constexpr int kBarTurn = 1, kBarFull = 3, kBarEmpty = kBarFull + 2 * kSlotsWG;
-static_assert(kBarEmpty + kSlotsWG <= 16, "16 named barriers a block");
 
 template <int D, int DV>
 constexpr bool wgmma_forward() {
-  return (D == 128 || D == 192) && DV == 128;
+  return (D == DV && (D == 64 || D == 96)) ||
+         ((D == 128 || D == 192) && DV == 128);
 }
+
+// the columns of a slab of the wgmma forward at (D, DV): 64, in the
+// 128-byte swizzle, where both are multiples of 64; else (D = DV = 96) 32,
+// in the 64-byte swizzle, three slabs a row. (With 64 at D = 96 the rows
+// are zero-filled to two 64-column slabs in shared memory, a quarter of
+// the products on zeros: 22 % slower with p in float32 and 11 % with p
+// rounded at phi-3-vision's prefill on an H100,
+// tools/attention_fwd_variants.py.)
+template <int D, int DV>
+__host__ __device__ constexpr int wg_slab_cols() {
+  return D % 64 == 0 && DV % 64 == 0 ? 64 : 32;
+}
+
+// the consumer warpgroups of a block at (D, DV), each owning 64 rows of
+// the block's q tile. (Three, on 192-row q tiles, ran 3.8 % faster at
+// hymba's S = 1,128 with p in float32, but 6.5 % slower at musicgen's S =
+// 1,000, whose last tile holds 40 of 192 rows, and 16-19 % slower at
+// phi-3-vision's D = 96, on an H100: tools/attention_fwd_variants.py.)
+template <int D, int DV>
+__host__ __device__ constexpr int wg_consumers() {
+  return 2;
+}
+
+// The block's shape with NC consumers: its threads; the registers a
+// consumer and a producer thread hold after setmaxnreg (NC x 128 x consumer
+// + 128 x producer <= 65,536: at two consumers 232 / 40 where the producer
+// loads whole 64-column slabs (at the 168 a thread an even split leaves,
+// ptxas waits for a product early to free registers, and the kernel ran
+// slower), 216 / 72 where it loads rows of other widths (load_rows' general
+// loop spilled 60 B at 40 at D = 96); at three 152 / 56); the ring of (K,
+// V) tile pairs, tile i of the walk in slot i % kSlots, refilled once every
+// consumer's products that read it are done; and the named barriers (0 is
+// __syncthreads'): the issue turns of the consumers (kBarTurn + w), slot s
+// loaded, to consumer w (kBarFull + NC s + w), slot s free, to the producer
+// (kBarEmpty + s)
+template <int NC, bool kWholeSlabs>
+struct WgShape {
+  static_assert(NC != 2 || 2 * kBQ == kBQWG, "two consumers: kBQWG rows");
+  static constexpr int kThreads = (NC + 1) * kThreadsTC;
+  static constexpr int kRegsConsumer = NC == 2 ? (kWholeSlabs ? 232 : 216)
+                                               : 152;
+  static constexpr int kRegsProducer = NC == 2 ? (kWholeSlabs ? 40 : 72)
+                                               : 56;
+  static constexpr int kSlots = NC == 2 ? 4 : 3;
+  static constexpr int kBarTurn = 1, kBarFull = kBarTurn + NC,
+                       kBarEmpty = kBarFull + NC * kSlots;
+  static_assert(NC * kThreadsTC * kRegsConsumer +
+                        kThreadsTC * kRegsProducer <= 65536,
+                "65,536 registers a block");
+  static_assert(kBarEmpty + kSlots <= 16, "16 named barriers a block");
+};
+// the shape of a block at (D, DV)
+template <int D, int DV>
+using WgShapeOf =
+    WgShape<wg_consumers<D, DV>(), wg_slab_cols<D, DV>() == 64 &&
+                                       D % 64 == 0 && DV % 64 == 0>;
 
 template <int D, int DV>
 constexpr size_t smem_bytes_wg() {
-  // Q (two warpgroups' 64 rows), the ring, and 1 KB to align the slabs
-  return (2 * (D / 64) + kSlotsWG * (D / 64 + DV / 64)) * kTileBytes + 1024;
+  // Q (each consumer's 64 rows), the ring, and 1 KB to align the slabs
+  constexpr int W = wg_slab_cols<D, DV>(), NC = wg_consumers<D, DV>();
+  constexpr int NQ = (D + W - 1) / W, NV = (DV + W - 1) / W;
+  return (NC * NQ + WgShapeOf<D, DV>::kSlots * (NQ + NV)) * slab_bytes<W>() +
+         1024;
 }
 
 // p's reference point lags the row max by up to this much in the exponent
@@ -412,63 +464,75 @@ __device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&m)[2],
   }
 }
 
-// One block a (batch * head, 128-row q tile): warpgroup w owns rows q0 +
-// 64 w.. and keeps its O (64 x DV fp32), its scores and P's A operands in
-// registers; the producer warpgroup loads Q and the walk's (K, V) tiles
-// into the ring with cp.async and hands each slot over at named barriers,
-// so that neither consumer waits for the other's loads. Iteration i (tiles
-// 1..n - 1 of the walk), in warpgroup w: slot i has landed; at w's turn (the
-// warpgroups issue their products in turn) S_i = Q K_i^T is issued (both
-// operands in shared memory), O is rescaled and O += P_{i-1} V_{i-1} issued
-// (P in registers: hi, and lo with kSplitP); S_i and PV_{i-1} are waited
-// for (ptxas puts the second wait ahead of the softmax wherever the source
-// has it), slot i - 1 is freed, and the softmax of S_i runs and P_i is made
-// while the other warpgroup's products are on the tensor cores. Every
-// product is waited for in the iteration that issues it: ptxas serializes
-// wgmma whose wait lies in a later iteration.
+// One block a (batch * head, q tile of 64 NC rows): consumer warpgroup w
+// owns rows q0 + 64 w.. and keeps its O (64 x DV fp32), its scores and P's
+// A operands in registers; the producer warpgroup loads Q and the walk's
+// (K, V) tiles into the ring with cp.async and hands each slot over at
+// named barriers, so that no consumer waits for another's loads. Iteration
+// i (tiles 1..n - 1 of the walk), in consumer w: slot i has landed; at w's
+// turn (the consumers issue their products in turn, 0, 1, .., NC - 1, 0,
+// ..) S_i = Q K_i^T is issued (both operands in shared memory), O is
+// rescaled and O += P_{i-1} V_{i-1} issued (P in registers: hi, and lo
+// with kSplitP); S_i and PV_{i-1} are waited for (ptxas puts the second
+// wait ahead of the softmax wherever the source has it), slot i - 1 is
+// freed, and the softmax of S_i runs and P_i is made while the other
+// consumers' products are on the tensor cores. Every product is waited for
+// in the iteration that issues it: ptxas serializes wgmma whose wait lies
+// in a later iteration. Rows are W-column slabs (wg_slab_cols), zero-filled
+// past D and DV in shared memory.
 template <int D, int DV, bool kSplitP>
-__global__ void __launch_bounds__(kThreadsWG, 1)
+__global__ void __launch_bounds__((WgShapeOf<D, DV>::kThreads), 1)
 flash_kernel_wg(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
                 const __nv_bfloat16* __restrict__ k,   // (B, K, Sk, D)
                 const __nv_bfloat16* __restrict__ v,   // (B, K, Sk, DV)
                 __nv_bfloat16* __restrict__ o,         // (B, H, S, DV)
                 float* __restrict__ lse,               // (B, H, S) or null
                 int H, int K, int S, Mask mk, float scale) {
-  constexpr int NQ = D / 64, NV = DV / 64;   // slabs of a q / k, v row
-  constexpr int kSlotBytes = (NQ + NV) * kTileBytes;   // K, then V
+  constexpr int NC = wg_consumers<D, DV>();
+  using Sh = WgShapeOf<D, DV>;
+  constexpr int W = wg_slab_cols<D, DV>(), kSlab = slab_bytes<W>();
+  constexpr int NQ = (D + W - 1) / W, NV = (DV + W - 1) / W;   // slabs a row
+  constexpr int NO = NV * W / 8;    // n-tiles of 8 columns of O's registers
+  constexpr int kRows = 64 * NC;    // q rows a block
+  constexpr int kSlots = Sh::kSlots;
+  constexpr int kSlotBytes = (NQ + NV) * kSlab;   // K, then V
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t q_s = base;                       // 2 x NQ slabs
-  const uint32_t ring = q_s + 2 * NQ * kTileBytes;   // kSlotsWG slots
+  const uint32_t q_s = base;                      // NC x NQ slabs
+  const uint32_t ring = q_s + NC * NQ * kSlab;    // kSlots slots
 
   const int bh = blockIdx.y;                    // b * H + h
   const int kvh = (bh / H) * K + (bh % H) / (H / K);
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQWG;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;
   const int Sk = mk.Sk;
-  const Tiles tiles = tiles_of<kBQWG>(mk, q0, S);
+  const Tiles tiles = tiles_of<kRows>(mk, q0, S);
   const int n = tiles.n;
-  auto slot = [&](int i) { return ring + (i % kSlotsWG) * kSlotBytes; };
+  auto slot = [&](int i) { return ring + (i % kSlots) * kSlotBytes; };
   const int tid = threadIdx.x;
-  constexpr int kFull = 2 * kThreadsTC, kEmpty = 3 * kThreadsTC;
+  constexpr int kFull = 2 * kThreadsTC, kEmpty = (NC + 1) * kThreadsTC;
 
-  if (tid >= 2 * kThreadsTC) {   // the producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegsProducer));
-    const int t = tid - 2 * kThreadsTC;
+  if (tid >= NC * kThreadsTC) {   // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        Sh::kRegsProducer));
+    const int t = tid - NC * kThreadsTC;
     const __nv_bfloat16* qp = q + static_cast<long long>(bh) * S * D;
     const __nv_bfloat16* kp = k + static_cast<long long>(kvh) * Sk * D;
     const __nv_bfloat16* vp = v + static_cast<long long>(kvh) * Sk * DV;
-    load_slabs<NQ, kThreadsTC>(q_s, qp, q0, S, t);
-    load_slabs<NQ, kThreadsTC>(q_s + NQ * kTileBytes, qp, q0 + 64, S, t);
-    auto handed = [&](int i) {   // tile i has landed: to both warpgroups
+#pragma unroll
+    for (int w = 0; w < NC; ++w)
+      load_rows<W, NQ, kThreadsTC, D>(q_s + w * NQ * kSlab, qp, q0 + 64 * w,
+                                      S, t);
+    auto handed = [&](int i) {   // tile i has landed: to every consumer
       fence_async_smem();
-      bar_arrive(kBarFull + 2 * (i % kSlotsWG), kFull);
-      bar_arrive(kBarFull + 2 * (i % kSlotsWG) + 1, kFull);
+#pragma unroll
+      for (int w = 0; w < NC; ++w)
+        bar_arrive(Sh::kBarFull + NC * (i % kSlots) + w, kFull);
     };
     for (int i = 0; i < n; ++i) {
-      if (i >= kSlotsWG) bar_sync(kBarEmpty + i % kSlotsWG, kEmpty);
+      if (i >= kSlots) bar_sync(Sh::kBarEmpty + i % kSlots, kEmpty);
       const int k0 = tiles[i] * kBK;
-      load_slabs<NQ, kThreadsTC>(slot(i), kp, k0, Sk, t);
-      load_slabs<NV, kThreadsTC>(slot(i) + NQ * kTileBytes, vp, k0, Sk, t);
+      load_rows<W, NQ, kThreadsTC, D>(slot(i), kp, k0, Sk, t);
+      load_rows<W, NV, kThreadsTC, DV>(slot(i) + NQ * kSlab, vp, k0, Sk, t);
       cp_async_commit();
       if (i > 0) {
         cp_async_wait<1>();
@@ -479,35 +543,37 @@ flash_kernel_wg(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
     handed(n - 1);
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegsConsumer));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      Sh::kRegsConsumer));
 
   const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int qw = q0 + 64 * wg;                      // the warpgroup's rows
   const int row0 = qw + warp * 16 + (lane >> 2);    // rows row0, row0 + 8
   const int quad_col = 2 * (lane & 3);              // fragment column
-  const uint32_t qa = q_s + wg * NQ * kTileBytes;
+  const uint32_t qa = q_s + wg * NQ * kSlab;
   auto landed = [&](int i) {
-    bar_sync(kBarFull + 2 * (i % kSlotsWG) + wg, kFull);
+    bar_sync(Sh::kBarFull + NC * (i % kSlots) + wg, kFull);
   };
   // tile i's products are done: the producer may refill its slot (if it
   // will: a dangling arrival would outlive the block)
   auto free_slot = [&](int i) {
-    if (i + kSlotsWG < n) bar_arrive(kBarEmpty + i % kSlotsWG, kEmpty);
+    if (i + kSlots < n) bar_arrive(Sh::kBarEmpty + i % kSlots, kEmpty);
   };
-  // the turns: warpgroup 0 first, then each in turn (warpgroup 1 does not
-  // hand its last turn back, which no one would take)
-  auto my_turn = [&]() { bar_sync(kBarTurn + wg, 2 * kThreadsTC); };
+  // the turns: consumer 0 first, then each in turn (the last does not hand
+  // its last turn on, which no one would take)
+  auto my_turn = [&]() { bar_sync(Sh::kBarTurn + wg, 2 * kThreadsTC); };
   auto your_turn = [&](bool last) {
-    if (!(last && wg == 1)) bar_arrive(kBarTurn + (wg ^ 1), 2 * kThreadsTC);
+    if (!(last && wg == NC - 1))
+      bar_arrive(Sh::kBarTurn + (wg + 1) % NC, 2 * kThreadsTC);
   };
-  if (wg == 1) bar_arrive(kBarTurn, 2 * kThreadsTC);
+  if (wg == NC - 1) bar_arrive(Sh::kBarTurn, 2 * kThreadsTC);
 
   const float c2 = scale * kLog2e;  // exp(x * scale) = exp2(x * c2)
   float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};   // l: this lane's part
   float alpha[2];
-  float acc[8 * NV][4];
+  float acc[NO][4];
 #pragma unroll
-  for (int j = 0; j < 8 * NV; ++j)
+  for (int j = 0; j < NO; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
   float s[8][4];                 // S, then P
@@ -531,21 +597,16 @@ flash_kernel_wg(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
     // (a warp whose rows all kept their reference point skips it)
     if (__any_sync(0xffffffffu, alpha[0] != 1.0f || alpha[1] != 1.0f))
 #pragma unroll
-    for (int j = 0; j < 8 * NV; ++j)
+    for (int j = 0; j < NO; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
-#pragma unroll
-    for (int p = 0; p < NV; ++p) wg_fence_acc(piece(acc, p));
-  };
-  auto pv_done = [&]() {
-#pragma unroll
-    for (int p = 0; p < NV; ++p) wg_fence_acc(piece(acc, p));
+    wg_fence_acc(acc);
   };
 
   landed(0);
   my_turn();
   wg_fence();
-  issue_product_ss<NQ>(s, qa, slot(0));
+  issue_product_ss<NQ, W>(s, qa, slot(0));
   wg_commit();
   your_turn(false);
   wg_wait<0>();
@@ -556,31 +617,29 @@ flash_kernel_wg(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
     landed(i);
     my_turn();
     wg_fence();
-    issue_product_ss<NQ>(s, qa, slot(i));
+    issue_product_ss<NQ, W>(s, qa, slot(i));
     wg_commit();
     rescale();
     wg_fence();
-    issue_accumulate_a<NV, kSplitP>(acc, ph, pl,
-                                    slot(i - 1) + NQ * kTileBytes);
+    issue_accumulate_a<NV, kSplitP, W>(acc, ph, pl, slot(i - 1) + NQ * kSlab);
     wg_commit();
     your_turn(false);
     wg_wait<1>();   // S_i done; PV_{i-1} may still run
     wg_fence_acc(s);
     softmax_tile(s, m, l, alpha, mk, qw, tiles[i] * kBK, row0, quad_col, c2);
     wg_wait<0>();
-    pv_done();
+    wg_fence_acc(acc);
     free_slot(i - 1);
     make_p();
   }
   my_turn();
   rescale();
   wg_fence();
-  issue_accumulate_a<NV, kSplitP>(acc, ph, pl,
-                                  slot(n - 1) + NQ * kTileBytes);
+  issue_accumulate_a<NV, kSplitP, W>(acc, ph, pl, slot(n - 1) + NQ * kSlab);
   wg_commit();
   your_turn(true);
   wg_wait<0>();
-  pv_done();
+  wg_fence_acc(acc);
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -598,7 +657,7 @@ flash_kernel_wg(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
       lse[static_cast<long long>(bh) * S + row] = m[h] * scale + logf(denom);
     const float inv = 1.0f / denom;
 #pragma unroll
-    for (int j = 0; j < 8 * NV; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(
           op + static_cast<long long>(row) * DV + 8 * j + quad_col) =
           __floats2bfloat162_rn(acc[j][2 * h] * inv, acc[j][2 * h + 1] * inv);
@@ -753,14 +812,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   }
   if constexpr (wgmma_forward<D, DV>()) {
     constexpr size_t smem = smem_bytes_wg<D, DV>();
+    constexpr int NC = wg_consumers<D, DV>();
     auto kernel = round_p ? flash_kernel_wg<D, DV, false>
                           : flash_kernel_wg<D, DV, true>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    kernel<<<dim3((S + kBQWG - 1) / kBQWG, B * H), kThreadsWG, smem,
-             stream>>>(
+    kernel<<<dim3((S + 64 * NC - 1) / (64 * NC), B * H),
+             WgShapeOf<D, DV>::kThreads, smem, stream>>>(
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),

@@ -1,11 +1,13 @@
 // The Hopper wgmma machinery of the bf16 attention kernels
-// (flash_attention.cu's forward at D = 128 and (192, 128),
+// (flash_attention.cu's forward at D = 64, 96, 128 and (192, 128),
 // flash_attention_bwd.cu's backward at D = 64, (128, 128) and (192, 128)):
 // 64-row tiles of 64 bf16 columns ("slabs") in shared memory in the
-// 128-byte swizzle, filled by cp.async; their wgmma descriptors; wgmma
-// m64n64k16 with A from shared memory or registers (and m64n128k16, A in
-// registers, over two slabs); the fences and waits around it; named
-// barriers; and the products built from them.
+// 128-byte swizzle, and (the forward at D = 96, whose 192-byte rows are no
+// whole number of them) of 32 columns in the 64-byte swizzle, filled by
+// cp.async; their wgmma descriptors; wgmma m64n64k16 with A from shared
+// memory or registers (and m64n128k16 over two 64-column slabs, m64n96k16
+// over three 32-column ones, A in registers); the fences and waits around
+// it; named barriers; and the products built from them.
 
 #pragma once
 
@@ -18,6 +20,14 @@ constexpr int kTileBytes = 64 * 128;   // 64 rows of 64 bf16
 // byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile
 __device__ __forceinline__ uint32_t sw128(int r, int c) {
   return r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+// byte offset of 16-byte chunk c (0..3) of row r in a 64-byte-swizzled
+// tile of 32 columns (rows of 64 bytes; chunk bits 4-5 XOR address bits
+// 7-8, CUTLASS's Swizzle<2, 4, 3>): the 8 rows of a core matrix land in 8
+// distinct 16-byte bank groups
+__device__ __forceinline__ uint32_t sw64(int r, int c) {
+  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
 }
 
 // 4 bytes global -> shared, asynchronously; in = false writes a zero
@@ -62,6 +72,40 @@ __device__ __forceinline__ uint64_t desc_sw128_lbo(uint32_t addr,
          (static_cast<uint64_t>(lbo >> 4) << 16);
 }
 
+// The wgmma descriptor of a 64-byte-swizzled tile of 32 columns from
+// shared address addr (512-byte aligned): 8-row groups 512 bytes apart
+// (SBO), swizzle mode 2 (64 bytes) in bits 62-63; K-major steps 16 columns
+// by +32 bytes, MN-major 16 rows by +1,024 bytes
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) |
+         (static_cast<uint64_t>(2) << 62);
+}
+// desc_sw64 with its leading byte offset set to lbo: for an MN-major
+// operand wider than one 32-column slab, the stride between its slabs
+__device__ __forceinline__ uint64_t desc_sw64_lbo(uint32_t addr,
+                                                  uint32_t lbo) {
+  return (desc_sw64(addr) & ~(static_cast<uint64_t>(0x3FFF) << 16)) |
+         (static_cast<uint64_t>(lbo >> 4) << 16);
+}
+
+// A slab of W = 64 columns (128-byte swizzle) or W = 32 (64-byte swizzle):
+// its bytes, the offset of a row's 16-byte chunk and its descriptor
+template <int W>
+__host__ __device__ constexpr int slab_bytes() {
+  static_assert(W == 64 || W == 32, "slabs of 64 or 32 columns");
+  return 64 * 2 * W;
+}
+template <int W>
+__device__ __forceinline__ uint32_t slab_at(int r, int c) {
+  return W == 64 ? sw128(r, c) : sw64(r, c);
+}
+template <int W>
+__device__ __forceinline__ uint64_t slab_desc(uint32_t addr) {
+  return W == 64 ? desc_sw128(addr) : desc_sw64(addr);
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -78,9 +122,10 @@ __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 // the accumulator registers are live here (no move of them across a wait)
-__device__ __forceinline__ void wg_fence_acc(float (&d)[8][4]) {
+template <int N>
+__device__ __forceinline__ void wg_fence_acc(float (&d)[N][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
 }
@@ -170,6 +215,38 @@ __device__ __forceinline__ void wgmma_rs128(float (&d)[16][4],
         "r"(accumulate), "n"(kTransB));
 }
 
+// the same (A in registers) at N = 96: d the 64 x 96 accumulator, n-tile
+// j (columns 8 j..) as above; b an MN-major operand three 32-column slabs
+// wide (64-byte swizzle), its descriptor's leading byte offset the slabs'
+// stride
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs96(float (&d)[12][4],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47}"
+      ", {%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate), "n"(kTransB));
+}
+
 // named barrier `id` over n threads, which may wait at different places
 // in the code: bar_arrive does not wait; bar_sync waits for n arrivals,
 // and the shared-memory writes made before them are visible after it
@@ -199,6 +276,35 @@ __device__ __forceinline__ void load_slabs(uint32_t dst,
     for (int s = 0; s < NS; ++s)
       cp_async16(dst + s * kTileBytes + sw128(r, c), row + 64 * s,
                  in ? 16 : 0);
+  }
+}
+
+// rows [row0, row0 + 64) of src (n_rows rows of kCols bf16) into NS slabs
+// of W columns at shared address dst (slab s: columns W s..), by NT threads
+// (tid < NT), neighbouring threads on neighbouring 16-byte chunks of a row;
+// rows past n_rows and columns past kCols are zero-filled. Whole rows of
+// 64-column slabs go through load_slabs.
+template <int W, int NS, int NT, int kCols>
+__device__ __forceinline__ void load_rows(uint32_t dst,
+                                          const __nv_bfloat16* src, int row0,
+                                          int n_rows, int tid) {
+  if constexpr (W == 64 && kCols == 64 * NS) {
+    load_slabs<NS, NT>(dst, src, row0, n_rows, tid);
+  } else {
+    constexpr int kChunks = W / 8, kRowChunks = NS * kChunks;
+    static_assert(kCols % 8 == 0 && kCols <= NS * W &&
+                      64 * kRowChunks % NT == 0,
+                  "whole 16-byte chunks, NS slabs wide, NT threads");
+#pragma unroll
+    for (int m = 0; m < 64 * kRowChunks / NT; ++m) {
+      const int i = tid + m * NT, r = i / kRowChunks, cc = i % kRowChunks;
+      const bool in = row0 + r < n_rows && cc < kCols / 8;
+      cp_async16(dst + (cc / kChunks) * slab_bytes<W>() +
+                     slab_at<W>(r, cc % kChunks),
+                 src + (in ? static_cast<long long>(row0 + r) * kCols + 8 * cc
+                           : 0),
+                 in ? 16 : 0);
+    }
   }
 }
 
@@ -242,17 +348,20 @@ __device__ __forceinline__ void issue_product_t(float (&c)[8][4],
                               2 * (kk & 3),
                 kk);
 }
-// issue c (64 x 64) = a b^T, a the 64 rows of NS swizzled slabs at a_s and
-// b those at b_s, both read K-major from shared memory
+// issue c (64 x 64) = a b^T, a the 64 rows of NS swizzled slabs of W
+// columns at a_s and b those at b_s, both read K-major from shared memory,
+// W / 16 k-steps a slab
 // (descriptors of the slabs and k-steps by constant steps from the first:
-// below 256 KB, desc_sw128(a + d) = desc_sw128(a) + d / 16)
-template <int NS>
+// below 256 KB, desc(a + d) = desc(a) + d / 16)
+template <int NS, int W = 64>
 __device__ __forceinline__ void issue_product_ss(float (&c)[8][4],
                                                  uint32_t a_s, uint32_t b_s) {
-  const uint64_t da = desc_sw128(a_s), db = desc_sw128(b_s);
+  constexpr int kSteps = W / 16;
+  const uint64_t da = slab_desc<W>(a_s), db = slab_desc<W>(b_s);
 #pragma unroll
-  for (int kk = 0; kk < 4 * NS; ++kk) {
-    const int step = (kk >> 2) * (kTileBytes >> 4) + 2 * (kk & 3);
+  for (int kk = 0; kk < kSteps * NS; ++kk) {
+    const int step = (kk / kSteps) * (slab_bytes<W>() >> 4) +
+                     2 * (kk % kSteps);
     wgmma_ss<0>(c, da + step, db + step, kk);
   }
 }
@@ -298,23 +407,36 @@ __device__ __forceinline__ void issue_accumulate(float (&acc)[8 * NS][4],
   }
 }
 
-// issue acc (64 x 64 NS) += x b, x's bf16 hi (and, with kSplit, lo) A
+// issue acc (64 x W NS) += x b, x's bf16 hi (and, with kSplit, lo) A
 // operands made beforehand (xh, xl: read by the products until they are
-// done), b as in issue_accumulate
-template <int NS, bool kSplit>
-__device__ __forceinline__ void issue_accumulate_a(float (&acc)[8 * NS][4],
-                                                   const uint32_t (&xh)[4][4],
-                                                   const uint32_t (&xl)[4][4],
-                                                   uint32_t b_s) {
-  const uint64_t db = desc_sw128(b_s);
+// done), b the 64 rows of NS swizzled slabs of W columns at b_s read
+// MN-major: with W = 64 one m64n64 piece of acc a slab (as
+// issue_accumulate), with W = 32 (three slabs) one m64n96k16 product over
+// all of them a k-step
+template <int NS, bool kSplit, int W = 64>
+__device__ __forceinline__ void issue_accumulate_a(
+    float (&acc)[NS * W / 8][4], const uint32_t (&xh)[4][4],
+    const uint32_t (&xl)[4][4], uint32_t b_s) {
+  if constexpr (W == 64) {
+    const uint64_t db = desc_sw128(b_s);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      const uint64_t b = db + ((s * kTileBytes + kk * 2048) >> 4);
-      wgmma_rs<1>(piece(acc, s), xh[kk], b, 1);
-      if constexpr (kSplit) wgmma_rs<1>(piece(acc, s), xl[kk], b, 1);
+      for (int s = 0; s < NS; ++s) {
+        const uint64_t b = db + ((s * kTileBytes + kk * 2048) >> 4);
+        wgmma_rs<1>(piece(acc, s), xh[kk], b, 1);
+        if constexpr (kSplit) wgmma_rs<1>(piece(acc, s), xl[kk], b, 1);
+      }
+  } else {
+    static_assert(W == 32 && NS == 3, "32-column slabs: three of them");
+    const uint64_t db = desc_sw64_lbo(b_s, slab_bytes<32>());
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {   // 16 rows of 64 bytes a k-step
+      const uint64_t b = db + ((kk * 1024) >> 4);
+      wgmma_rs96<1>(acc, xh[kk], b, 1);
+      if constexpr (kSplit) wgmma_rs96<1>(acc, xl[kk], b, 1);
     }
+  }
 }
 
 // every product the warpgroup issued is done: its accumulators and x live

@@ -13,7 +13,7 @@ On CUDA tensors the forward launches the hand-written kernel of
 ``kernels.build``), counted in ``flash_attention.launches`` and the
 ``kernels.dispatch.flash_attention.cuda`` counter; which of the library's
 kernels a launch runs is ``forward_kernel``'s answer (bf16 at
-``WGMMA_PAIRS``: the wgmma kernel, also counted in
+``WGMMA_FWD_PAIRS``: the wgmma kernel, also counted in
 ``flash_attention.wg_launches``). When autograd will need
 the gradient it runs as ``_FlashAttention`` (a ``torch.autograd.Function``):
 the forward also writes each row's log-sum-exp, and the backward launches
@@ -50,9 +50,11 @@ HEAD_DIMS = (16, 32, 64, 96, 128)   # the D the kernels take with Dv = D
 # 128) and the reduced MLA's, whose query/key dim 24 pads to 32
 HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((32, 16), (192, 128))
 # the (D, Dv) whose bf16 forward runs on wgmma (flash_kernel_wg: two
-# warpgroups a block) and whose bf16 backward runs on two wgmma warpgroups
-# (dkdv_kernel_wg2, dq_kernel_wg2); the other bf16 pairs run flash_kernel_tc
-# (mma.sync), float32 flash_kernel_f32
+# consumer warpgroups and a producer a block); the other bf16 pairs run
+# flash_kernel_tc (mma.sync), float32 flash_kernel_f32
+WGMMA_FWD_PAIRS = ((64, 64), (96, 96), (128, 128), (192, 128))
+# the (D, Dv) whose bf16 backward runs on two wgmma warpgroups a block
+# (dkdv_kernel_wg2, dq_kernel_wg2)
 WGMMA_PAIRS = ((128, 128), (192, 128))
 # the (D, Dv) whose bf16 backward runs on one wgmma warpgroup a block
 # (dkdv_kernel_wg, dq_kernel_wg); the others not in WGMMA_PAIRS on
@@ -146,7 +148,7 @@ def forward_kernel(D: int, Dv: int, dtype: torch.dtype) -> str:
     ``flash_kernel_f32``."""
     if dtype != torch.bfloat16:
         return "flash_kernel_f32"
-    return ("flash_kernel_wg" if (kernel_dim(D, Dv), Dv) in WGMMA_PAIRS
+    return ("flash_kernel_wg" if (kernel_dim(D, Dv), Dv) in WGMMA_FWD_PAIRS
             else "flash_kernel_tc")
 
 
@@ -217,7 +219,7 @@ def _forward(q, k, v, causal, window, sink, round_p, *, with_lse: bool):
                      0 if window is None else int(window), int(sink),
                      int(round_p), stream)
     flash_attention.launches += 1
-    if bf16 and (D, Dv) in WGMMA_PAIRS:
+    if bf16 and (D, Dv) in WGMMA_FWD_PAIRS:
         flash_attention.wg_launches += 1
     _C_CUDA.inc()
     sanitize.check_kernel("flash_attention", (q, k, v), (o,))

@@ -402,13 +402,35 @@ def test_flash_attention_kernel_window_sink_and_p_modes(cuda, case, dtype,
 
 
 # (B, H, K, S, D, Dv, causal, window, sink) of the bf16 forward's wgmma
-# kernel (flash_kernel_wg, at (128, 128) and MLA's (192, 128)):
-# moonshot-v1-16b-a3b's and deepseek-v3's prefill, the D = 128 window and
-# sink case of chip_smoke.py's ATTN_MASK_CASES, ragged S (333, 517; one
-# row; one past a 64-row half), granite-34b's MQA (48 q heads on one kv
-# head; at its serving prefill of 4 x 1,000 too), GQA, and keys and
-# queries apart without a causal mask
-WG_CASES = [(4, 16, 16, 1000, 128, 128, True, None, 0),
+# kernel (flash_kernel_wg, at (64, 64), (96, 96), (128, 128) and MLA's
+# (192, 128)): moonshot-v1-16b-a3b's and deepseek-v3's prefill, the D = 128
+# window and sink case of chip_smoke.py's ATTN_MASK_CASES, ragged S (333,
+# 517; one row; one past a 64-row half), granite-34b's MQA (48 q heads on
+# one kv head; at its serving prefill of 4 x 1,000 too), GQA, and keys and
+# queries apart without a causal mask; at D = 96 (three 32-column slabs)
+# and 64 (one slab): phi-3-vision-4.2b's and musicgen-medium's prefill,
+# hymba-1.5b's with its window of 1,024 and 128 meta tokens and without
+# (ragged S 1,128; 25 q heads on 5 kv heads), a longer hymba prompt where
+# the window cuts and tiles are skipped, ragged S (65, 333, 517), one row,
+# GQA at 96, a window at 96, and keys and queries apart
+WG_CASES = [(4, 32, 32, 1000, 96, 96, True, None, 0),
+            (4, 24, 24, 1000, 64, 64, True, None, 0),
+            (4, 25, 5, 1128, 64, 64, True, 1024, 128),
+            (4, 25, 5, 1128, 64, 64, True, None, 0),
+            (1, 25, 5, 2176, 64, 64, True, 1024, 128),
+            (1, 2, 2, 65, 96, 96, True, None, 0),
+            (1, 4, 4, 65, 64, 64, True, None, 0),
+            (2, 4, 2, 333, 96, 96, True, None, 0),
+            (1, 16, 16, 333, 64, 64, True, None, 0),
+            (1, 4, 4, 517, 96, 96, True, None, 0),
+            (2, 4, 2, 517, 64, 64, True, None, 0),
+            (1, 2, 2, 1, 96, 96, True, None, 0),
+            (1, 2, 2, 1, 64, 64, True, None, 0),
+            (2, 6, 2, 300, 96, 96, True, None, 0),
+            (1, 5, 5, 190, 96, 96, True, 64, 0),
+            (2, 6, 3, 300, 96, 96, False, None, 0),
+            (2, 4, 2, 200, 64, 64, False, None, 0),
+            (4, 16, 16, 1000, 128, 128, True, None, 0),
             (4, 128, 128, 1000, 192, 128, True, None, 0),
             (2, 6, 2, 517, 128, 128, True, 128, 70),
             (1, 16, 16, 333, 192, 128, True, None, 0),
@@ -461,6 +483,35 @@ def test_wgmma_forward_matches_plain_version(cuda, case, round_p):
     else:
         ulps, share = ref.bf16_ulp_gaps(got, want)
         assert ulps <= 1.0 and share <= 0.01, (ulps, share)
+
+
+@pytest.mark.cuda
+def test_wgmma_forward_runs_without_spills(cuda):
+    """bf16 (64, 64), (96, 96), (128, 128) and (192, 128) name
+    flash_kernel_wg, and the built library's ``-Xptxas -v`` report holds
+    its eight instantiations (four pairs, both treatments of p) with no
+    spill store and no mma.sync forward at those pairs."""
+    import re
+    from repro_torch.kernels import build
+    pairs = ((64, 64), (96, 96), (128, 128), (192, 128))
+    assert all(kflash.forward_kernel(D, Dv, torch.bfloat16)
+               == "flash_kernel_wg" for D, Dv in pairs)
+    log = build.build_library("flash_attention").with_suffix(
+        ".log").read_text()
+    spills, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"flash_kernel_(wg|tc)ILi(\d+)ELi(\d+)ELb([01])E",
+                          m[1])
+            name = None if k is None else (k[1], int(k[2]), int(k[3]), k[4])
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spills[name] = int(m[1])
+    assert {n: s for n, s in spills.items() if n[0] == "wg"} == {
+        ("wg", D, Dv, p): 0 for D, Dv in pairs for p in "01"}, spills
+    assert not [n for n in spills if n[0] == "tc" and n[1:3] in pairs]
 
 
 @pytest.mark.cuda

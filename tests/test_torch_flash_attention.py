@@ -769,6 +769,205 @@ def test_wg2_backward_grid_takes_each_pair_and_float4_once(case):
     writers = Counter(((bh // H) * K + (bh % H) // G) for bh in range(B * H))
     assert set(writers.values()) == {G} and len(writers) == B * K
 
+
+# ---------------------------------------------------------------------------
+# the wgmma forward's routes and its 64-byte-swizzled slabs (csrc/wgmma.cuh)
+# ---------------------------------------------------------------------------
+
+def _cu_bool_fn(name, D, DV):
+    """The value of ``constexpr bool name<D, DV>()`` of
+    ``flash_attention.cu`` at (D, DV): its one ``return`` expression,
+    read from the source and evaluated with C's operators."""
+    text = (_CSRC / "flash_attention.cu").read_text()
+    body = re.search(rf"constexpr bool {name}\(\) \{{\s*return (.*?);\s*\}}",
+                     text, re.S).group(1)
+    expr = re.sub(r"\s+", " ", body).replace("&&", " and ").replace(
+        "||", " or ")
+    return bool(eval(expr, {}, {"D": D, "DV": DV}))
+
+
+@pytest.mark.parametrize("dims,dtype,fwd,bwd", [
+    ((64, 64), torch.bfloat16, "wg", "wg"),
+    ((96, 96), torch.bfloat16, "wg", "tc"),
+    ((128, 128), torch.bfloat16, "wg", "wg2"),
+    ((192, 128), torch.bfloat16, "wg", "wg2"),
+    ((16, 16), torch.bfloat16, "tc", "tc"),
+    ((32, 32), torch.bfloat16, "tc", "tc"),
+    ((32, 16), torch.bfloat16, "tc", "tc"),
+    ((24, 16), torch.bfloat16, "tc", "tc"),
+    ((96, 96), torch.float32, "f32", "f32"),
+    ((64, 64), torch.float32, "f32", "f32"),
+    ((128, 128), torch.float32, "f32", "f32")], ids=str)
+def test_forward_kernel_names_the_kernel_the_launch_runs(dims, dtype, fwd,
+                                                         bwd):
+    """``forward_kernel`` names the kernel the library's ``launch`` routes
+    (D, Dv) to after the wrapper pads q and k to ``kernel_dim``: bf16 at
+    (64, 64), (96, 96), (128, 128) and (192, 128) ``flash_kernel_wg``
+    (where ``wgmma_forward<D, DV>()``, read from the source, holds), at
+    the other bf16 pairs (24 padded to 32) ``flash_kernel_tc``, float32
+    ``flash_kernel_f32``; and giving the forward its own pairs moved no
+    backward route: ``tc`` at 96, ``wg`` at 64, ``wg2`` at (128, 128) and
+    (192, 128)."""
+    D, Dv = dims
+    assert kflash.forward_kernel(D, Dv, dtype) == f"flash_kernel_{fwd}"
+    assert kflash.backward_kernel(D, Dv, dtype) == (
+        f"dkdv_kernel_{bwd}", f"dq_kernel_{bwd}")
+    pair = (kflash.kernel_dim(D, Dv), Dv)
+    assert _cu_bool_fn("wgmma_forward", *pair) == (
+        pair in kflash.WGMMA_FWD_PAIRS)
+    assert set(kflash.WGMMA_FWD_PAIRS) == {
+        pr for pr in kflash.HEAD_DIM_PAIRS if _cu_bool_fn("wgmma_forward",
+                                                          *pr)}
+
+
+def _cuh_fn(name):
+    """``name(r, c)`` of ``wgmma.cuh`` (``sw64``, ``sw128``), its return
+    expression read from the source and evaluated in Python (the same
+    operators, with the same precedence, as C's)."""
+    text = (_CSRC / "wgmma.cuh").read_text()
+    expr = re.search(rf"uint32_t {name}\(int r, int c\) \{{\s*return (.*?);",
+                     text, re.S).group(1)
+    return lambda r, c: eval(expr, {}, {"r": r, "c": c})
+
+
+def _swizzle(addr, bits):
+    """CUTLASS's ``Swizzle<bits, 4, 3>`` of a byte address: address bits
+    [4, 4 + bits) XOR bits [7, 7 + bits)."""
+    mask = ((1 << bits) - 1) << 7
+    return addr ^ ((addr & mask) >> 3)
+
+
+# (slab columns W, the swizzle's bits, its byte offset's name in wgmma.cuh)
+SWIZZLES = [(32, 2, "sw64"), (64, 3, "sw128")]
+
+
+@pytest.mark.parametrize("W,bits,name", SWIZZLES, ids=str)
+def test_slab_swizzle_is_cutlass_and_a_bijection_of_each_row_group(W, bits,
+                                                                   name):
+    """A slab of W columns (rows of 2 W bytes): ``sw64`` / ``sw128`` place
+    16-byte chunk c of row r where CUTLASS's ``Swizzle<bits, 4, 3>`` of the
+    linear layout the wgmma descriptor describes (rows 2 W bytes apart,
+    8-row groups 16 W bytes apart: the SBO ``desc_sw64`` / ``desc_sw128``
+    set) puts it; within each 8-row group the map is a bijection onto the
+    group's 16-byte chunks; and the 8 rows a core matrix (or an ldmatrix)
+    reads at one chunk lie in 8 distinct 16-byte bank groups."""
+    at = _cuh_fn(name)
+    text = (_CSRC / "wgmma.cuh").read_text()
+    desc = re.search(rf"uint64_t desc_{name}\(uint32_t addr\) \{{(.*?)\}}",
+                     text, re.S).group(1)
+    assert f"static_cast<uint64_t>({16 * W} >> 4) << 32" in desc   # SBO
+    mode = {32: 2, 64: 1}[W]                 # bits 62-63: 64 / 128 bytes
+    assert f"static_cast<uint64_t>({mode}) << 62" in desc
+    chunks = W // 8
+    for r in range(64):
+        for c in range(chunks):
+            assert at(r, c) == _swizzle(r * 2 * W + 16 * c, bits)
+    for g in range(8):
+        offs = sorted(at(r, c) for r in range(8 * g, 8 * g + 8)
+                      for c in range(chunks))
+        assert offs == list(range(g * 16 * W, (g + 1) * 16 * W, 16))
+        for c in range(chunks):
+            groups = {(at(r, c) % 128) // 16 for r in range(8 * g, 8 * g + 8)}
+            assert len(groups) == 8
+
+
+def _load_rows(W, NS, NT, kCols, row0, n_rows):
+    """``load_rows<W, NS, NT, kCols>``'s generic loop (the formulas
+    asserted in ``wgmma.cuh``'s text): for each thread and step, (shared
+    byte offset, source row, source column, bytes) of its ``cp_async16``."""
+    text = (_CSRC / "wgmma.cuh").read_text()
+    for formula in (
+            "constexpr int kChunks = W / 8, kRowChunks = NS * kChunks;",
+            "for (int m = 0; m < 64 * kRowChunks / NT; ++m) {",
+            "const int i = tid + m * NT, r = i / kRowChunks, cc = i % "
+            "kRowChunks;",
+            "const bool in = row0 + r < n_rows && cc < kCols / 8;",
+            "cp_async16(dst + (cc / kChunks) * slab_bytes<W>() +\n"
+            "                     slab_at<W>(r, cc % kChunks),",
+            "src + (in ? static_cast<long long>(row0 + r) * kCols + 8 * cc\n"
+            "                           : 0),\n"
+            "                 in ? 16 : 0);",
+            "return 64 * 2 * W;",
+            "return W == 64 ? sw128(r, c) : sw64(r, c);"):
+        assert formula in text, formula
+    at = _cuh_fn("sw64" if W == 32 else "sw128")
+    k_chunks, row_chunks = W // 8, NS * W // 8
+    out = []
+    for tid in range(NT):
+        for m in range(64 * row_chunks // NT):
+            i = tid + m * NT
+            r, cc = i // row_chunks, i % row_chunks
+            inside = row0 + r < n_rows and cc < kCols // 8
+            out.append(((cc // k_chunks) * 64 * 2 * W + at(r, cc % k_chunks),
+                        row0 + r if inside else 0, 8 * cc if inside else 0,
+                        16 if inside else 0, r, cc))
+    return out
+
+
+# (W, NS, kCols, row0, n_rows): q, k and v at D = 96 (three 32-column
+# slabs), a ragged last tile of them (S = 1,000: rows 960..999 real) and
+# one row; the same rows zero-filled to two 64-column slabs (the padded
+# variant's loader)
+LOAD_CASES = [(32, 3, 96, 0, 1000), (32, 3, 96, 960, 1000),
+              (32, 3, 96, 0, 1), (64, 2, 96, 0, 1000), (64, 2, 96, 960, 1000)]
+
+
+@pytest.mark.parametrize("case", LOAD_CASES, ids=str)
+def test_96_column_loader_writes_every_row_chunk_once(case):
+    """``load_rows`` at 96 columns, by the producer's 128 threads: every
+    (row, 16-byte chunk) of the 64-row tile is written exactly once, at
+    ``slab_at``'s offset in slab chunk / (W / 8), so that the slabs' bytes
+    are covered exactly once; a chunk of a real row and column reads that
+    row's 16 bytes at column 8 chunk, any other is zero-filled (0 source
+    bytes from row 0, column 0: an address inside the tensor); neighbouring
+    threads take neighbouring chunks of a row."""
+    W, NS, kCols, row0, n_rows = case
+    NT = 128
+    writes = _load_rows(W, NS, NT, kCols, row0, n_rows)
+    assert Counter((r, cc) for *_, r, cc in writes) == Counter(
+        (r, cc) for r in range(64) for cc in range(NS * W // 8))
+    assert sorted(off for off, *_ in writes) == list(
+        range(0, NS * 64 * 2 * W, 16))
+    for off, src_row, src_col, nbytes, r, cc in writes:
+        real = row0 + r < n_rows and cc < kCols // 8
+        assert nbytes == (16 if real else 0)
+        assert (src_row, src_col) == ((row0 + r, 8 * cc) if real else (0, 0))
+    row_chunks = NS * W // 8
+    first = [(r, cc) for *_, r, cc in writes[::64 * row_chunks // NT]]
+    assert first == [divmod(tid, row_chunks) for tid in range(NT)]
+
+
+def test_96_column_products_read_the_slabs_as_loaded():
+    """The D = 96 products' descriptors (``wgmma.cuh``'s text): S = Q K^T
+    takes 2 k-steps of 16 columns a 32-column slab, K-major, the second at
+    +32 bytes of a row and each slab 4 KB on; O += P V takes one m64n96k16
+    a 16-key k-step, V MN-major, 16 rows of 64 bytes (1,024) on, its
+    leading byte offset the slabs' stride: the k-steps' columns of Q and K
+    and the k-steps' keys of V cover each loaded chunk once, in order."""
+    text = (_CSRC / "wgmma.cuh").read_text()
+    for formula in (
+            "constexpr int kSteps = W / 16;",
+            "for (int kk = 0; kk < kSteps * NS; ++kk) {",
+            "const int step = (kk / kSteps) * (slab_bytes<W>() >> 4) +\n"
+            "                     2 * (kk % kSteps);",
+            "const uint64_t db = desc_sw64_lbo(b_s, slab_bytes<32>());",
+            "const uint64_t b = db + ((kk * 1024) >> 4);",
+            "wgmma_rs96<1>(acc, xh[kk], b, 1);",
+            "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16"):
+        assert formula in text, formula
+    W, NS, slab = 32, 3, 64 * 2 * 32
+    # S: k-step kk starts (in 16-byte units) at slab kk / 2, +2 (32 bytes)
+    # for the second; it spans 2 chunks (16 bf16) of each row
+    cols = []
+    for kk in range(W // 16 * NS):
+        step = (kk // (W // 16)) * (slab >> 4) + 2 * (kk % (W // 16))
+        s, within = divmod(step * 16, slab)
+        cols += [s * (W // 8) + within // 16 + h for h in range(2)]
+    assert cols == list(range(96 // 8))
+    # PV: k-step kk reads keys 16 kk .. 16 kk + 15 of every slab
+    keys = [((kk * 1024) // (2 * W)) + j for kk in range(4) for j in range(16)]
+    assert keys == list(range(64))
+
 if __name__ == "__main__":
     print("gradients vs jax.grad of the model attention, worst of dq, dk, "
           f"dv: {max(max(attention_grad_gaps(c)) for c in GRAD_CASES):.2e} "

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The flash-attention forward and backward kernels of two checkouts on the
 card: bit for bit, and within phase 8's gates where the bf16 forward at D =
-128 and (192, 128) changed kernels, and within phase 19's gate where the
-bf16 backward at (128, 128) did.
+96 and 64 changed kernels (``REDESIGNED``), and within phase 19's gate
+where a bf16 backward pair did (``REDESIGNED_BWD``, empty: no backward
+changed).
 
     python3 tools/attention_builds.py PARENT_ROOT CHANGE_ROOT
 
@@ -10,16 +11,19 @@ Each checkout's kernel is built from its own sources (into its own
 ``build/repro_torch/``) and run in a process of its own, importing that
 checkout's ``repro_torch``, in the order parent, change, change, parent.
 Each run computes the forward kernel's output at every shape of
-``chip_smoke.py``'s ``ATTN_SHAPES`` (causal and not), ``ATTN_MASK_CASES``
-and ``MOE_ATTN_SHAPES``, in float32 and bf16, with p rounded and in
+``chip_smoke.py``'s ``ATTN_SHAPES`` (causal and not), ``ATTN_MASK_CASES``,
+``MOE_ATTN_SHAPES`` and ``FAMILY_ATTN_SHAPES``, in float32 and bf16, with p
+rounded and in
 float32, from the same numpy inputs (``chip_smoke.attn_inputs``, seed 0),
 and the backward kernel's (dq, dk, dv) at every case of
 ``chip_smoke.ATTN_BWD_CASES`` and ``chip_smoke.MLA_BWD_CASES`` (the upstream
 gradient from seed 1) on o and lse from the plain version, so that both
 builds' backward kernels see the same inputs; and it times (``chip_smoke.
 median_ms``) the hymba-1.5b serving call (bf16, window 1,024, sink 128, p
-in float32) and its backward, the moonshot-v1-16b-a3b and deepseek-v3 MLA
-serving calls (bf16, p in float32 and rounded), the bf16 MLA backward
+in float32 and rounded) and its backward, the moonshot-v1-16b-a3b,
+deepseek-v3 MLA, phi-3-vision-4.2b (D = 96) and musicgen-medium (D = 64)
+serving calls (bf16, p in float32 and rounded; SDPA's causal call beside
+each, p rounded), the bf16 MLA backward
 at deepseek-v3's training shape, and the bf16 (128, 128) backward at
 internlm2-1.8b's and moonshot's training shapes (``chip_smoke.
 ATTN_BWD_CASES``) with SDPA's backward on cuDNN beside it
@@ -59,14 +63,15 @@ def digest(t) -> str:
 
 # the bf16 forward instantiations whose kernel the change replaced
 # (flash_kernel_tc -> flash_kernel_wg)
-REDESIGNED = {(128, 128), (192, 128)}
+REDESIGNED = {(96, 96), (64, 64)}
 # the bf16 backward instantiations whose kernels the change replaced
-# (dkdv_kernel_tc / dq_kernel_tc -> dkdv_kernel_wg2 / dq_kernel_wg2)
-REDESIGNED_BWD = {(128, 128)}
+REDESIGNED_BWD = set()
 # the bf16 (128, 128) backward's timed shapes, by ATTN_BWD_CASES' labels
 BWD_TIMED = ("internlm2", "moonshot")
-# the serving calls timed: moonshot-v1-16b-a3b's and deepseek-v3's prefill
-SERVE_SHAPES = ((4, 16, 16, 1000, 128), (4, 128, 128, 1000, 192, 128))
+# the serving calls timed: moonshot-v1-16b-a3b's, deepseek-v3's,
+# phi-3-vision-4.2b's and musicgen-medium's prefill
+SERVE_SHAPES = ((4, 16, 16, 1000, 128), (4, 128, 128, 1000, 192, 128),
+                (4, 32, 32, 1000, 96), (4, 24, 24, 1000, 64))
 
 
 def plain_lse(q, k, causal=True, window=None, sink=0):
@@ -103,7 +108,8 @@ def dump(root: Path, out: Path) -> None:
     cases = ([(s, causal, None, 0) for s in cs.ATTN_SHAPES
               for causal in (True, False)]
              + [(c[:5], True, c[5], c[6]) for c in cs.ATTN_MASK_CASES]
-             + [(s, True, None, 0) for s in cs.MOE_ATTN_SHAPES])
+             + [(s, True, None, 0) for s in cs.MOE_ATTN_SHAPES
+                + cs.FAMILY_ATTN_SHAPES])
     outs = {}
     for shape, causal, window, sink in cases:
         D, Dv = shape[4], shape[5] if len(shape) > 5 else shape[4]
@@ -161,16 +167,24 @@ def dump(root: Path, out: Path) -> None:
         q, k, v, o, do, lse))
     del q, k, v, do, o, lse
     torch.cuda.empty_cache()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for shape in SERVE_SHAPES:
         q, k, v = cs.attn_inputs(shape, torch.bfloat16, 0, dev)
         for round_p in (False, True):
             ms[f"{shape} round_p={round_p}"] = cs.median_ms(
                 lambda: kflash.flash_attention(q, k, v, round_p=round_p))
+        try:
+            ms[f"{shape} sdpa"] = cs.median_ms(lambda: sdpa(
+                q, k, v, is_causal=True, enable_gqa=True))
+        except RuntimeError as err:
+            ms[f"{shape} sdpa"] = f"not taken: {str(err).splitlines()[0]}"
         del q, k, v
         torch.cuda.empty_cache()
     q, k, v = cs.attn_inputs((4, 25, 5, 1128, 64), torch.bfloat16, 0, dev)
     ms["hymba"] = cs.median_ms(lambda: kflash.flash_attention(
         q, k, v, window=1024, sink=128, round_p=False))
+    ms["hymba round_p=True"] = cs.median_ms(lambda: kflash.flash_attention(
+        q, k, v, window=1024, sink=128, round_p=True))
     do = cs.attn_inputs((4, 25, 5, 1128, 64), torch.bfloat16, 1, dev)[0]
     o, lse = kflash._forward(q, k, v, True, 1024, 128, False, with_lse=True)
     ms["hymba_bwd"] = cs.median_ms(lambda: kflash.flash_attention_bwd(
