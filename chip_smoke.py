@@ -343,7 +343,26 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             serving the reduced hymba (attention and scan kernels, greedy
             determinism) and ``EXAMPLE_TRAIN_STEPS`` supervised training
             steps (its own "loss decreased" check, no restart); each
-            one's seconds and kernel launches.
+            one's seconds and kernel launches;
+42. analysis the port's analyzer (``repro_torch.analysis``) on the card:
+            the AST tier and the docs checks against the committed
+            baseline; LG01 over every static shape profile; LG02-LG04,
+            every library and route of ``lg.card_profiles`` launched twice
+            directly in guarded buffers (no sentinel left, no guard band or
+            input touched, no NaN where the plain version is finite, bit-
+            equal twice); DT on CUDA tensors; RC: two drives of every entry
+            point build and load nothing new, and no library was built twice
+            in this process; LG05 for every route the drive launched
+            (``capture``); and the host-sync witness: a warm ``explore``,
+            ``compose``, ``simulate`` and the reduced hymba's decode and
+            train step under ``torch.cuda.set_sync_debug_mode("warn")``,
+            each sync attributed to its line in the port, every line
+            flagged by the static HS tier (a finding, a ``# noqa: HSxx`` or
+            a baseline entry; a sync with no frame of the port is never
+            flagged). It prints the findings per family, each path's syncs,
+            those with no frame of the port and the top three sites, the
+            guarded launches and its seconds, and fails on any active
+            finding or unflagged sync.
 
 Each phase prints its seconds. It prints one ``{"kernels": [...]}`` line,
 then, last, the ``{"ok": true, "device": {...}}`` line.
@@ -3168,11 +3187,87 @@ def sharded_runs(runs, world: int, mesh, stats) -> None:
         stats["runs"][label] = row
 
 
+def analysis_phase(seed: int, t_start: float) -> None:
+    """Phase 42: the port's analyzer on the card (see the module
+    docstring). ``t_start`` is the run's ``time.time()`` at its start, for
+    the process-wide build count."""
+    import collections
+    import torch
+    from repro_torch.analysis import runner
+    from repro_torch.analysis.astutil import Project
+    from repro_torch.analysis.rules import FAMILIES, family_of
+    from repro_torch.analysis.semantic import capture, dt, lg, rc, witness
+    dev = torch.device("cuda")
+    project = Project(ROOT)
+    ast_report = runner.run_analysis(ROOT, with_docs=True, project=project)
+    raw = list(ast_report.findings + ast_report.suppressed
+               + ast_report.baselined)
+    t0 = time.perf_counter()
+    static, lg_static = lg.check_static(project)
+    card, lg_card = lg.check_card(project, dev, seed)
+    print(f"analysis: LG01 {lg_static['profiles']} static profiles "
+          f"({lg_static['refused']} refused by a wrapper or launch guard), "
+          f"{lg_static['launches']} launches in Hopper's limits; LG02-LG04 "
+          f"{lg_card['launches']} guarded launches of {lg_card['profiles']} "
+          f"profiles over {lg_card['routes']} routes in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    dt_findings = dt.check(project, dev)
+    with capture.capture_launches(ROOT) as caps:
+        rc_findings = rc.check(project, dev, since=t_start)
+    seen = lg.check_routes_seen([(c.library, c.route, c.path, c.line)
+                                 for c in caps])
+    routes = collections.Counter((c.library, c.route) for c in caps)
+    print(f"analysis: DT over {len(dt.ENTRIES)} entries on the card; RC two "
+          f"drives, {len(caps)} launches over {len(routes)} routes, "
+          f"{rc.build_counts()[0]} libraries built and "
+          f"{rc.build_counts()[1]} loaded by this process, in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    report = runner.report_of(
+        project, raw + static + card + dt_findings + rc_findings + seen,
+        tuple(ast_report.families_run) + runner.SEMANTIC_FAMILIES)
+    by_family = collections.Counter(family_of(f.rule)
+                                    for f in report.findings)
+    for kind, fs in (("active", report.findings),
+                     ("noqa", report.suppressed),
+                     ("baselined", report.baselined)):
+        counts = collections.Counter(family_of(f.rule) for f in fs)
+        print(f"analysis: {kind} findings by family: "
+              + ", ".join(f"{fam} {counts.get(fam, 0)}" for fam in FAMILIES))
+    for f in report.findings:
+        print(f"analysis: {f.format()}")
+    # the host-sync witness
+    t0 = time.perf_counter()
+    missing = []
+    for name, make in witness.PATHS.items():
+        sites = witness.witness_path(ROOT, make, dev)
+        top = [f"{rel}:{line} x{n}" for (rel, line), n in
+               collections.Counter(sites).most_common(3)]
+        print(f"analysis: witness {name}: {len(sites)} syncs, "
+              f"{sites.count(witness.OUTSIDE)} with no frame of the port; "
+              f"top {top}", flush=True)
+        missing += [(name, site) for site in witness.unflagged(project,
+                                                                sites)]
+    print(f"analysis: witness over {len(witness.PATHS)} paths in "
+          f"{time.perf_counter() - t0:.2f} s; {len(missing)} unflagged "
+          f"sites", flush=True)
+    for name, (rel, line) in missing:
+        print(f"analysis: unflagged sync in {name}: {rel}:{line}")
+    if report.findings:
+        fail(f"analysis: {len(report.findings)} active findings "
+             f"({dict(by_family)}): "
+             + "; ".join(f.format() for f in report.findings[:10]))
+    if missing:
+        fail(f"analysis: {len(missing)} card syncs at lines the static HS "
+             f"tier does not flag")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the perturbed kernel rows")
     args = parser.parse_args()
+    t_start = time.time()
 
     import torch
     if not torch.cuda.is_available():
@@ -3903,6 +3998,11 @@ def main() -> int:
         f"example_{k}": examples[f"torch_{k}"]["launches"]["retention"]
         for k in ("quickstart", "heterogeneous_dse")})
     phase_done(41, "smoke script and examples", t_phase)
+
+    # 42. the analyzer ------------------------------------------------------
+    t_phase = time.perf_counter()
+    analysis_phase(args.seed, t_start)
+    phase_done(42, "analysis", t_phase)
 
     main_shape = shapes["main"]
     wg_main = moe_kernels["timing"][str(MOE_ATTN_SHAPES[0])]

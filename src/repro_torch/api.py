@@ -83,6 +83,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.hetero.compose import (  # noqa: F401  (re-exported names)
     ComposePolicy, CompositionReport, compose,
 )
+from repro_torch.kernels import build as kbuild
 from repro_torch.sim.engine import SimPolicy  # noqa: F401  (re-exported)
 
 __all__ = [
@@ -109,12 +110,14 @@ _PHYSICS_SOURCES = ("core/bitcells.py", "core/characterize.py",
 
 @functools.lru_cache(maxsize=1)
 def _physics_fingerprint() -> str:
-    """Hash of the port's characterization sources: any edit to the physics
-    or the retention kernel changes every DesignTable cache key."""
+    """Hash of the port's characterization sources and of the flags the
+    retention kernel is compiled with: any edit to the physics, the kernel
+    or its ``nvcc`` flags changes every DesignTable cache key."""
     root = Path(__file__).resolve().parent
     h = hashlib.sha256()
     for rel in _PHYSICS_SOURCES:
         h.update((root / rel).read_bytes())
+    h.update(" ".join(kbuild.NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -217,20 +220,20 @@ class DesignTable:
         nominal only; one retention launch per corner)."""
         dev = resolve_device(device)
         ops = corners_mod.as_corners(corners)
-        vecs = torch.stack([c.to_vector() for c in configs]).to(dev)
+        vecs = torch.stack([c.to_vector() for c in configs]).to(dev)  # noqa: HS01 (the configs to the card)
         with obs.span("api.characterize", probe=_C_BUILDS,
                       n_configs=len(configs), n_corners=len(ops)):
             if ops == (NOMINAL,):
                 out = sanitize.maybe_wrap(chz.characterize_batch)(
                     vecs, device=dev)
-                metrics = {k: v.cpu().numpy() for k, v in out.items()}
+                metrics = {k: v.cpu().numpy() for k, v in out.items()}  # noqa: HS01 (the table's columns live on the host)
             else:
                 # characterize_corners sanitizes each per-corner dispatch
                 # itself (one characterize per corner)
                 out = chz.characterize_corners(vecs, ops, device=dev)
                 metrics = {}
                 for k, v in out.items():
-                    grid = v.cpu().numpy()                  # (N, C)
+                    grid = v.cpu().numpy()  # noqa: HS01 (the table's columns live on the host)
                     metrics[k] = grid[:, 0]
                     for c, op in enumerate(ops):
                         metrics[f"{k}@{op.corner}"] = grid[:, c]
@@ -878,8 +881,8 @@ def _sizing_objective(cfg: MacroConfig, area_weight: float,
     and ``cell_w``'s width deltas) is exactly 0, whatever a device's
     float32 ``exp(log(w0))`` rounds to. That decides the SRAM cell, whose
     storage cap is that delta alone."""
-    base_cell = bitcells.BITCELLS[cfg.mem_type].to(dev)
-    vec = cfg.to_vector()[None].to(dev)
+    base_cell = bitcells.BITCELLS[cfg.mem_type].to(dev)  # noqa: HS01 (the cell to the card once a sizing)
+    vec = cfg.to_vector()[None].to(dev)  # noqa: HS01 (the config to the card once a sizing)
     area0, _ = macro_mod.macro_area(macro_mod.geometry(vec))
     w0 = torch.stack([base_cell.w_read, base_cell.w_write])
     logw0 = torch.log(w0)
@@ -925,7 +928,7 @@ def gradient_size_macro(cfg: MacroConfig, steps: int = 200,
     """
     dev = resolve_device(device)
     objective, logw0 = _sizing_objective(cfg, area_weight, dev)
-    lo, hi = torch.log(torch.tensor([0.06, 0.60], device=dev)).unbind(0)
+    lo, hi = torch.log(torch.tensor([0.06, 0.60], device=dev)).unbind(0)  # noqa: HS01 (the width bounds, once a sizing)
     logw = logw0
     for _ in range(steps):
         lw = logw.detach().requires_grad_(True)
@@ -936,7 +939,7 @@ def gradient_size_macro(cfg: MacroConfig, steps: int = 200,
         t1, a1 = objective(logw)[1]
         w = torch.exp(logw)
     return {
-        "w_read_um": float(w[0]), "w_write_um": float(w[1]),
+        "w_read_um": float(w[0]), "w_write_um": float(w[1]),  # noqa: HS02 (the sized widths are the result)
         "t_cell_before_s": float(t0), "t_cell_after_s": float(t1),
         "area_before_um2": float(a0), "area_after_um2": float(a1),
         "speedup": float(t0 / t1),

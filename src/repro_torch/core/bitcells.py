@@ -28,7 +28,7 @@ class BitcellParams(NamedTuple):
     leak_paths: torch.Tensor    # static VDD->GND paths per cell (SRAM=2)
 
     def to(self, device) -> "BitcellParams":
-        return BitcellParams(*(t.to(device) for t in self))
+        return BitcellParams(*(t.to(device) for t in self))  # noqa: HS01 (the cell table to the card)
 
 
 KIND_SRAM, KIND_SISI, KIND_OSSI, KIND_OSOS = 0, 1, 2, 3
@@ -103,12 +103,12 @@ def take_bitcell(stacked: BitcellParams, idx) -> BitcellParams:
 
 
 def write_device(cell: BitcellParams) -> devices.DeviceParams:
-    return devices.take_device(DEVICE_STACK.to(cell.write_dev.device),
+    return devices.take_device(DEVICE_STACK.to(cell.write_dev.device),  # noqa: HS01 (the device table to the card, a call)
                                cell.write_dev.long())
 
 
 def read_device(cell: BitcellParams) -> devices.DeviceParams:
-    return devices.take_device(DEVICE_STACK.to(cell.read_dev.device),
+    return devices.take_device(DEVICE_STACK.to(cell.read_dev.device),  # noqa: HS01 (the device table to the card, a call)
                                cell.read_dev.long())
 
 
@@ -118,6 +118,6 @@ def sn_high_level(cell: BitcellParams, level_shift, tp=None):
     level tracks the supply)."""
     tp = corners.resolve(tp)
     degraded = tp.vdd - write_device(cell).vt
-    level_shift = torch.as_tensor(level_shift, device=degraded.device)
+    level_shift = torch.as_tensor(level_shift, device=degraded.device)  # noqa: HS01 (a host flag to the card)
     lvl = torch.where(level_shift > 0, tp.vdd, degraded)
     return torch.where(cell.kind > 0, lvl, tp.vdd)

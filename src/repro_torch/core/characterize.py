@@ -176,7 +176,7 @@ def characterize_batch(vecs, device: DeviceLike = None, tp=None
     runs the plain versions). Returns a dict of (N,) float32 tensors on that
     device."""
     dev = resolve_device(device)
-    return characterize(torch.as_tensor(vecs, dtype=torch.float32,
+    return characterize(torch.as_tensor(vecs, dtype=torch.float32,  # noqa: HS01 (the config vectors to the card)
                                         device=dev), tp)
 
 
@@ -198,7 +198,7 @@ def characterize_corners(vecs, ops: Sequence, device: DeviceLike = None
     = ``ops`` order. Each corner's ``characterize`` runs under the sanitizer
     when it is on."""
     dev = resolve_device(device)
-    vecs = torch.as_tensor(vecs, dtype=torch.float32, device=dev)
+    vecs = torch.as_tensor(vecs, dtype=torch.float32, device=dev)  # noqa: HS01 (the config vectors to the card)
     per_corner = [sanitize.maybe_wrap(characterize)(vecs, corners.resolve(
         corners.as_operating_point(o))) for o in ops]
     return {k: torch.stack([out[k] for out in per_corner], dim=1)

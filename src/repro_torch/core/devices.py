@@ -29,7 +29,7 @@ class DeviceParams(NamedTuple):
     polarity: torch.Tensor      # +1 NMOS, -1 PMOS
 
     def to(self, device) -> "DeviceParams":
-        return DeviceParams(*(t.to(device) for t in self))
+        return DeviceParams(*(t.to(device) for t in self))  # noqa: HS01 (the device table to the card)
 
 
 def _F(u):
@@ -47,8 +47,8 @@ def mosfet_id(dev: DeviceParams, vgs, vds, w_um, tp=None):
     ``OperatingPoint`` / name; None = nominal)."""
     tp = corners.resolve(tp)
     device = dev.vt.device
-    vgs = torch.as_tensor(vgs, dtype=F32, device=device)
-    vds = torch.as_tensor(vds, dtype=F32, device=device)
+    vgs = torch.as_tensor(vgs, dtype=F32, device=device)  # noqa: HS01 (host voltages to the card)
+    vds = torch.as_tensor(vds, dtype=F32, device=device)  # noqa: HS01 (host voltages to the card)
     vt_eff = dev.vt - dev.eta_dibl * vds
     nut = dev.n * tp.ut
     i_ch = dev.ispec * (_F((vgs - vt_eff) / nut)

@@ -59,7 +59,7 @@ def geometry(vecs):
     mem_idx = vecs[:, 0].long()
     wz, nw, banks = vecs[:, 1], vecs[:, 2], vecs[:, 3]
     ls, sa_cm, mux = vecs[:, 4], vecs[:, 5], vecs[:, 6]
-    cell = bitcells.take_bitcell(bitcells.stack_bitcells().to(vecs.device),
+    cell = bitcells.take_bitcell(bitcells.stack_bitcells().to(vecs.device),  # noqa: HS01 (the cell table to the card)
                                  mem_idx)
     nw_bank = nw / banks
     m = torch.where(mux > 0, mux, auto_mux(wz, nw_bank))

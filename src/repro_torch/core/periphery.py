@@ -78,7 +78,7 @@ def write_driver(c_bl, tp=None):
     w_drv = torch.clamp_min(c_bl / (10.0 * INV_CIN), 1.0)
     area_um2 = tech.WRITE_DRV_AREA + 0.3 * w_drv
     delay_s = 20e-12 + c_bl * tp.vdd / devices.i_on(
-        devices.SI_NMOS.to(w_drv.device), w_drv, tp=tp)
+        devices.SI_NMOS.to(w_drv.device), w_drv, tp=tp)  # noqa: HS01 (the NMOS table to the card)
     energy_j = c_bl * tp.vdd ** 2 * 0.5            # avg data activity
     leak_a = w_drv * INV_LEAK
     return area_um2, delay_s, energy_j, leak_a

@@ -63,7 +63,7 @@ _TIME_GRID = torch.from_numpy(_time_grid_np())
 
 def time_grid(device=None) -> torch.Tensor:
     """(N_STEPS + 1,) float32 log grid [s] on ``device`` (default: CPU)."""
-    return _TIME_GRID.to(device or "cpu")
+    return _TIME_GRID.to(device or "cpu")  # noqa: HS01 (the time grid to the card)
 
 
 def leak_current(cell: bitcells.BitcellParams, v_sn, tp=None):
@@ -83,22 +83,22 @@ def decay_curve(cell: bitcells.BitcellParams, v0, tp=None):
     the unclipped RK4 updates while the carried state is clipped to [0, 2]."""
     tp = corners.resolve(tp)
     ts = time_grid(cell.c_sn.device)
-    c_sn = torch.clamp_min(cell.c_sn, 1e-18)
+    c_sn_f = torch.clamp_min(cell.c_sn, 1e-18)
 
     def f(v):
-        return -leak_current(cell, torch.clamp_min(v, 0.0), tp) / c_sn
+        return -leak_current(cell, torch.clamp_min(v, 0.0), tp) / c_sn_f
 
-    v = torch.as_tensor(v0, dtype=torch.float32, device=ts.device)
-    v = v.expand_as(cell.c_sn)
-    vs = [v]
+    v_sn_v = torch.as_tensor(v0, dtype=torch.float32, device=ts.device)
+    v_sn_v = v_sn_v.expand_as(cell.c_sn)
+    vs = [v_sn_v]
     for dt in torch.diff(ts):
-        k1 = f(v)
-        k2 = f(v + 0.5 * dt * k1)
-        k3 = f(v + 0.5 * dt * k2)
-        k4 = f(v + dt * k3)
-        v_new = v + dt / 6.0 * (k1 + 2 * k2 + 2 * k3 + k4)
-        vs.append(v_new)
-        v = torch.clamp(v_new, 0.0, 2.0)
+        k1 = f(v_sn_v)
+        k2 = f(v_sn_v + 0.5 * dt * k1)
+        k3 = f(v_sn_v + 0.5 * dt * k2)
+        k4 = f(v_sn_v + dt * k3)
+        v_new_v = v_sn_v + dt / 6.0 * (k1 + 2 * k2 + 2 * k3 + k4)
+        vs.append(v_new_v)
+        v_sn_v = torch.clamp(v_new_v, 0.0, 2.0)
     return ts, torch.stack(vs, dim=-1)
 
 
@@ -109,7 +109,7 @@ def read_margin_threshold(cell: bitcells.BitcellParams,
     the point where the '1' reads as '0'. One value per cell row."""
     tp = corners.resolve(tp)
     rdev = bitcells.read_device(cell)
-    grid = torch.from_numpy(_linspace_f32(0.0, tp.vdd, 256)).to(
+    grid = torch.from_numpy(_linspace_f32(0.0, tp.vdd, 256)).to(  # noqa: HS01 (the margin grid to the card)
         rdev.vt.device)
     col = devices.DeviceParams(*(t[..., None] for t in rdev))
     # |vgs| of the read device when SN sits at v: VDD - v
@@ -191,6 +191,6 @@ def retention_time_batch(cells: bitcells.BitcellParams, ls,
             f"it once per corner")
     params = pack_retention_params(cells, ls, tp)
     ts = time_grid(params.device)
-    t_ret = retention_kernel.retention_batch(params, ts, tp.ut)
+    t_ret_s = retention_kernel.retention_batch(params, ts, tp.ut)
     start_crossed = params[:, 8] < params[:, 9]
-    return torch.where(start_crossed, torch.exp(torch.log(ts[0])), t_ret)
+    return torch.where(start_crossed, torch.exp(torch.log(ts[0])), t_ret_s)

@@ -73,7 +73,7 @@ def expand_metrics(table, metrics: Mapping[str, np.ndarray],
                 vecs = torch.stack([c.to_vector()
                                     for c in table.to_configs()])
                 out = chz.characterize_corners(vecs, (op,), device=device)
-                per_op[op] = {k: v[:, 0].cpu().numpy()
+                per_op[op] = {k: v[:, 0].cpu().numpy()  # noqa: HS01 (the expanded columns live on the host)
                               for k, v in out.items()}
             char = per_op[op]
             block = {k: char.get(k, metrics[k]) for k in metrics}

@@ -178,9 +178,9 @@ def _score(cols: Dict[str, np.ndarray], idx, cap_bits, f_req,
     dev = resolve_device(device)
 
     def f32(a):
-        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,  # noqa: HS01 (the table's columns to the card)
                                device=dev)
-    args = (torch.as_tensor(np.asarray(idx), dtype=torch.int64, device=dev),
+    args = (torch.as_tensor(np.asarray(idx), dtype=torch.int64, device=dev),  # noqa: HS01 (the grid to the card)
             {k: f32(v) for k, v in cols.items()}, f32(cap_bits), f32(f_req))
     span_args = {} if n_corners is None else {"corners": n_corners}
     with obs.span("hetero.score", probe=_C_BUILDS, J=int(args[0].shape[0]),
@@ -193,7 +193,7 @@ def _score(cols: Dict[str, np.ndarray], idx, cap_bits, f_req,
             out = shard2d(score_kernel, *args, devices=devices)
         else:
             out = shard_leading(score_kernel, *args, devices=devices)
-        out = {k: v.cpu().numpy() for k, v in out.items()}
+        out = {k: v.cpu().numpy() for k, v in out.items()}  # noqa: HS01 (the scores live on the host)
     _C_EVALS.inc()
     return out
 

@@ -1728,6 +1728,10 @@ dq_kernel_f32(const float* __restrict__ q, const float* __restrict__ k,
 // launch
 // ---------------------------------------------------------------------------
 
+// the most blocks a grid's y axis takes: launch refuses a shape whose
+// grids pass it (cudaErrorInvalidConfiguration) before its first launch
+constexpr long long kMaxGridY = 65535;
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -1796,8 +1800,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                *db = static_cast<const bf16*>(dO);
     float* pk = scratch + sc.part_at();
     float* pv = pk + sc.part_k;
+    // dQ and the combine: one launch, the combine's rows after the q tiles
+    const long long kv_rows = static_cast<long long>(B) * K * mk.Sk;
+    CombineOf<D, DV> cb;
+    if constexpr (D == DV)
+      cb = Combine{pk, pv, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                   static_cast<long long>(mk.Sk) * D, kv_rows * D / 4, H, K,
+                   scale};
+    else
+      cb = CombineKV{pk, pv, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                     static_cast<long long>(mk.Sk) * D,
+                     static_cast<long long>(mk.Sk) * DV, kv_rows * D / 4,
+                     kv_rows * (D + DV) / 4, H, K, scale};
     // the key tile (dK/dV) and the q tile (dQ) are the slow grid axes, so
-    // the blocks with the most tiles to visit start first
+    // the blocks with the most tiles to visit start first (the two-warpgroup
+    // pair's grids are one-dimensional)
+    const long long q_rows = static_cast<long long>(n_qt) + cb.rows(B * H);
+    if (!kWG2 && (n_kt > kMaxGridY || q_rows > kMaxGridY))
+      return cudaErrorInvalidConfiguration;
     const dim3 grid_kv(B * H, n_kt);
     delta_kernel_bf16<DV><<<static_cast<unsigned>((rows + 31) / 32), 256, 0,
                             stream>>>(ob, db, delta, rows);
@@ -1823,19 +1843,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
           qb, kb, vb, db, lse, delta, pk, pv, H, K, S, mk, scale);
     }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    // dQ and the combine: one launch, the combine's rows after the q tiles
-    const long long kv_rows = static_cast<long long>(B) * K * mk.Sk;
-    CombineOf<D, DV> cb;
-    if constexpr (D == DV)
-      cb = Combine{pk, pv, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                   static_cast<long long>(mk.Sk) * D, kv_rows * D / 4, H, K,
-                   scale};
-    else
-      cb = CombineKV{pk, pv, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                     static_cast<long long>(mk.Sk) * D,
-                     static_cast<long long>(mk.Sk) * DV, kv_rows * D / 4,
-                     kv_rows * (D + DV) / 4, H, K, scale};
-    const dim3 grid_q(B * H, n_qt + cb.rows(B * H));
+    const dim3 grid_q(B * H, static_cast<unsigned>(q_rows));
     bf16* dqb = static_cast<bf16*>(dq);
     if constexpr (D == 64 && DV == 64) {
       constexpr size_t s_q = smem_bytes_wg();
@@ -1863,6 +1871,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
     }
     return cudaGetLastError();
   }
+  // dK/dV's grid takes B K blocks on y, dQ's B H
+  if (static_cast<long long>(B) * H > kMaxGridY)
+    return cudaErrorInvalidConfiguration;
   const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
               *vf = static_cast<const float*>(v), *of = static_cast<const float*>(o),
               *df = static_cast<const float*>(dO);
@@ -1904,7 +1915,8 @@ extern "C" long long flash_attention_bwd_scratch_floats(int B, int H, int K,
 }
 
 // Launch on `stream`; returns the cudaError_t of the first launch that
-// failed (0 = success). Same layouts, (D, Dv) pairs, mask arguments and
+// failed (0 = success), or cudaErrorInvalidConfiguration, with nothing
+// launched, where a grid would take more than kMaxGridY blocks on y. Same layouts, (D, Dv) pairs, mask arguments and
 // dtype switch as flash_attention_launch (window <= 0: no window): q and k
 // have head dim D, v, o and dO Dv; o and lse are the forward's outputs (lse
 // from a launch that asked for it), dO has o's layout and dtype (bf16: o

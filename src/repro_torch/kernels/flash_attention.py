@@ -65,6 +65,7 @@ WGMMA_BWD_ONE = ((64, 64),)
 # kSumHeadsBlocks)
 SUM_HEADS_BLOCKS = 512
 _MAX_GRID_Y = 65535                 # B * H blocks along the grid's y axis
+_MAX_WG2_Q_TILES = 1 << 16          # dkdv_kernel_wg2's items: g << 16 | tile
 
 _C_CUDA = obs.counter("kernels.dispatch.flash_attention.cuda")
 _C_PLAIN = obs.counter("kernels.dispatch.flash_attention.plain")
@@ -180,6 +181,21 @@ def backward_heads_per_block(B: int, H: int, K: int, Sk: int, D: int,
     return H // K if B * K * -(-Sk // 64) >= SUM_HEADS_BLOCKS else 1
 
 
+def _check_grid(B: int, H: int, S: int, D: int, Dv: int, dtype: torch.dtype,
+                backward: bool) -> None:
+    """Refuse a shape the launch cannot take: the forward puts B H blocks
+    on its grid's y axis; the two-warpgroup backward packs a work item's
+    query tile in 16 bits. (The backward's launch function refuses its own
+    grids past 65,535 blocks on y, before its first launch.)"""
+    if not backward and B * H > _MAX_GRID_Y:
+        raise ValueError(f"flash_attention kernel takes B*H <= "
+                         f"{_MAX_GRID_Y}, got {B * H}")
+    if backward and backward_kernel(D, Dv, dtype)[0] == "dkdv_kernel_wg2" \
+            and -(-S // 64) > _MAX_WG2_Q_TILES:
+        raise ValueError(f"flash_attention_bwd kernel packs a query tile in "
+                         f"16 bits: S <= {64 * _MAX_WG2_Q_TILES}, got {S}")
+
+
 def _pad_qk(q, k, Dv: int):
     """q and k padded with zero columns to ``kernel_dim``, which leave
     every score as it is (q and k themselves where they fit)."""
@@ -196,9 +212,7 @@ def _forward(q, k, v, causal, window, sink, round_p, *, with_lse: bool):
     K, Sk, Dv = k.shape[1], k.shape[2], v.shape[3]
     q, k = _pad_qk(q, k, Dv)
     D = q.shape[-1]
-    if B * H > _MAX_GRID_Y:
-        raise ValueError(f"flash_attention kernel takes B*H <= "
-                         f"{_MAX_GRID_Y}, got {B * H}")
+    _check_grid(B, H, S, D, Dv, q.dtype, backward=False)
     bf16 = q.dtype == torch.bfloat16
     if bf16 and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the bf16 kernel loads 16-byte rows: q, k, v must "
@@ -247,6 +261,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=None,
                          "S, Dv) in q's dtype and a float32 (B, H, S) lse")
     q, k = _pad_qk(q, k, Dv)
     D = q.shape[-1]
+    _check_grid(B, H, S, D, Dv, q.dtype, backward=True)
     bf16 = q.dtype == torch.bfloat16
     do, o = do.contiguous(), o.contiguous()
     if bf16:    # the bf16 kernels load 16-byte rows of o and do

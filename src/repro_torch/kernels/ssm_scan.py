@@ -26,6 +26,9 @@ from repro_torch.kernels.ref import ssm_scan_ref
 
 STATE_SIZES = (4, 8, 16, 32)    # the n the kernels are instantiated for
 STATE_EVERY = 64                # steps between saved states (ssm_scan.cuh)
+# blocks along a grid's y or z axis: B in both kernels, and the backward's
+# chunks of STATE_EVERY steps
+_MAX_GRID_YZ = 65535
 
 _C_CUDA = obs.counter("kernels.dispatch.ssm_scan.cuda")
 _C_PLAIN = obs.counter("kernels.dispatch.ssm_scan.plain")
@@ -74,10 +77,22 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if A.shape[1] not in STATE_SIZES:
         raise ValueError(f"ssm_scan kernel takes n in {STATE_SIZES}, got "
                          f"{A.shape[1]}")
+    _check_grid(x.shape[0])
     inputs = (x, dt, A, Bc, Cc, D)
     if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
         return _SsmScan.apply(*inputs)
     return _forward(*inputs, with_states=False)[:2]
+
+
+def _check_grid(B: int, S: int = 0) -> None:
+    """The kernels put B (and the backward, called with ``S``, its ceil(S /
+    STATE_EVERY) chunks) on a grid's y or z axis: at most 65,535 blocks
+    each."""
+    chunks = -(-S // STATE_EVERY)
+    if max(B, chunks) > _MAX_GRID_YZ:
+        raise ValueError(f"ssm_scan kernels take B and ceil(S / "
+                         f"{STATE_EVERY}) <= {_MAX_GRID_YZ}, got B {B}, S "
+                         f"{S}")
 
 
 def _forward(x, dt, A, Bc, Cc, D, *, with_states: bool):
@@ -118,6 +133,7 @@ def ssm_scan_bwd(x, dt, A, Bc, Cc, D, states, dy, dh_final=None):
     if n not in STATE_SIZES:
         raise ValueError(f"ssm_scan_bwd kernel takes n in {STATE_SIZES}, got "
                          f"{n}")
+    _check_grid(B, S)
     dy = dy.float().contiguous()
     if dh_final is not None:
         dh_final = dh_final.float().contiguous()

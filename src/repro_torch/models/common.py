@@ -119,7 +119,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 
 def rope_freqs(dim: int, theta: float, device) -> torch.Tensor:
     exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,  # noqa: HS01 (theta to the card, a call)
                                         device=device), exps)
 
 

@@ -258,7 +258,7 @@ def _ring_attend(p, x, cfg, kvc, pos: int):
     slot = (pos - meta) % W
     kvc["ring_k"][:, slot] = k_new[:, 0].to(kvc["ring_k"].dtype)
     kvc["ring_v"][:, slot] = v_new[:, 0].to(kvc["ring_v"].dtype)
-    kvc["ring_pos"][slot] = pos
+    kvc["ring_pos"][slot] = pos  # noqa: HS01 (the position into the ring, a step)
     k_all = torch.cat([kvc["meta_k"], kvc["ring_k"]], dim=1)
     v_all = torch.cat([kvc["meta_v"], kvc["ring_v"]], dim=1)
     pos_all = torch.cat([torch.arange(meta, device=x.device,
@@ -456,14 +456,14 @@ class LM:
         t = batch[key]
         if not isinstance(t, torch.Tensor):
             t = torch.from_numpy(np.asarray(t))
-        return t.to(self.device, torch.long)
+        return t.to(self.device, torch.long)  # noqa: HS01 (the batch to the card)
 
     def _floats(self, batch, key: str) -> torch.Tensor:
         """``batch[key]`` (float32) cast to the model dtype, on the device."""
         t = batch[key]
         if not isinstance(t, torch.Tensor):
             t = torch.from_numpy(np.asarray(t))
-        return t.to(self.device).to(self.dtype)
+        return t.to(self.device).to(self.dtype)  # noqa: HS01 (the batch to the card)
 
     def _prefix(self) -> int:
         """Positions in front of the text: the patches and the meta tokens."""

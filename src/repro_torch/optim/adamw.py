@@ -131,8 +131,8 @@ def adamw_update(grads, state, params, lr, acfg: AdamWConfig = AdamWConfig(),
         acfg.clip_norm / torch.clamp_min(gnorm, 1e-12), 1.0)
     state["count"].add_(1)
     count = state["count"].float()
-    c1 = 1.0 - torch.pow(torch.tensor(acfg.b1, device=count.device), count)
-    c2 = 1.0 - torch.pow(torch.tensor(acfg.b2, device=count.device), count)
+    c1 = 1.0 - torch.pow(torch.tensor(acfg.b1, device=count.device), count)  # noqa: HS01 (beta to the card, a step)
+    c2 = 1.0 - torch.pow(torch.tensor(acfg.b2, device=count.device), count)  # noqa: HS01 (beta to the card, a step)
 
     def upd(p, g, m_st, v_st, rmax):
         g = g.float() * scale
@@ -175,5 +175,5 @@ def cosine_schedule(base_lr: float, warmup: int, total: int,
         t = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
         cos = min_frac + (1 - min_frac) * 0.5 * (
             1 + torch.cos(torch.tensor(math.pi, **f32) * t))
-        return float(base_lr * w * cos)
+        return float(base_lr * w * cos)  # noqa: HS02 (a CPU tensor: no device)
     return lr

@@ -95,7 +95,7 @@ def _blocks(tree, ways: int):
 
 
 def _to(tree, dev: torch.device):
-    return _tree_map(lambda leaf: leaf.to(dev), tree)
+    return _tree_map(lambda leaf: leaf.to(dev), tree)  # noqa: HS01 (between the grid's devices)
 
 
 def shard_leading(fn, x, *rest, devices: Optional[Sequence] = None,
@@ -123,7 +123,7 @@ def shard_leading(fn, x, *rest, devices: Optional[Sequence] = None,
     with obs.span("parallel.shard", mesh="1d", n_dev=n_dev):
         _C_SHARD.inc()
         n = x.shape[0]
-        outs = [fn(block.to(dev), *_to(rest, dev))
+        outs = [fn(block.to(dev), *_to(rest, dev))  # noqa: HS01 (between the grid's devices)
                 for block, dev in zip(_blocks(x, n_dev), devs)]
         return _gather1d(outs, devs[0], n)
 
@@ -133,7 +133,7 @@ def _gather1d(outs, dev: torch.device, n: int):
     ``dev`` and un-pad to ``n``."""
     head = outs[0]
     if isinstance(head, torch.Tensor):
-        return torch.cat([o.to(dev) for o in outs], dim=0)[:n]
+        return torch.cat([o.to(dev) for o in outs], dim=0)[:n]  # noqa: HS01 (between the grid's devices)
     if isinstance(head, dict):
         return {k: _gather1d([o[k] for o in outs], dev, n) for k in head}
     return type(head)(_gather1d([o[i] for o in outs], dev, n)
@@ -154,7 +154,7 @@ def _gather2d(outs, dev: torch.device, n_y: int, n_x: int):
     x_blk, ...)``) into whole ``(n_y, n_x, ...)`` leaves on ``dev``."""
     head = outs[0][0]
     if isinstance(head, torch.Tensor):
-        rows = [torch.cat([outs[i][j].to(dev) for i in range(len(outs))],
+        rows = [torch.cat([outs[i][j].to(dev) for i in range(len(outs))],  # noqa: HS01 (between the grid's devices)
                           dim=1) for j in range(len(outs[0]))]
         return torch.cat(rows, dim=0)[:n_y, :n_x]
     if isinstance(head, dict):

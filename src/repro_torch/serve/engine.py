@@ -98,7 +98,7 @@ class Engine:
                 else:
                     tok = sample_temperature(gen, logits, temperature)
             _H_SAMPLE_S.observe(time.perf_counter() - t0)
-            outs.append(tok.cpu().numpy())   # host sync, outside both spans
+            outs.append(tok.cpu().numpy())  # noqa: HS01 (the tokens to the host, outside both spans)
             dec_batch = {"tokens": tok}
             if cond is not None:
                 dec_batch["cond"] = cond

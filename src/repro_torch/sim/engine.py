@@ -272,16 +272,16 @@ def _gather_params(cols: Mapping[str, np.ndarray], idx: np.ndarray,
     if missing:
         raise KeyError(f"sim cols missing {missing}; callers gather "
                        f"DesignTable metrics + word_bits=table['word_size']")
-    safe = torch.clamp_min(torch.as_tensor(np.asarray(idx), dtype=torch.int64,
+    safe = torch.clamp_min(torch.as_tensor(np.asarray(idx), dtype=torch.int64,  # noqa: HS01 (the grid to the card)
                                            device=dev), 0)
 
     def take(c):
-        col = torch.as_tensor(np.array(cols[c], np.float32), device=dev)
+        col = torch.as_tensor(np.array(cols[c], np.float32), device=dev)  # noqa: HS01 (a column to the card)
         return torch.index_select(col, 0, safe.reshape(-1)).reshape(
             safe.shape)
     p = {c: take(c) for c in SIM_COLS}
     bits = torch.clamp_min(p["bits"], 1.0)
-    cap = torch.as_tensor(np.array(cap_bits, np.float32), device=dev)
+    cap = torch.as_tensor(np.array(cap_bits, np.float32), device=dev)  # noqa: HS01 (the capacities to the card)
     p["tiles"] = torch.ceil(cap[None, :] / bits)      # scorer's tiling rule
     p["interval_s"] = refresh_mod.refresh_interval_s(p["retention_s"],
                                                      policy.refresh_margin)
@@ -330,7 +330,7 @@ def simulate_traces(cols: Mapping[str, np.ndarray], idx: np.ndarray,
     params = _gather_params(cols, idx, t0.cap_bits, policy, dev)
 
     def f32(a):
-        return torch.as_tensor(np.array(a, np.float32), device=dev)
+        return torch.as_tensor(np.array(a, np.float32), device=dev)  # noqa: HS01 (a trace array to the card)
     slot = {"cap_bits": f32(t0.cap_bits), "lifetime_s": f32(t0.lifetime_s)}
     route = "oracle" if oracle else "torch"
     obs.counter(f"kernels.dispatch.sim_replay.{route}").inc()
@@ -351,7 +351,7 @@ def simulate_traces(cols: Mapping[str, np.ndarray], idx: np.ndarray,
             xs = (f32(tr.t_bin_s), f32(tr.reads.T), f32(tr.write_bits.T),
                   f32(tr.occupancy.T))
             with obs.span("sim.replay_phase", probe=_C_BUILDS, phase=tr.phase):
-                out = replay(params, slot, xs, consts).cpu().numpy()
+                out = replay(params, slot, xs, consts).cpu().numpy()  # noqa: HS01 (the metrics live on the host)
             per_phase[tr.phase] = _mask_sentinels(
                 {m: out[i].astype(np.float64)
                  for i, m in enumerate(SIM_METRICS)}, bad)

@@ -186,7 +186,7 @@ def make_train_step(cfg, *, base_lr: float = 3e-4, warmup: int = 200,
 def _tensor(x, device) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.asarray(x))
-    return x.to(device)
+    return x.to(device)  # noqa: HS01 (the batch to the card)
 
 
 def _row_max(mesh, spec):

@@ -1285,3 +1285,66 @@ def test_sharded_checkpoint_round_trip_across_meshes(cuda, tmp_path):
     for k in ("same_mesh", "data_mesh", "one_device", "to_mesh"):
         assert res[k] is True, k
     assert res["data_mesh_placed"] == (n,)
+
+
+# the launch verifier and the host-sync witness (repro_torch.analysis)
+ANALYSIS_ROOT = __import__("pathlib").Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lib", ["retention", "ssm_scan", "ssm_scan_bwd",
+                                 "flash_attention", "flash_attention_bwd"])
+def test_guarded_launches_write_exactly_their_outputs(cuda, lib):
+    """LG02-LG04: every card profile of ``lib`` launched twice directly in
+    guarded buffers: no sentinel left, no guard band or input touched, no
+    NaN where the plain version is finite, bit-equal twice."""
+    from repro_torch.analysis.semantic import lg
+    profiles = [p for p in lg.card_profiles() if p.lib == lib]
+    assert profiles
+    issues = {p.label + " " + p.route: lg.run_card_profile(p, cuda, i)
+              for i, p in enumerate(profiles)}
+    assert not any(issues.values()), {k: v for k, v in issues.items() if v}
+
+
+@pytest.mark.cuda
+def test_host_sync_witness_on_the_decode_step(cuda):
+    """Every sync of the reduced hymba's warm decode step lies on a line
+    the static HS tier flags."""
+    from repro_torch.analysis.astutil import Project
+    from repro_torch.analysis.semantic import witness
+    sites = witness.witness_path(ANALYSIS_ROOT, witness.PATHS["decode"],
+                                 cuda)
+    assert sites
+    assert witness.unflagged(Project(ANALYSIS_ROOT), sites) == []
+
+
+@pytest.mark.cuda
+def test_every_route_the_entry_points_launch_is_profiled(cuda):
+    """LG05 on the card and RC02: the entry points' launches take profiled
+    routes, and a repeat drive builds and loads nothing."""
+    from repro_torch.analysis.semantic import capture, lg, rc
+    with capture.capture_launches(ANALYSIS_ROOT) as caps:
+        first, repeat, errors = rc.audit_builds(cuda)
+    assert errors == [] and repeat == (0, 0)
+    assert {c.library for c in caps} == set(lg.WRAPPERS)
+    assert lg.check_routes_seen([(c.library, c.route, c.path, c.line)
+                                 for c in caps]) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,S,D", [
+    (torch.float32, 65536, 64, 16),          # dim3(n_kt, B*K), dim3(n_qt, B*H)
+    (torch.bfloat16, 1, 64 * 32768, 64),     # q tiles + combine rows on y
+], ids=["f32-batch-heads", "bf16-q-tiles"])
+def test_backward_launch_refuses_a_grid_past_65535_on_y(cuda, dtype, B, S,
+                                                       D):
+    """The attention backward's launch function refuses a shape whose grid
+    y would pass 65,535 (``lg.launch_refuses`` models it; LG01 checks the
+    shapes it takes)."""
+    from repro_torch.kernels import flash_attention as kflash
+    q, k, v = (torch.randn(B, 1, S, D, device=cuda, dtype=dtype)
+               for _ in range(3))
+    o = torch.zeros_like(q)
+    lse = torch.zeros(B, 1, S, device=cuda)
+    with pytest.raises(RuntimeError, match="invalid configuration"):
+        kflash.flash_attention_bwd(q, k, v, o, o, lse)
