@@ -127,11 +127,16 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             internlm2-1.8b's (4, 16, 8, 1,128, 128) and moonshot's (4, 16,
             16, 1,128, 128) in bf16, and granite-34b's MQA heads (1, 48, 1,
             1,128, 128) (the dense family's (128, 128) backward,
-            ``dkdv_kernel_wg2`` / ``dq_kernel_wg2``: their registers,
-            spills and ptxas's wgmma notes printed; the phase fails unless
-            they run on wgmma with no spill stores; each timed case prints
-            how many query heads a dK/dV block sums and whether the launch
-            wrote fp32 partials and combined them), and
+            ``dkdv_kernel_wg2`` / ``dq_kernel_wg2``), phi-3-vision-4.2b's
+            (4, 32, 32, 1,128, 96) in bf16, GQA at D = 96 under
+            ``kflash.SUM_HEADS_BLOCKS`` dK/dV blocks (1, 8, 2, 1,128: per-
+            head partials and the combine) and D = 96 with a window and a
+            sink (the two-warpgroup pair at (96, 96), on three 32-column
+            slabs a row; the wg2 kernels' registers, spills and ptxas's
+            wgmma notes printed at (128, 128) and (96, 96); the phase fails
+            unless they run on wgmma with no spill stores; each timed case
+            prints how many query heads a dK/dV block sums and whether the
+            launch wrote fp32 partials and combined them), and
             small shapes in bf16 and float32; the scan at (4, 1,128, 3,200,
             16) and small shapes, float32; max|kernel - plain| / max|plain|
             per gradient against ``RTOL_ATTN_BWD`` / ``RTOL_SSM_BWD``; at
@@ -362,7 +367,17 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
             flagged). It prints the findings per family, each path's syncs,
             those with no frame of the port and the top three sites, the
             guarded launches and its seconds, and fails on any active
-            finding or unflagged sync.
+            finding or unflagged sync;
+43. train-vision phi-3-vision-4.2b at full width and depth in bf16
+            (3,833,662,464 parameters, 32 layers of 32 heads of 96), trained
+            as phase 20 for ``TRAIN_VISION_STEPS`` steps on phase 20's batch
+            (576 patches of 1,024 through the projector and 552 text
+            tokens; the loss over the text): every loss and grad_norm
+            finite; 64 forward attention launches a step, all on
+            ``flash_kernel_wg``, and 32 backward ones, all on the
+            two-warpgroup wgmma pair at (96, 96); no plain dispatch; step
+            seconds, tokens/s, peak memory, MFU and a profiled warm step
+            with the attention backward's share.
 
 Each phase prints its seconds. It prints one ``{"kernels": [...]}`` line,
 then, last, the ``{"ok": true, "device": {...}}`` line.
@@ -528,17 +543,23 @@ RTOL_SSM_BWD = 1e-4
 # sliding-window layers; the global ones), internlm2-1.8b's (phase 40's
 # batch: 16 heads of 128 on 8 kv heads; a dK/dV block sums a kv head's 2),
 # moonshot-v1-16b-a3b's on the same batch (16 heads of 128, as many kv
+# heads), phi-3-vision-4.2b's (phase 43's batch: 32 heads of 96, as many kv
 # heads), granite-34b's MQA heads on one sequence (48 on one kv head: a
 # dK/dV block a query head, fp32 partials and the dQ launch's combine),
-# and small shapes in both dtypes (the reduced hymba's layer: window 16, 4
+# GQA at D = 96 under SUM_HEADS_BLOCKS dK/dV blocks (partials and the
+# combine), D = 96 with a window and a sink, and small shapes in both
+# dtypes (the reduced hymba's layer: window 16, 4
 # meta tokens, D 16); the first ATTN_BWD_TIMED are bit-equal twice and
 # timed
-ATTN_BWD_TIMED = ("SWA", "global", "internlm2", "moonshot")
+ATTN_BWD_TIMED = ("SWA", "global", "internlm2", "moonshot", "phi")
 ATTN_BWD_CASES = [(4, 25, 5, 1128, 64, 1024, 128, "bfloat16"),
                   (4, 25, 5, 1128, 64, None, 0, "bfloat16"),
                   (4, 16, 8, 1128, 128, None, 0, "bfloat16"),
                   (4, 16, 16, 1128, 128, None, 0, "bfloat16"),
+                  (4, 32, 32, 1128, 96, None, 0, "bfloat16"),
                   (1, 48, 1, 1128, 128, None, 0, "bfloat16"),
+                  (1, 8, 2, 1128, 96, None, 0, "bfloat16"),
+                  (2, 4, 2, 300, 96, 100, 20, "bfloat16"),
                   (2, 4, 2, 300, 64, 100, 20, "bfloat16"),
                   (2, 4, 2, 300, 64, 100, 20, "float32"),
                   (4, 4, 2, 68, 16, 16, 4, "float32")]
@@ -619,6 +640,11 @@ DENSE_SERVE = ("granite-34b", "qwen3-32b", "qwen3-8b", "internlm2-1.8b")
 # phase 40: internlm2-1.8b trained at full width and depth on phase 20's
 # batch (1.89 B parameters, ~23 GB at 12 bytes each)
 TRAIN_DENSE, TRAIN_DENSE_STEPS = "internlm2-1.8b", 4
+# phase 43: phi-3-vision-4.2b trained at full width and depth on phase 20's
+# batch (576 patches and 552 text tokens a row), nothing cut: its
+# parameters (phase 27's count), ~46 GB at 12 bytes each
+TRAIN_VISION, TRAIN_VISION_STEPS = "phi-3-vision-4.2b", 4
+TRAIN_VISION_PARAMS = 3_833_662_464
 # phase 41: the train example's steps (at 50 or more it checks that the
 # loss decreased)
 EXAMPLE_TRAIN_STEPS = 50
@@ -1996,22 +2022,24 @@ def backward_kernels_phase(seed: int):
               + ("fp32 partials and the combine" if partials else
                  "no partials, no combine"), flush=True)
         del leaves
-    route, kernels, notes = bwd_kernels(128, 128)
-    out["flash_attention_bwd"]["registers_128"] = kernels
-    out["flash_attention_bwd"]["ptxas_notes_128"] = notes
-    print(f"route flash_attention_bwd bf16 (128, 128): {route}; "
-          + "; ".join(f"{n} {r.get('registers')} registers, "
-                      f"{r.get('spill_stores')} B of spill stores, "
-                      f"{r.get('spill_loads')} B of spill loads"
-                      for n, r in sorted(kernels.items())), flush=True)
-    for line in notes:
-        print(f"ptxas: {line}", flush=True)
-    spilled = {n: r for n, r in kernels.items()
-               if r.get("spill_stores", 0) > 0}
-    if route != "wgmma" or spilled or len(kernels) != 2:
-        fail(f"the bf16 attention backward at (128, 128) runs {sorted(kernels)}"
-             f" on {route}, spills {spilled}: want dkdv_kernel_wg2 and "
-             f"dq_kernel_wg2 on wgmma, no spill stores")
+    for D in (128, 96):
+        route, kernels, notes = bwd_kernels(D, D)
+        out["flash_attention_bwd"][f"registers_{D}"] = kernels
+        out["flash_attention_bwd"][f"ptxas_notes_{D}"] = notes
+        print(f"route flash_attention_bwd bf16 ({D}, {D}): {route}; "
+              + "; ".join(f"{n} {r.get('registers')} registers, "
+                          f"{r.get('spill_stores')} B of spill stores, "
+                          f"{r.get('spill_loads')} B of spill loads"
+                          for n, r in sorted(kernels.items())), flush=True)
+        for line in notes:
+            print(f"ptxas: {line}", flush=True)
+        spilled = {n: r for n, r in kernels.items()
+                   if r.get("spill_stores", 0) > 0}
+        want = {f"dkdv_kernel_wg2<{D}, {D}>", f"dq_kernel_wg2<{D}, {D}>"}
+        if route != "wgmma" or spilled or set(kernels) != want:
+            fail(f"the bf16 attention backward at ({D}, {D}) runs "
+                 f"{sorted(kernels)} on {route}, spills {spilled}: want "
+                 f"{sorted(want)} on wgmma, no spill stores")
     shape = SSM_BWD_SHAPES[0]
     xs = ssm_inputs(shape, seed, dev)
     dy = ssm_inputs(shape, seed + 1, dev)[0]
@@ -2063,10 +2091,11 @@ def device_gaps(prof, top: int = 3):
 
 def model_flops(cfg, batch: int, seq: int) -> float:
     """FLOPs of one training step of a dense-layer model (hymba, the
-    dense family, or deepseek-v3 cut to its dense layers) at (batch, seq):
-    6 per matrix
+    dense family, phi-3-vision, or deepseek-v3 cut to its dense layers) at
+    (batch, seq): 6 per matrix
     weight per token (forward and backward; the head over the text
-    positions that predict), plus the attention's 3 x 2 (Dqk + Dv) per
+    positions that predict; a vision model's projector over its patches),
+    plus the attention's 3 x 2 (Dqk + Dv) per
     visible score per head. Remat's recomputation is not counted (model
     FLOPs)."""
     from repro_torch.models import LM, build_plan
@@ -2083,9 +2112,12 @@ def model_flops(cfg, batch: int, seq: int) -> float:
         return 0
     body = sum(count(spec[seg]) for seg in spec if isinstance(spec[seg],
                                                                 dict))
-    text = seq - cfg.meta_tokens
+    text = seq - prefix_positions(cfg)
     flops = 6 * body * batch * seq + 6 * spec["head"].numel() * batch * (
         text - 1)
+    if cfg.vision:
+        flops += 6 * sum(w.numel() for w in spec["vis_proj"].values()) \
+            * batch * cfg.num_patches
     dqk, dv = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
                if cfg.mla else (cfg.head_dim, cfg.head_dim))
     for seg in build_plan(cfg):
@@ -2095,11 +2127,18 @@ def model_flops(cfg, batch: int, seq: int) -> float:
     return float(flops)
 
 
+def prefix_positions(cfg) -> int:
+    """The positions in front of the text: a vision model's patches and the
+    meta tokens (``LM._prefix``)."""
+    return (cfg.num_patches if cfg.vision else 0) + (cfg.meta_tokens or 0)
+
+
 def training_phase(seed: int, smi: str, arch: str = "hymba-1.5b",
                    overrides=None, steps: int = TRAIN_STEPS):
     """Phase 20: full-width hymba-1.5b trained for ``TRAIN_STEPS`` steps;
-    phase 33: ``TRAIN_MLA``'s cut of deepseek-v3 for ``TRAIN_MLA_STEPS``
-    (see the module docstring). Returns its stats."""
+    phase 33: ``TRAIN_MLA``'s cut of deepseek-v3 for ``TRAIN_MLA_STEPS``;
+    phases 40 and 43: ``TRAIN_DENSE`` and ``TRAIN_VISION`` whole (see the
+    module docstring). Returns its stats."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2186,13 +2225,15 @@ def training_phase(seed: int, smi: str, arch: str = "hymba-1.5b",
     tokens = TRAIN_BATCH * TRAIN_SEQ
     stats = {"params": n_params, "first_s": rows[0]["s"], "warm_s": warm,
              "tokens_per_s": tokens / warm,
-             "text_tokens_per_s": TRAIN_BATCH * (TRAIN_SEQ - cfg.meta_tokens)
+             "text_tokens_per_s": TRAIN_BATCH * (TRAIN_SEQ
+                                                 - prefix_positions(cfg))
              / warm, "peak_bytes": peak, "model_flops": flops,
              "mfu": flops / warm / PEAK_BF16_TC, "steps": rows,
              "launches": launches, "plain_dispatches": plain_calls}
     print(f"train: {cfg.name} ({L} layers) {n_params:,} parameters "
           f"({cfg.dtype}), remat full, "
-          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens ({cfg.meta_tokens} meta): "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens ({prefix_positions(cfg)} "
+          f"in front of the text): "
           f"step {rows[0]['s']:.4f} s first, {warm:.4f} s warm (median of "
           f"{len(rows) - 1}); {tokens / warm:,.0f} tokens/s; peak memory "
           f"{peak / 2**30:.2f} GiB; model FLOPs {flops:.4e} a step, "
@@ -4004,6 +4045,20 @@ def main() -> int:
     analysis_phase(args.seed, t_start)
     phase_done(42, "analysis", t_phase)
 
+    # 43. train phi-3-vision-4.2b at full width and depth -------------------
+    t_phase = time.perf_counter()
+    train_vision = training_phase(args.seed, smi, TRAIN_VISION,
+                                  steps=TRAIN_VISION_STEPS)
+    vcfg = get_config(TRAIN_VISION)
+    off = [r["bwd_wg_launches"] for r in train_vision["steps"]
+           if r["bwd_wg_launches"] != vcfg.num_layers
+           or r["wg_launches"] != 2 * vcfg.num_layers]
+    if train_vision["params"] != TRAIN_VISION_PARAMS or off:
+        fail(f"{TRAIN_VISION} training: {train_vision['params']:,} "
+             f"parameters (want {TRAIN_VISION_PARAMS:,}), steps whose "
+             f"backward launches were not all on wgmma: {off}")
+    phase_done(43, f"train {TRAIN_VISION}", t_phase)
+
     main_shape = shapes["main"]
     wg_main = moe_kernels["timing"][str(MOE_ATTN_SHAPES[0])]
     warm = serve["warm"]
@@ -4056,6 +4111,8 @@ def main() -> int:
                                 **dense_serve}.items()},
             f"train_{TRAIN_DENSE}_step":
                 train_dense["steps"][0]["launches"]["flash_attention"],
+            f"train_{TRAIN_VISION}_step":
+                train_vision["steps"][0]["launches"]["flash_attention"],
             **{f"example_{k}": v["launches"]["flash_attention"]
                for k, v in examples.items()}},
         "moe_family": {"kernel_checks": moe_kernels, "serve": moe_serve,
@@ -4098,7 +4155,9 @@ def main() -> int:
             "train_hymba_step": train["steps"][0]["wg_launches"],
             "train_deepseek_step": train_mla["steps"][0]["wg_launches"],
             f"train_{TRAIN_DENSE}_step":
-                train_dense["steps"][0]["wg_launches"]}}, {
+                train_dense["steps"][0]["wg_launches"],
+            f"train_{TRAIN_VISION}_step":
+                train_vision["steps"][0]["wg_launches"]}}, {
         "name": "ssm_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:50",
@@ -4123,9 +4182,11 @@ def main() -> int:
         "instantiation": "bf16: dkdv_kernel_wg<64, 64> / dq_kernel_wg<64, "
                          "64> (hymba, wgmma, one warpgroup a block), "
                          "dkdv_kernel_wg2<128, 128> / dq_kernel_wg2<128, "
-                         "128> (the dense family, moonshot; wgmma, two "
-                         "warpgroups a block), dkdv_kernel_tc / dq_kernel_tc "
-                         "(mma.sync) at the other pairs; the float32 pair",
+                         "128> (the dense family, moonshot) and <96, 96> "
+                         "(phi-3-vision; three 32-column slabs a row in the "
+                         "64-byte swizzle) on wgmma, two warpgroups a "
+                         "block, dkdv_kernel_tc / dq_kernel_tc (mma.sync) "
+                         "at the reduced configs' pairs; the float32 pair",
         "launches": train["launches"]["flash_attention_bwd"],
         "max_abs_err": max(c["max_abs_err"]
                            for c in bwd["flash_attention_bwd"]["cases"]),
@@ -4141,21 +4202,27 @@ def main() -> int:
         "global": bwd["flash_attention_bwd"]["global"],
         "internlm2": bwd["flash_attention_bwd"]["internlm2"],
         "moonshot": bwd["flash_attention_bwd"]["moonshot"],
-        "registers_128": bwd["flash_attention_bwd"]["registers_128"],
-        "ptxas_notes_128": bwd["flash_attention_bwd"]["ptxas_notes_128"],
+        "phi": bwd["flash_attention_bwd"]["phi"],
+        **{k: bwd["flash_attention_bwd"][k] for k in (
+            "registers_128", "ptxas_notes_128", "registers_96",
+            "ptxas_notes_96")},
         "wgmma_launches_by_path": {
             "train_hymba_step": train["steps"][0]["bwd_wg_launches"],
             f"train_{TRAIN_DENSE}_step": train_dense["steps"][0][
+                "bwd_wg_launches"],
+            f"train_{TRAIN_VISION}_step": train_vision["steps"][0][
                 "bwd_wg_launches"]},
         "launches_by_path": {
             "train_hymba_step": train["launches"]["flash_attention_bwd"],
             f"train_{TRAIN_DENSE}_step": train_dense["steps"][0][
                 "launches"]["flash_attention_bwd"],
+            f"train_{TRAIN_VISION}_step": train_vision["steps"][0][
+                "launches"]["flash_attention_bwd"],
             **{f"train_{a}_reduced": p["bwd_launches"]["flash_attention_bwd"]
                for a, p in dense_parity.items()},
             "example_train_lm": examples["torch_train_lm"]["launches"][
                 "flash_attention_bwd"]},
-        "train_dense": train_dense,
+        "train_dense": train_dense, "train_vision": train_vision,
         "shape": [B, H, K, S, D], "train": train,
         "sharded_train_launches": sharded_launches["flash_attention_bwd"],
         "sharded": sharded}, {

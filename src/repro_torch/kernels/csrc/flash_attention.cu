@@ -324,18 +324,6 @@ constexpr bool wgmma_forward() {
          ((D == 128 || D == 192) && DV == 128);
 }
 
-// the columns of a slab of the wgmma forward at (D, DV): 64, in the
-// 128-byte swizzle, where both are multiples of 64; else (D = DV = 96) 32,
-// in the 64-byte swizzle, three slabs a row. (With 64 at D = 96 the rows
-// are zero-filled to two 64-column slabs in shared memory, a quarter of
-// the products on zeros: 22 % slower with p in float32 and 11 % with p
-// rounded at phi-3-vision's prefill on an H100,
-// tools/attention_fwd_variants.py.)
-template <int D, int DV>
-__host__ __device__ constexpr int wg_slab_cols() {
-  return D % 64 == 0 && DV % 64 == 0 ? 64 : 32;
-}
-
 // the consumer warpgroups of a block at (D, DV), each owning 64 rows of
 // the block's q tile. (Three, on 192-row q tiles, ran 3.8 % faster at
 // hymba's S = 1,128 with p in float32, but 6.5 % slower at musicgen's S =
@@ -349,22 +337,22 @@ __host__ __device__ constexpr int wg_consumers() {
 // The block's shape with NC consumers: its threads; the registers a
 // consumer and a producer thread hold after setmaxnreg (NC x 128 x consumer
 // + 128 x producer <= 65,536: at two consumers 232 / 40 where the producer
-// loads whole 64-column slabs (at the 168 a thread an even split leaves,
-// ptxas waits for a product early to free registers, and the kernel ran
-// slower), 216 / 72 where it loads rows of other widths (load_rows' general
-// loop spilled 60 B at 40 at D = 96); at three 152 / 56); the ring of (K,
-// V) tile pairs, tile i of the walk in slot i % kSlots, refilled once every
-// consumer's products that read it are done; and the named barriers (0 is
-// __syncthreads'): the issue turns of the consumers (kBarTurn + w), slot s
-// loaded, to consumer w (kBarFull + NC s + w), slot s free, to the producer
-// (kBarEmpty + s)
-template <int NC, bool kWholeSlabs>
+// loads 64-column slabs (at the 168 a thread an even split leaves, ptxas
+// waits for a product early to free registers, and the kernel ran slower),
+// 216 / 72 where it loads 32-column ones (at 40, a loader of a row's 16-byte
+// chunks by division spilled 60 B at D = 96); at three 152 / 56); the ring
+// of (K, V) tile pairs, tile i of the walk in slot i % kSlots, refilled
+// once every consumer's products that read it are done; and the named
+// barriers (0 is __syncthreads'): the issue turns of the consumers
+// (kBarTurn + w), slot s loaded, to consumer w (kBarFull + NC s + w), slot
+// s free, to the producer (kBarEmpty + s)
+template <int NC, bool kSlabs64>
 struct WgShape {
   static_assert(NC != 2 || 2 * kBQ == kBQWG, "two consumers: kBQWG rows");
   static constexpr int kThreads = (NC + 1) * kThreadsTC;
-  static constexpr int kRegsConsumer = NC == 2 ? (kWholeSlabs ? 232 : 216)
+  static constexpr int kRegsConsumer = NC == 2 ? (kSlabs64 ? 232 : 216)
                                                : 152;
-  static constexpr int kRegsProducer = NC == 2 ? (kWholeSlabs ? 40 : 72)
+  static constexpr int kRegsProducer = NC == 2 ? (kSlabs64 ? 40 : 72)
                                                : 56;
   static constexpr int kSlots = NC == 2 ? 4 : 3;
   static constexpr int kBarTurn = 1, kBarFull = kBarTurn + NC,
@@ -377,13 +365,12 @@ struct WgShape {
 // the shape of a block at (D, DV)
 template <int D, int DV>
 using WgShapeOf =
-    WgShape<wg_consumers<D, DV>(), wg_slab_cols<D, DV>() == 64 &&
-                                       D % 64 == 0 && DV % 64 == 0>;
+    WgShape<wg_consumers<D, DV>(), slab_cols<D, DV>() == 64>;
 
 template <int D, int DV>
 constexpr size_t smem_bytes_wg() {
   // Q (each consumer's 64 rows), the ring, and 1 KB to align the slabs
-  constexpr int W = wg_slab_cols<D, DV>(), NC = wg_consumers<D, DV>();
+  constexpr int W = slab_cols<D, DV>(), NC = wg_consumers<D, DV>();
   constexpr int NQ = (D + W - 1) / W, NV = (DV + W - 1) / W;
   return (NC * NQ + WgShapeOf<D, DV>::kSlots * (NQ + NV)) * slab_bytes<W>() +
          1024;
@@ -478,8 +465,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&m)[2],
 // freed, and the softmax of S_i runs and P_i is made while the other
 // consumers' products are on the tensor cores. Every product is waited for
 // in the iteration that issues it: ptxas serializes wgmma whose wait lies
-// in a later iteration. Rows are W-column slabs (wg_slab_cols), zero-filled
-// past D and DV in shared memory.
+// in a later iteration. Rows are whole W-column slabs (slab_cols), zero-
+// filled past S and Sk in shared memory.
 template <int D, int DV, bool kSplitP>
 __global__ void __launch_bounds__((WgShapeOf<D, DV>::kThreads), 1)
 flash_kernel_wg(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
@@ -490,7 +477,7 @@ flash_kernel_wg(const __nv_bfloat16* __restrict__ q,   // (B, H, S, D)
                 int H, int K, int S, Mask mk, float scale) {
   constexpr int NC = wg_consumers<D, DV>();
   using Sh = WgShapeOf<D, DV>;
-  constexpr int W = wg_slab_cols<D, DV>(), kSlab = slab_bytes<W>();
+  constexpr int W = slab_cols<D, DV>(), kSlab = slab_bytes<W>();
   constexpr int NQ = (D + W - 1) / W, NV = (DV + W - 1) / W;   // slabs a row
   constexpr int NO = NV * W / 8;    // n-tiles of 8 columns of O's registers
   constexpr int kRows = 64 * NC;    // q rows a block

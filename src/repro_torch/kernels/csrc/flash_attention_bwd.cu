@@ -75,13 +75,15 @@
 //   - occupancy (-Xptxas -v): dK/dV 168 registers under its launch bound,
 //     3 blocks an SM; dQ 122 registers, 4 blocks; 51 KB of shared memory
 //     a block.
-// bf16 at (D, DV) = (128, 128) (the dense family's heads, moonshot's) and
-// MLA's (192, 128) (deepseek-v3's training path): wgmma too, with two
-// warpgroups a block (dkdv_kernel_wg2, dq_kernel_wg2). One warpgroup cannot
-// hold a dK/dV block's sums (at (192, 128) dK 96 fp32 registers a thread,
-// dV 64, S^T and dP^T 32 each; at (128, 128) 64 + 64 + 32 + 32: the
-// mma.sync kernels these replace held 255 registers and spilled 428 and 128
-// bytes). Of the two splits weighed -- (a) two consumer warpgroups sharing
+// bf16 at (D, DV) = (128, 128) (the dense family's heads, moonshot's),
+// MLA's (192, 128) (deepseek-v3's training path) and (96, 96)
+// (phi-3-vision-4.2b's heads): wgmma too, with two warpgroups a block
+// (dkdv_kernel_wg2, dq_kernel_wg2). One warpgroup cannot hold a dK/dV
+// block's sums (at (192, 128) dK 96 fp32 registers a thread, dV 64, S^T
+// and dP^T 32 each; at (128, 128) 64 + 64 + 32 + 32; at (96, 96) 48 + 48 +
+// 32 + 32 and the fixed A operand's 24 beside them: the mma.sync kernels
+// these replace held 255 registers and spilled 428 and 128 bytes at the
+// first two). Of the two splits weighed -- (a) two consumer warpgroups sharing
 // P^T and dS^T through shared memory, (b) dK and dV in blocks of their own,
 // S^T computed in both (+23 % of the stage's products at (192, 128)) --
 // this is (a), split by gradient rather than by columns: dK's and dV's 96 +
@@ -99,7 +101,14 @@
 //   - the streamed tiles (Q, dO with lse and Delta; K, V) are 64-column
 //     slabs in the 128-byte swizzle (D / 64 for Q and K, DV / 64 for dO and
 //     V), read K-major by the first products and MN-major by the second
-//     (m64n64k16 chains; m64n128k16 over two slabs, below); they pass
+//     (m64n64k16 chains; m64n128k16 over two slabs, below); at D = 96,
+//     whose 192-byte rows are no whole number of 128-byte lines, three
+//     32-column slabs in the 64-byte swizzle each (slab_cols, the
+//     forward's layout; load_rows fills them, ldsm_a_slabs reads the fixed
+//     A operands out of them): the first products six m64n64k16 k-steps,
+//     two a slab, the second one m64n96k16 a k-step over all three slabs
+//     (the descriptor's leading byte offset their stride), so that nothing
+//     is padded and no product runs on zeros; the tiles pass
 //     through a ring of three slots that warpgroup 1 fills two items ahead
 //     with cp.async and hands over at named barriers, and warpgroup 0 runs
 //     up to an item ahead of it;
@@ -138,12 +147,15 @@
 //     m64n128k16 a k-step, the same sums bit for bit as two m64n64k16;
 //     each choice measured by tools/attention_bwd_variants.py (PERF.md,
 //     PR 28);
-//   - 195 KB (192, 128) / 163 KB (128, 128) of shared memory and 256
-//     threads a block, one block an SM; -Xptxas -v: no spill stores
-//     (chip_smoke.py phase 19 prints the registers and fails on a spill).
-// Other bf16 (D, DV) -- (96, 96), (32, 32), (16, 16), (32, 16): mma.sync.
-// m16n8k16 with the same work split as D = 64 (dkdv_kernel_tc, dq_kernel_tc:
-// 4 warps of 16 keys or rows, ldmatrix fragments, rows padded by 16 bytes).
+//   - 195 KB (192, 128) / 163 KB (128, 128) / 130 KB (96, 96) of shared
+//     memory and 256 threads a block, one block an SM; -Xptxas -v: no spill
+//     stores (chip_smoke.py phase 19 prints the registers and fails on a
+//     spill).
+// The other bf16 (D, DV) -- the reduced configs' (32, 32), (16, 16), (32,
+// 16): mma.sync m16n8k16 with the same work split as D = 64 (dkdv_kernel_tc,
+// dq_kernel_tc: 4 warps of 16 keys or rows, ldmatrix fragments, rows padded
+// by 16 bytes); (96, 96) ran on them too before the two-warpgroup pair took
+// it.
 // fp32 inputs: IEEE fp32 FMAs out of shared memory (no TF32), four threads
 // a key (dK, dV) or a q row (dQ); their dK/dV kernel sums the G heads
 // inside the block. No --use_fast_math.
@@ -1036,7 +1048,8 @@ dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// wgmma at (D, DV) = (128, 128) and MLA's (192, 128): two warpgroups a block
+// wgmma at (D, DV) = (128, 128), MLA's (192, 128) and (96, 96): two
+// warpgroups a block
 // ---------------------------------------------------------------------------
 
 constexpr int kThreadsWG2 = 2 * kThreadsTC;
@@ -1152,8 +1165,9 @@ __device__ __forceinline__ void store_tile_bf16(const float (&acc)[N / 8][4],
 template <int D, int DV>
 constexpr size_t smem_bytes_wg2() {
   // the fixed pair's slabs (read once into registers) and kSlots of the
-  // streamed pair's, P in fp32 twice, kSlots x 2 x 64 floats of lse and
-  // Delta (dK/dV), and 1 KB to align the slabs
+  // streamed pair's (64 rows of D + DV bf16 each, whatever the slabs'
+  // width), P in fp32 twice, kSlots x 2 x 64 floats of lse and Delta
+  // (dK/dV), and 1 KB to align the slabs
   return (1 + kSlots) * (D + DV) / 64 * kTileBytes +
          sizeof(float) * (2 * kBQ * kBK + 2 * kSlots * kBQ) + 1024;
 }
@@ -1202,17 +1216,18 @@ __device__ __forceinline__ void dkdv_wg2_role(
     float* __restrict__ pk, float* __restrict__ pv, bf16* __restrict__ dk,
     bf16* __restrict__ dv, int H, int K, int S, const Mask& mk, float scale,
     int nh, int tile_slow) {
-  constexpr int NQ = D / 64, NV = DV / 64;   // slabs of a q / k, v / dO row
+  constexpr int W = slab_cols<D, DV>(), kSlab = slab_bytes<W>();
+  constexpr int NQ = D / W, NV = DV / W;     // slabs of a q / k, v / dO row
   constexpr int NA = kRole == 0 ? NQ : NV;   // slabs of the fixed A operand
-  constexpr int NO = kRole == 0 ? NV : NQ;   // 64-column pieces of the sum
+  constexpr int NO = kRole == 0 ? NV : NQ;   // slabs of the sum
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
-  const uint32_t k_s = base, v_s = base + NQ * kTileBytes;
-  const uint32_t q_s = v_s + NV * kTileBytes;              // kSlots x NQ
-  const uint32_t do_s = q_s + kSlots * NQ * kTileBytes;    // kSlots x NV
+  const uint32_t k_s = base, v_s = base + NQ * kSlab;
+  const uint32_t q_s = v_s + NV * kSlab;                   // kSlots x NQ
+  const uint32_t do_s = q_s + kSlots * NQ * kSlab;         // kSlots x NV
   float4* p_s = reinterpret_cast<float4*>(
-      smem_raw + (base - raw) + (1 + kSlots) * (NQ + NV) * kTileBytes);
+      smem_raw + (base - raw) + (1 + kSlots) * (NQ + NV) * kSlab);
   float* lse_s = reinterpret_cast<float*>(p_s + 16 * kThreadsTC);
   float* dl_s = lse_s + kSlots * kBQ;                      // kSlots x kBQ
 
@@ -1235,9 +1250,10 @@ __device__ __forceinline__ void dkdv_wg2_role(
     constexpr int NT = decltype(nt)::value;
     const long long qo = static_cast<long long>(blk.bh + (it >> 16)) * S;
     const int q0 = (it & 0xFFFF) * kBQ;
-    load_slabs<NQ, NT>(q_s + slot * NQ * kTileBytes, q + qo * D, q0, S, ltid);
-    load_slabs<NV, NT>(do_s + slot * NV * kTileBytes, dO + qo * DV, q0, S,
-                       ltid);
+    load_rows<W, NQ, NT, D>(q_s + slot * NQ * kSlab, q + qo * D, q0, S,
+                            ltid);
+    load_rows<W, NV, NT, DV>(do_s + slot * NV * kSlab, dO + qo * DV, q0, S,
+                             ltid);
     if (ltid < kBQ) {
       const int r = q0 + ltid;
       const long long i = qo + (r < S ? r : 0);
@@ -1251,8 +1267,9 @@ __device__ __forceinline__ void dkdv_wg2_role(
   // K, V and the first item by the whole block; the second by warpgroup 1,
   // handed over as every later one is
   const long long kv_row = static_cast<long long>(blk.kvh) * mk.Sk;
-  load_slabs<NQ, kThreadsWG2>(k_s, k + kv_row * D, blk.k0, mk.Sk, tid);
-  load_slabs<NV, kThreadsWG2>(v_s, v + kv_row * DV, blk.k0, mk.Sk, tid);
+  load_rows<W, NQ, kThreadsWG2, D>(k_s, k + kv_row * D, blk.k0, mk.Sk, tid);
+  load_rows<W, NV, kThreadsWG2, DV>(v_s, v + kv_row * DV, blk.k0, mk.Sk,
+                                    tid);
   int it = blk.next_item(mk, 0, S, nh);
   int it1 = it >= 0 ? blk.next_item(mk, it + 1, S, nh) : -1;
   if (it >= 0) load_item(All(), it, 0, tid);
@@ -1262,12 +1279,12 @@ __device__ __forceinline__ void dkdv_wg2_role(
   cp_async_wait<1>();
   fence_async_smem();
   bar_sync(0, kThreadsWG2);
-  uint32_t af[4 * NA][4];
-  ldsm_a_slabs<NA>(af, kRole == 0 ? k_s : v_s, warp * 16, lane);
+  uint32_t af[NA * W / 16][4];
+  ldsm_a_slabs<NA, W>(af, kRole == 0 ? k_s : v_s, warp * 16, lane);
 
-  float acc[8 * NO][4];
+  float acc[NO * W / 8][4];
 #pragma unroll
-  for (int j = 0; j < 8 * NO; ++j)
+  for (int j = 0; j < NO * W / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
   const float c2 = scale * kLog2e;
@@ -1278,7 +1295,7 @@ __device__ __forceinline__ void dkdv_wg2_role(
   // then; its result is unused): a wgmma in a branch would be serialized.
   float x[8][4];   // S^T, then P^T (role 0); dP^T, then dS^T (role 1)
   uint32_t xh[4][4], xl[4][4];
-  if (it >= 0) wg_product_t<NA>(x, af, kRole == 0 ? q_s : do_s);
+  if (it >= 0) wg_product_t<NA, W>(x, af, kRole == 0 ? q_s : do_s);
   for (int m = 0; it >= 0; ++m) {
     const int it2 = it1 >= 0 ? blk.next_item(mk, it1 + 1, S, nh) : -1;
     const int slot = m % kSlots, slot1 = (m + 1) % kSlots;
@@ -1287,8 +1304,8 @@ __device__ __forceinline__ void dkdv_wg2_role(
                 quad_col, c2);
       put_p(p_s, m, t, x);
       if (it1 >= 0) bar_sync(kBarSlot + slot1, kThreadsWG2);
-      issue_accumulate<NO>(acc, x, xh, xl, do_s + slot * NV * kTileBytes);
-      issue_product_t<NA>(x, af, q_s + slot1 * NQ * kTileBytes);
+      issue_accumulate<NO, W>(acc, x, xh, xl, do_s + slot * NV * kSlab);
+      issue_product_t<NA, W>(x, af, q_s + slot1 * NQ * kSlab);
     } else {
       if (it1 >= 0) slot_ready(m);
       const float4* p = get_p(p_s, m, t);
@@ -1306,10 +1323,10 @@ __device__ __forceinline__ void dkdv_wg2_role(
         x[j][2] = pj.z * (x[j][2] - d0);
         x[j][3] = pj.w * (x[j][3] - d1);
       }
-      issue_accumulate<NO>(acc, x, xh, xl, q_s + slot * NQ * kTileBytes);
-      issue_product_t<NA>(x, af, do_s + slot1 * NV * kTileBytes);
+      issue_accumulate<NO, W>(acc, x, xh, xl, q_s + slot * NQ * kSlab);
+      issue_product_t<NA, W>(x, af, do_s + slot1 * NV * kSlab);
     }
-    wg_done<NO>(acc, x);
+    wg_done(acc, x);
     it = it1;
     it1 = it2;
   }
@@ -1318,7 +1335,7 @@ __device__ __forceinline__ void dkdv_wg2_role(
     // staged where neither warpgroup reads any more once both are past
     // their walks: K's slabs and on into V's (role 0; 17 KB of stage, 16 KB
     // of K at D = 128) and P's buffers (role 1)
-    static_assert(64 * (DV + 8) * sizeof(bf16) <= (NQ + NV) * kTileBytes &&
+    static_assert(64 * (DV + 8) * sizeof(bf16) <= (NQ + NV) * kSlab &&
                   64 * (D + 8) * sizeof(bf16) <= 16 * kThreadsTC *
                                                      sizeof(float4),
                   "the dK / dV stage does not fit");
@@ -1370,15 +1387,16 @@ __device__ __forceinline__ void dq_wg2_role(
     const float* __restrict__ lse, const float* __restrict__ delta,
     bf16* __restrict__ dq, int H, int K, int S, const Mask& mk, float scale,
     int n_qt) {
-  constexpr int NQ = D / 64, NV = DV / 64;
+  constexpr int W = slab_cols<D, DV>(), kSlab = slab_bytes<W>();
+  constexpr int NQ = D / W, NV = DV / W;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
-  const uint32_t q_s = base, do_s = base + NQ * kTileBytes;
-  const uint32_t k_s = do_s + NV * kTileBytes;             // kSlots x NQ
-  const uint32_t v_s = k_s + kSlots * NQ * kTileBytes;     // kSlots x NV
+  const uint32_t q_s = base, do_s = base + NQ * kSlab;
+  const uint32_t k_s = do_s + NV * kSlab;                  // kSlots x NQ
+  const uint32_t v_s = k_s + kSlots * NQ * kSlab;          // kSlots x NV
   float4* p_s = reinterpret_cast<float4*>(
-      smem_raw + (base - raw) + (1 + kSlots) * (NQ + NV) * kTileBytes);
+      smem_raw + (base - raw) + (1 + kSlots) * (NQ + NV) * kSlab);
 
   // as in dK/dV: a head's q tiles adjacent (the last first), sharing K, V
   const QBlock blk(H, K, blockIdx.x % n_qt, n_qt, blockIdx.x / n_qt);
@@ -1396,16 +1414,16 @@ __device__ __forceinline__ void dq_wg2_role(
   auto load_tile = [&](auto nt, int i, int slot, int ltid) {
     constexpr int NT = decltype(nt)::value;
     const int k0 = tiles[i] * kBK;
-    load_slabs<NQ, NT>(k_s + slot * NQ * kTileBytes, kp, k0, Sk, ltid);
-    load_slabs<NV, NT>(v_s + slot * NV * kTileBytes, vp, k0, Sk, ltid);
+    load_rows<W, NQ, NT, D>(k_s + slot * NQ * kSlab, kp, k0, Sk, ltid);
+    load_rows<W, NV, NT, DV>(v_s + slot * NV * kSlab, vp, k0, Sk, ltid);
   };
   using All = std::integral_constant<int, kThreadsWG2>;
   using One = std::integral_constant<int, kThreadsTC>;
 
   // Q, dO and the first kv tile by the whole block; the second by
   // warpgroup 1, handed over as every later one is
-  load_slabs<NQ, kThreadsWG2>(q_s, q + q_row * D, blk.q0, S, tid);
-  load_slabs<NV, kThreadsWG2>(do_s, dO + q_row * DV, blk.q0, S, tid);
+  load_rows<W, NQ, kThreadsWG2, D>(q_s, q + q_row * D, blk.q0, S, tid);
+  load_rows<W, NV, kThreadsWG2, DV>(do_s, dO + q_row * DV, blk.q0, S, tid);
   if (tiles.n > 0) load_tile(All(), 0, 0, tid);
   cp_async_commit();
   if (kRole == 1 && tiles.n > 1) load_tile(One(), 1, 1, t);
@@ -1415,9 +1433,9 @@ __device__ __forceinline__ void dq_wg2_role(
   bar_sync(0, kThreadsWG2);
 
   if constexpr (kRole == 0) {
-    uint32_t qf[4 * NQ][4], df[4 * NV][4];
-    ldsm_a_slabs<NQ>(qf, q_s, warp * 16, lane);
-    ldsm_a_slabs<NV>(df, do_s, warp * 16, lane);
+    uint32_t qf[NQ * W / 16][4], df[NV * W / 16][4];
+    ldsm_a_slabs<NQ, W>(qf, q_s, warp * 16, lane);
+    ldsm_a_slabs<NV, W>(df, do_s, warp * 16, lane);
     float l2[2], dl[2];
     blk.rows(lse, delta, row0, S, l2, dl);
     const float c2 = scale * kLog2e;
@@ -1426,8 +1444,8 @@ __device__ __forceinline__ void dq_wg2_role(
       const int slot = m % kSlots;
       if (m > 0) bar_sync(kBarSlot + slot, kThreadsWG2);
       wg_fence();
-      issue_product_t<NQ>(x, qf, k_s + slot * NQ * kTileBytes);
-      issue_product_t<NV>(y, df, v_s + slot * NV * kTileBytes);
+      issue_product_t<NQ, W>(x, qf, k_s + slot * NQ * kSlab);
+      issue_product_t<NV, W>(y, df, v_s + slot * NV * kSlab);
       wg_commit();
       wg_wait_all();
       wg_fence_acc(x);
@@ -1440,9 +1458,9 @@ __device__ __forceinline__ void dq_wg2_role(
       put_p(p_s, m, t, x);
     }
   } else {
-    float acc[8 * NQ][4];   // dQ
+    float acc[NQ * W / 8][4];   // dQ
 #pragma unroll
-    for (int j = 0; j < 8 * NQ; ++j)
+    for (int j = 0; j < NQ * W / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
     float x[8][4];          // dS
@@ -1459,8 +1477,8 @@ __device__ __forceinline__ void dq_wg2_role(
         const float4 pj = p[j * kThreadsTC];
         x[j][0] = pj.x, x[j][1] = pj.y, x[j][2] = pj.z, x[j][3] = pj.w;
       }
-      issue_accumulate<NQ>(acc, x, xh, xl, k_s + (m % kSlots) * NQ * kTileBytes);
-      wg_done<NQ>(acc, x);
+      issue_accumulate<NQ, W>(acc, x, xh, xl, k_s + (m % kSlots) * NQ * kSlab);
+      wg_done(acc, x);
     }
     cp_async_wait<0>();
     // staged in P's buffers, past the last dS
@@ -1741,7 +1759,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 // whether the bf16 kernels at (D, Dv) are the two-warpgroup wgmma pair
 constexpr bool wg2_pair(int D, int Dv) {
-  return Dv == 128 && (D == 128 || D == 192);
+  return (Dv == 128 && (D == 128 || D == 192)) || (D == 96 && Dv == 96);
 }
 
 // the query heads a dK/dV block of the two-warpgroup pair takes: the kv

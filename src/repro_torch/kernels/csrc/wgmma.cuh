@@ -1,9 +1,9 @@
 // The Hopper wgmma machinery of the bf16 attention kernels
 // (flash_attention.cu's forward at D = 64, 96, 128 and (192, 128),
-// flash_attention_bwd.cu's backward at D = 64, (128, 128) and (192, 128)):
-// 64-row tiles of 64 bf16 columns ("slabs") in shared memory in the
-// 128-byte swizzle, and (the forward at D = 96, whose 192-byte rows are no
-// whole number of them) of 32 columns in the 64-byte swizzle, filled by
+// flash_attention_bwd.cu's backward at D = 64, 96, (128, 128) and (192,
+// 128)): 64-row tiles of 64 bf16 columns ("slabs") in shared memory in the
+// 128-byte swizzle, and (at D = 96, whose 192-byte rows are no whole
+// number of them) of 32 columns in the 64-byte swizzle, filled by
 // cp.async; their wgmma descriptors; wgmma m64n64k16 with A from shared
 // memory or registers (and m64n128k16 over two 64-column slabs, m64n96k16
 // over three 32-column ones, A in registers); the fences and waits around
@@ -104,6 +104,16 @@ __device__ __forceinline__ uint32_t slab_at(int r, int c) {
 template <int W>
 __device__ __forceinline__ uint64_t slab_desc(uint32_t addr) {
   return W == 64 ? desc_sw128(addr) : desc_sw64(addr);
+}
+// the columns of a slab of the wgmma attention kernels at (D, DV): 64, in
+// the 128-byte swizzle, where both are multiples of 64; else (D = DV = 96,
+// 192-byte rows) 32, in the 64-byte swizzle, three slabs a row. (With 64 at
+// D = 96 the rows are zero-filled to two 64-column slabs in shared memory,
+// a quarter of the products on zeros: the forward ran 22 % slower with p in
+// float32 and 11 % with p rounded at phi-3-vision's prefill on an H100.)
+template <int D, int DV>
+__host__ __device__ constexpr int slab_cols() {
+  return D % 64 == 0 && DV % 64 == 0 ? 64 : 32;
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -257,54 +267,29 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// rows [row0, row0 + 64) of src (n_rows rows of 64 NS bf16) into NS
-// swizzled slabs at shared address dst (slab s: columns 64 s..), by NT
-// threads (tid < NT), 512 / NT 16-byte chunks a thread a slab, eight
-// neighbouring threads on a row's 128 bytes; rows past n_rows are
+// rows [row0, row0 + 64) of src (n_rows rows of kCols = NS W bf16) into NS
+// swizzled slabs of W columns at shared address dst (slab s: columns W s..),
+// by NT threads (tid < NT): a thread's 16-byte chunk of every slab at one
+// offset, W / 8 neighbouring threads on a slab row's 2 W bytes, 64 W / 8 /
+// NT chunks a thread a slab, every index by shifts; rows past n_rows are
 // zero-filled
-template <int NS, int NT>
-__device__ __forceinline__ void load_slabs(uint32_t dst,
-                                           const __nv_bfloat16* src,
-                                           int row0, int n_rows, int tid) {
-#pragma unroll
-  for (int m = 0; m < 64 * 8 / NT; ++m) {
-    const int i = tid + m * NT, r = i >> 3, c = i & 7;
-    const bool in = row0 + r < n_rows;
-    const __nv_bfloat16* row =
-        src + static_cast<long long>(in ? row0 + r : 0) * (64 * NS) + 8 * c;
-#pragma unroll
-    for (int s = 0; s < NS; ++s)
-      cp_async16(dst + s * kTileBytes + sw128(r, c), row + 64 * s,
-                 in ? 16 : 0);
-  }
-}
-
-// rows [row0, row0 + 64) of src (n_rows rows of kCols bf16) into NS slabs
-// of W columns at shared address dst (slab s: columns W s..), by NT threads
-// (tid < NT), neighbouring threads on neighbouring 16-byte chunks of a row;
-// rows past n_rows and columns past kCols are zero-filled. Whole rows of
-// 64-column slabs go through load_slabs.
 template <int W, int NS, int NT, int kCols>
 __device__ __forceinline__ void load_rows(uint32_t dst,
                                           const __nv_bfloat16* src, int row0,
                                           int n_rows, int tid) {
-  if constexpr (W == 64 && kCols == 64 * NS) {
-    load_slabs<NS, NT>(dst, src, row0, n_rows, tid);
-  } else {
-    constexpr int kChunks = W / 8, kRowChunks = NS * kChunks;
-    static_assert(kCols % 8 == 0 && kCols <= NS * W &&
-                      64 * kRowChunks % NT == 0,
-                  "whole 16-byte chunks, NS slabs wide, NT threads");
+  constexpr int kChunks = W / 8, kShift = W == 64 ? 3 : 2;
+  static_assert(kCols == NS * W, "whole rows of NS slabs");
+  static_assert(64 * kChunks % NT == 0, "whole rows of NT threads");
 #pragma unroll
-    for (int m = 0; m < 64 * kRowChunks / NT; ++m) {
-      const int i = tid + m * NT, r = i / kRowChunks, cc = i % kRowChunks;
-      const bool in = row0 + r < n_rows && cc < kCols / 8;
-      cp_async16(dst + (cc / kChunks) * slab_bytes<W>() +
-                     slab_at<W>(r, cc % kChunks),
-                 src + (in ? static_cast<long long>(row0 + r) * kCols + 8 * cc
-                           : 0),
-                 in ? 16 : 0);
-    }
+  for (int m = 0; m < 64 * kChunks / NT; ++m) {
+    const int i = tid + m * NT, r = i >> kShift, c = i & (kChunks - 1);
+    const bool in = row0 + r < n_rows;
+    const __nv_bfloat16* row =
+        src + static_cast<long long>(in ? row0 + r : 0) * kCols + 8 * c;
+    const uint32_t at = dst + slab_at<W>(r, c);
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      cp_async16(at + s * slab_bytes<W>(), row + W * s, in ? 16 : 0);
   }
 }
 
@@ -315,17 +300,19 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// the register A operands of rows [r0, r0 + 16) of NS swizzled slabs at t,
-// every k-step kk (16 columns, in slab kk / 4): ldmatrix, lane l at row
-// r0 + l % 16, 16-byte chunk 2 (kk % 4) + l / 16
-template <int NS>
-__device__ __forceinline__ void ldsm_a_slabs(uint32_t (&a)[4 * NS][4],
+// the register A operands of rows [r0, r0 + 16) of NS swizzled slabs of W
+// columns at t, every k-step kk (16 columns, in slab kk / (W / 16)):
+// ldmatrix, lane l at row r0 + l % 16, 16-byte chunk 2 (kk % (W / 16)) + l
+// / 16 of its slab
+template <int NS, int W = 64>
+__device__ __forceinline__ void ldsm_a_slabs(uint32_t (&a)[NS * W / 16][4],
                                              uint32_t t, int r0, int lane) {
+  constexpr int kSteps = W / 16;
   const int r = r0 + (lane & 15);
 #pragma unroll
-  for (int kk = 0; kk < 4 * NS; ++kk)
-    ldsm_x4(a[kk], t + (kk >> 2) * kTileBytes +
-                       sw128(r, 2 * (kk & 3) + (lane >> 4)));
+  for (int kk = 0; kk < kSteps * NS; ++kk)
+    ldsm_x4(a[kk], t + (kk / kSteps) * slab_bytes<W>() +
+                       slab_at<W>(r, 2 * (kk % kSteps) + (lane >> 4)));
 }
 
 // piece s (columns 64 s..) of a 64-row accumulator 8 N wide, as the m64n64
@@ -336,16 +323,20 @@ __device__ __forceinline__ Acc64& piece(float (&acc)[N][4], int s) {
   return *reinterpret_cast<Acc64*>(acc[8 * s]);
 }
 
-// issue c (64 x 64) = a (64 rows, 16 NS columns, register A operands)
-// b^T, b the 64 rows of NS swizzled slabs at b_s read K-major
-template <int NS>
-__device__ __forceinline__ void issue_product_t(float (&c)[8][4],
-                                                const uint32_t (&a)[4 * NS][4],
-                                                uint32_t b_s) {
+// issue c (64 x 64) = a (64 rows, W NS columns, register A operands)
+// b^T, b the 64 rows of NS swizzled slabs of W columns at b_s read
+// K-major, W / 16 k-steps a slab (descriptors by constant steps from the
+// first, as issue_product_ss's)
+template <int NS, int W = 64>
+__device__ __forceinline__ void issue_product_t(
+    float (&c)[8][4], const uint32_t (&a)[NS * W / 16][4], uint32_t b_s) {
+  constexpr int kSteps = W / 16;
+  const uint64_t db = slab_desc<W>(b_s);
 #pragma unroll
-  for (int kk = 0; kk < 4 * NS; ++kk)
-    wgmma_rs<0>(c, a[kk], desc_sw128(b_s + (kk >> 2) * kTileBytes) +
-                              2 * (kk & 3),
+  for (int kk = 0; kk < kSteps * NS; ++kk)
+    wgmma_rs<0>(c, a[kk],
+                db + (kk / kSteps) * (slab_bytes<W>() >> 4) +
+                    2 * (kk % kSteps),
                 kk);
 }
 // issue c (64 x 64) = a b^T, a the 64 rows of NS swizzled slabs of W
@@ -366,33 +357,40 @@ __device__ __forceinline__ void issue_product_ss(float (&c)[8][4],
   }
 }
 // the same as issue_product_t, waited for
-template <int NS>
-__device__ __forceinline__ void wg_product_t(float (&c)[8][4],
-                                             const uint32_t (&a)[4 * NS][4],
-                                             uint32_t b_s) {
+template <int NS, int W = 64>
+__device__ __forceinline__ void wg_product_t(
+    float (&c)[8][4], const uint32_t (&a)[NS * W / 16][4], uint32_t b_s) {
   wg_fence();
-  issue_product_t<NS>(c, a, b_s);
+  issue_product_t<NS, W>(c, a, b_s);
   wg_commit();
   wg_wait_all();
   wg_fence_acc(c);
 }
 
-// issue acc (64 x 64 NS) += x b, x (64 x 64 fp32) as bf16 hi + lo register
+// issue acc (64 x W NS) += x b, x (64 x 64 fp32) as bf16 hi + lo register
 // A operands (xh, xl: read by the products until they are done), b the 64
-// rows of NS swizzled slabs at b_s read MN-major, one m64n64 piece of acc a
-// slab; each k-step's operands are made just before its products, so that
-// the first products start while the rest are converted
-template <int NS>
-__device__ __forceinline__ void issue_accumulate(float (&acc)[8 * NS][4],
+// rows of NS swizzled slabs of W columns at b_s read MN-major: one m64n64
+// piece of acc a 64-column slab, or one m64n96k16 product over three
+// 32-column slabs a k-step (16 rows of 64 bytes, 1,024 bytes on; the
+// descriptor's leading byte offset the slabs' stride); each k-step's
+// operands are made just before its products, so that the first products
+// start while the rest are converted
+template <int NS, int W = 64>
+__device__ __forceinline__ void issue_accumulate(float (&acc)[NS * W / 8][4],
                                                  const float (&x)[8][4],
                                                  uint32_t (&xh)[4][4],
                                                  uint32_t (&xl)[4][4],
                                                  uint32_t b_s) {
+  static_assert(W == 64 || NS == 3, "32-column slabs: three of them");
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     acc_to_a<true>(x, kk, xh[kk], xl[kk]);
     wg_fence();
-    if constexpr (NS == 2) {   // one m64n128k16 product over both slabs
+    if constexpr (W == 32) {   // one m64n96k16 product over the three slabs
+      const uint64_t b = desc_sw64_lbo(b_s + kk * 1024, slab_bytes<32>());
+      wgmma_rs96<1>(acc, xh[kk], b, 1);
+      wgmma_rs96<1>(acc, xl[kk], b, 1);
+    } else if constexpr (NS == 2) {   // one m64n128k16 product over both slabs
       const uint64_t b = desc_sw128_lbo(b_s + kk * 2048, kTileBytes);
       wgmma_rs128<1>(acc, xh[kk], b, 1);
       wgmma_rs128<1>(acc, xl[kk], b, 1);
@@ -440,13 +438,12 @@ __device__ __forceinline__ void issue_accumulate_a(
 }
 
 // every product the warpgroup issued is done: its accumulators and x live
-template <int NS>
-__device__ __forceinline__ void wg_done(float (&acc)[8 * NS][4],
+template <int N>
+__device__ __forceinline__ void wg_done(float (&acc)[N][4],
                                         float (&x)[8][4]) {
   wg_commit();
   wg_wait_all();
-#pragma unroll
-  for (int s = 0; s < NS; ++s) wg_fence_acc(piece(acc, s));
+  wg_fence_acc(acc);
   wg_fence_acc(x);
 }
 

@@ -21,10 +21,13 @@ the forward also writes each row's log-sum-exp, and the backward launches
 ``flash_attention_bwd.launches`` and ``kernels.dispatch.flash_attention_bwd.
 cuda``; which kernel pair a backward launch runs is ``backward_kernel``'s
 answer (bf16 at D = 64: ``dkdv_kernel_wg`` / ``dq_kernel_wg``, one wgmma
-warpgroup a block; at ``WGMMA_PAIRS``, (128, 128) and (192, 128):
-``dkdv_kernel_wg2`` / ``dq_kernel_wg2``, two; the other bf16 pairs
-``dkdv_kernel_tc`` / ``dq_kernel_tc`` on mma.sync; float32 the ``_f32``
-pair), the wgmma ones also counted in ``flash_attention_bwd.wg_launches``.
+warpgroup a block; at ``WGMMA_PAIRS``, (96, 96), (128, 128) and (192,
+128): ``dkdv_kernel_wg2`` / ``dq_kernel_wg2``, two, their rows 64-column
+slabs in the 128-byte swizzle, at D = 96 three 32-column slabs in the
+64-byte swizzle; the reduced configs' bf16 pairs (16, 16), (32, 32) and
+(32, 16) ``dkdv_kernel_tc`` / ``dq_kernel_tc`` on mma.sync; float32 the
+``_f32`` pair), the wgmma ones also counted in
+``flash_attention_bwd.wg_launches``.
 Neither falls back. On CPU tensors it runs the plain version,
 ``kernels.ref.attention_ref`` (counted in
 ``kernels.dispatch.flash_attention.plain``), under plain autograd; on meta
@@ -54,8 +57,8 @@ HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((32, 16), (192, 128))
 # flash_kernel_tc (mma.sync), float32 flash_kernel_f32
 WGMMA_FWD_PAIRS = ((64, 64), (96, 96), (128, 128), (192, 128))
 # the (D, Dv) whose bf16 backward runs on two wgmma warpgroups a block
-# (dkdv_kernel_wg2, dq_kernel_wg2)
-WGMMA_PAIRS = ((128, 128), (192, 128))
+# (dkdv_kernel_wg2, dq_kernel_wg2; csrc/flash_attention_bwd.cu's wg2_pair)
+WGMMA_PAIRS = ((96, 96), (128, 128), (192, 128))
 # the (D, Dv) whose bf16 backward runs on one wgmma warpgroup a block
 # (dkdv_kernel_wg, dq_kernel_wg); the others not in WGMMA_PAIRS on
 # mma.sync (dkdv_kernel_tc, dq_kernel_tc)

@@ -842,7 +842,52 @@ def test_lg05_spec_complete(lg_static):
     profiled = {(p.lib, p.route) for p in lg.card_profiles()}
     for lib, routes in lg.required_routes().items():
         assert {(lib, r) for r in routes} <= profiled
-    assert len(profiled) == 70
+    # 70 routes before the bf16 (96, 96) backward left mma.sync's one route
+    # (per-head partials) for the two-warpgroup pair's three branches
+    assert len(profiled) == 72
+
+
+def test_lg_two_warpgroup_pair_at_96():
+    """The bf16 (96, 96) backward on the two-warpgroup pair: LG01's
+    geometry at phi-3-vision-4.2b's training shape (one dK/dV block a key
+    tile and query head, the blocks storing dK and dV: no combine blocks in
+    the dQ launch), its shared memory (three 32-column slabs a row take
+    what 1.5 64-column ones would) within the card's limit, its packed q
+    tile refused one past 16 bits by the wrapper; and LG05's card profiles
+    on its one-head, summed-heads and partials-plus-combine branches."""
+    from repro_torch.kernels import flash_attention as kflash
+    C, _ = lg.cu_constants(ROOT)
+    shape = dict(B=4, H=32, K=32, S=1128, Sk=1128, D=96, Dv=96, bf16=1)
+    launches = lg.geometry("flash_attention_bwd", shape, C)
+    assert [launch.kernel for launch in launches] == [
+        "delta_kernel_bf16<96>", "dkdv_kernel_wg2<96,96>",
+        "dq_kernel_wg2<96,96>"]
+    dkdv, dq = launches[1:]
+    assert dkdv.grid == (18 * 4 * 32, 1, 1) and dq.grid == (18 * 4 * 32, 1, 1)
+    assert dkdv.smem == dq.smem == 4 * 3 * 8192 + 4 * (2 * 64 * 64
+                                                       + 2 * 3 * 64) + 1024
+    assert dkdv.smem <= lg.MAX_DYNAMIC_SMEM and dkdv.threads == 256
+    assert not any(lg.limits_broken(launch) for launch in launches)
+    # GQA under SUM_HEADS_BLOCKS dK/dV blocks: the combine's blocks follow
+    gqa = lg.geometry("flash_attention_bwd", dict(shape, B=1, H=8, K=2), C)
+    assert gqa[2].grid[0] > 18 * 8
+    for S, ok in ((64 * 65536, True), (64 * 65536 + 1, False)):
+        big = dict(shape, B=1, H=1, K=1, S=S, Sk=S)
+        assert any("0xFFFF" in b for launch in lg.geometry(
+            "flash_attention_bwd", big, C)
+            for b in lg.limits_broken(launch)) is not ok
+        prof = lg.ShapeProfile("limit", "flash_attention_bwd",
+                               tuple(big.items()))
+        assert lg.wrapper_accepts(prof) is ok
+    assert kflash.backward_kernel(96, 96, torch.bfloat16)[0] == \
+        "dkdv_kernel_wg2"
+    profiled = {p.route for p in lg.card_profiles()
+                if p.lib == "flash_attention_bwd"}
+    want = {f"dkdv_kernel_wg2<96,96>:{b}"
+            for b in ("direct", "sum", "partials")}
+    assert want <= profiled and want <= lg.required_routes()[
+        "flash_attention_bwd"]
+    assert not any(r.startswith("dkdv_kernel_tc<96,96>") for r in profiled)
 
 
 def test_lg05_fires_on_an_unprofiled_pair_and_library(monkeypatch):

@@ -819,31 +819,41 @@ def test_flash_attention_bwd_at_mla_head_dims_is_bit_equal_twice(cuda):
 # ATTN_BWD_CASES, a window with a sink, granite-34b's MQA 48 / 1, qwen3-32b's
 # 64 / 8, one position and S = 64 and 65: the 64-row tiles' edges), and at
 # one query head a kv head the blocks store dK and dV themselves
-# (moonshot's 16 / 16; a window with a sink)
+# (moonshot's 16 / 16; a window with a sink); then the same pair at (96,
+# 96), its rows three 32-column slabs (a seventh entry, D = 96):
+# phi-3-vision-4.2b's training shape (32 / 32, 4 x 1,128: the blocks store
+# dK and dV), a ragged S (1, 4, 4, 333), GQA under SUM_HEADS_BLOCKS dK/dV
+# blocks (8 / 2: per-head partials and the combine), a window with a sink
+# (2, 4, 2, 300) and a block summing its kv head's heads (16 / 8)
 DENSE_BWD_CASES = [(4, 16, 8, 1128, None, 0), (1, 32, 8, 333, None, 0),
                    (4, 16, 16, 1128, None, 0), (2, 2, 1, 130, 64, 0),
                    (1, 6, 2, 300, 100, 20), (2, 4, 4, 300, 100, 70),
                    (1, 48, 1, 256, None, 0), (1, 64, 8, 200, None, 0),
                    (2, 4, 2, 1, None, 0), (1, 4, 2, 64, None, 0),
                    (1, 4, 2, 65, None, 0), (4, 32, 8, 1128, None, 0),
-                   (8, 8, 4, 1000, 300, 70)]
+                   (8, 8, 4, 1000, 300, 70),
+                   (4, 32, 32, 1128, None, 0, 96), (1, 4, 4, 333, None, 0, 96),
+                   (1, 8, 2, 1128, None, 0, 96), (2, 4, 2, 300, 100, 20, 96),
+                   (4, 16, 8, 1128, None, 0, 96)]
 
 
 def _dense_bwd_inputs(case, cuda, seed=9):
     B, H, K, S = case[:4]
-    return _mla_inputs((B, H, K, S, 128, 128), torch.bfloat16, cuda, seed)
+    D = case[6] if len(case) > 6 else 128
+    return _mla_inputs((B, H, K, S, D, D), torch.bfloat16, cuda, seed)
 
 
 @pytest.mark.cuda
-def test_dense_bwd_runs_on_wgmma_without_spills(cuda):
-    """bf16 (128, 128) names the two-warpgroup wgmma pair, the built
-    library's ``-Xptxas -v`` report holds ``dkdv_kernel_wg2<128, 128>`` and
-    ``dq_kernel_wg2<128, 128>`` with no spill store, and no mma.sync kernel
-    at (128, 128), and its scratch holds fp32 partials only where a dK/dV
+@pytest.mark.parametrize("D", [128, 96])
+def test_dense_bwd_runs_on_wgmma_without_spills(cuda, D):
+    """bf16 (D, D) at 128 and 96 names the two-warpgroup wgmma pair, the
+    built library's ``-Xptxas -v`` report holds ``dkdv_kernel_wg2<D, D>``
+    and ``dq_kernel_wg2<D, D>`` with no spill store, and no mma.sync kernel
+    at (D, D), and its scratch holds fp32 partials only where a dK/dV
     block takes one query head of several."""
     import re
     from repro_torch.kernels import build
-    assert kflash.backward_kernel(128, 128, torch.bfloat16) == (
+    assert kflash.backward_kernel(D, D, torch.bfloat16) == (
         "dkdv_kernel_wg2", "dq_kernel_wg2")
     log = build.build_library("flash_attention_bwd").with_suffix(
         ".log").read_text()
@@ -851,7 +861,7 @@ def test_dense_bwd_runs_on_wgmma_without_spills(cuda):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"((?:dkdv|dq)_kernel_\w+?)ILi128ELi128E", m[1])
+            k = re.search(rf"((?:dkdv|dq)_kernel_\w+?)ILi{D}ELi{D}E", m[1])
             name = None if k is None or k[1].endswith("_f32") else k[1]
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -859,15 +869,18 @@ def test_dense_bwd_runs_on_wgmma_without_spills(cuda):
             spills[name] = int(m[1])
     assert spills == {"dkdv_kernel_wg2": 0, "dq_kernel_wg2": 0}, spills
     # the scratch: Delta alone where a dK/dV block sums its kv head's heads
-    # (internlm2's shape) or there is one a kv head (moonshot's), Delta and
-    # every head's fp32 dK / dV partials where a block takes one of several
-    # (granite-34b's MQA on one sequence)
+    # (internlm2's shape) or there is one a kv head (moonshot's, phi's),
+    # Delta and every head's fp32 dK / dV partials where a block takes one
+    # of several (granite-34b's MQA on one sequence; 8 / 2 on one)
     for (B, H, K, S), partials in (((4, 16, 8, 1128), False),
                                    ((4, 16, 16, 1128), False),
-                                   ((1, 48, 1, 1128), True)):
+                                   ((4, 32, 32, 1128), False),
+                                   ((1, 48, 1, 1128), True),
+                                   ((1, 8, 2, 1128), True)):
         floats = build.scratch_floats("flash_attention_bwd", B, H, K, S, S,
-                                      128, 128, 1)
-        want = -(-B * H * S // 4) * 4 + (B * H * S * 256 if partials else 0)
+                                      D, D, 1)
+        want = -(-B * H * S // 4) * 4 + (B * H * S * 2 * D if partials
+                                         else 0)
         assert floats == want, (B, H, K, S, floats, want)
 
 
@@ -877,7 +890,7 @@ def test_dense_bwd_on_wgmma_matches_plain_gradients(cuda, case):
     """One backward launch a gradient, on the wgmma pair, (dq, dk, dv) of
     q's, k's and v's shapes within ``RTOL_ATTN_BWD`` of autograd of
     ``attention_ref`` (``_mla_gaps``: at S = 1 dq and dk are zero)."""
-    window, sink = case[4:]
+    window, sink = case[4:6]
     q, k, v, do = _dense_bwd_inputs(case, cuda)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     before = (kflash.flash_attention_bwd.launches,
@@ -898,13 +911,17 @@ def test_dense_bwd_on_wgmma_matches_plain_gradients(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [DENSE_BWD_CASES[i]
-                                  for i in (0, 1, 4, 6, 12)], ids=str)
+                                  for i in (0, 1, 4, 6, 12, 13, 15, 16, 17)],
+                         ids=str)
 def test_dense_bwd_on_wgmma_is_bit_equal_twice(cuda, case):
     """The (128, 128) backward gives the same bits twice at internlm2's
     training shape and with a window and a sink (a block summing its kv
     head's heads), and through the per-head partials' combine at 4, 3 and
-    48 query heads a kv head (no atomics)."""
-    window, sink = case[4:]
+    48 query heads a kv head (no atomics); the (96, 96) one at
+    phi-3-vision's training shape (the blocks storing dK and dV), through
+    the combine at 4 heads a kv head, with a window and a sink, and with a
+    block summing 2 heads."""
+    window, sink = case[4:6]
     q, k, v, do = _dense_bwd_inputs(case, cuda)
     o, lse = kflash._forward(q, k, v, True, window, sink, False,
                              with_lse=True)

@@ -502,6 +502,45 @@ def test_sample_temperature_takes_codebook_logits():
 
 
 # ---------------------------------------------------------------------------
+def _phi_96_ref(seed=SEED):
+    """phi-3-vision-4.2b reduced but kept at its head width (2 layers, 2
+    heads of 96, d_model 192, float32; 8 patches of 32): the JAX loss and
+    gradients on weights drawn with numpy (each leaf normal with its JAX
+    init's mean and spread; the constant norm scales kept), the same
+    arrays carried to the port by ``convert.lm_params_from_numpy``."""
+    kw = dict(num_layers=2, d_model=192, num_heads=2, num_kv_heads=2,
+              head_dim=96)
+    jcfg, cfg = (c.replace(**kw) for c in _cfgs("phi-3-vision-4.2b"))
+    jlm = JaxLM(jcfg)
+    shapes = jax.tree.map(np.asarray, jax.jit(jlm.init)(jax.random.key(0)))
+    rng = np.random.default_rng(seed)
+    np_params = jax.tree.map(
+        lambda a: (a.mean() + a.std() * rng.normal(size=a.shape)).astype(
+            a.dtype), shapes)
+    batch = JaxData(jcfg, B, SEQ, seed=seed).next_batch()
+    (loss, _), grads = jax.jit(jax.value_and_grad(
+        lambda p, b: jlm.loss(p, b), has_aux=True))(
+            jax.tree.map(jnp.asarray, np_params), batch)
+    return {"cfg": cfg, "jcfg": jcfg, "batch": batch, "loss": float(loss),
+            "grads": grads, "np_params": np_params}
+
+
+def test_phi_at_head_width_96_loss_and_every_gradient_match_jax():
+    """The slice's training path at the width its attention kernels take:
+    the patch prefix through ``w1`` / ``w2`` under a gradient, attention
+    at D = 96 (the plain version, which the card's kernel pair is held
+    to), the loss over the text alone; the loss within ``RTOL_LOSS`` and
+    every gradient leaf within ``RTOL_GRAD`` of JAX's."""
+    ref = _phi_96_ref()
+    assert ref["cfg"].head_dim == 96 and ref["batch"]["patches"].shape == (
+        B, ref["cfg"].num_patches, ref["cfg"].vision_dim)
+    loss_gap, grads = loss_gaps(ref)
+    assert loss_gap <= RTOL_LOSS
+    assert any("vis_proj" in path for path in grads)
+    worst = max(grads, key=grads.get)
+    assert grads[worst] <= RTOL_GRAD, (worst, grads[worst])
+
+
 # the full-width configurations
 # ---------------------------------------------------------------------------
 
@@ -577,6 +616,10 @@ if __name__ == "__main__":
         for S in (12, 64, 128, 130):
             y_gap, s_gap = xlstm_block_gaps(kind, S)
             print(f"{kind}_block S={S}: out {y_gap:.3e}, states {s_gap:.3e}")
+    loss_gap, grads = loss_gaps(_phi_96_ref())
+    worst = max(grads, key=grads.get)
+    print(f"phi-3-vision at head width 96: loss {loss_gap:.3e}, worst "
+          f"gradient {grads[worst]:.3e} ({worst})")
     print(f"cross_attn_block: float32 {cross_attn_gap():.3e}, bf16 "
           f"{cross_attn_gap(jnp.bfloat16):.3e}")
     for arch in ARCHS:

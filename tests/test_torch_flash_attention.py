@@ -583,24 +583,87 @@ def test_backward_work_split_takes_each_visited_tile_pair_once(case):
 
 @pytest.mark.parametrize("dims,dtype,pair", [
     ((128, 128), torch.bfloat16, "wg2"), ((192, 128), torch.bfloat16, "wg2"),
-    ((64, 64), torch.bfloat16, "wg"), ((96, 96), torch.bfloat16, "tc"),
+    ((64, 64), torch.bfloat16, "wg"), ((96, 96), torch.bfloat16, "wg2"),
     ((32, 32), torch.bfloat16, "tc"), ((16, 16), torch.bfloat16, "tc"),
     ((24, 16), torch.bfloat16, "tc"), ((100, 128), torch.bfloat16, "wg2"),
+    ((80, 96), torch.bfloat16, "wg2"), ((96, 96), torch.float32, "f32"),
     ((128, 128), torch.float32, "f32"), ((64, 64), torch.float32, "f32")],
     ids=str)
 def test_backward_kernel_names_the_pair_the_launch_runs(dims, dtype, pair):
     """``backward_kernel`` names the (dK/dV, dQ) pair the library's
     ``launch`` routes (D, Dv) to after the wrapper pads q and k to
-    ``kernel_dim``: bf16 at (128, 128) and (192, 128) the two-warpgroup
-    wgmma kernels (``constexpr bool kWG2`` in ``flash_attention_bwd.cu``),
-    at D = 64 the one-warpgroup ones, mma.sync at the other bf16 pairs,
-    the float32 pair for float32."""
+    ``kernel_dim``: bf16 at (96, 96), (128, 128) and (192, 128) the
+    two-warpgroup wgmma kernels (``constexpr bool kWG2 = wg2_pair(D, DV)``
+    in ``flash_attention_bwd.cu``, its one ``return`` read from the source
+    and evaluated), at D = 64 the one-warpgroup ones, mma.sync at the
+    reduced configs' bf16 pairs, the float32 pair for float32; and
+    ``WGMMA_PAIRS`` is exactly the pairs ``wg2_pair`` takes."""
     text = (_CSRC / "flash_attention_bwd.cu").read_text()
     assert "constexpr bool kWG2 = wg2_pair(D, DV);" in text
-    assert "return Dv == 128 && (D == 128 || D == 192);" in text
     assert "if constexpr (D == 64 && DV == 64) {" in text
     assert kflash.backward_kernel(*dims, dtype) == (
         f"dkdv_kernel_{pair}", f"dq_kernel_{pair}")
+    padded = (kflash.kernel_dim(*dims), dims[1])
+    assert _cu_wg2_pair(*padded) == (pair == "wg2" or (
+        dtype == torch.float32 and padded in kflash.WGMMA_PAIRS))
+    assert set(kflash.WGMMA_PAIRS) == {
+        pr for pr in kflash.HEAD_DIM_PAIRS if _cu_wg2_pair(*pr)}
+
+
+def _cu_wg2_pair(D, Dv):
+    """``wg2_pair(D, Dv)`` of ``flash_attention_bwd.cu``: its one
+    ``return`` expression read from the source and evaluated with C's
+    operators."""
+    text = (_CSRC / "flash_attention_bwd.cu").read_text()
+    body = re.search(r"constexpr bool wg2_pair\(int D, int Dv\) \{\s*"
+                     r"return (.*?);\s*\}", text, re.S).group(1)
+    expr = re.sub(r"\s+", " ", body).replace("&&", " and ").replace(
+        "||", " or ")
+    return bool(eval(expr, {}, {"D": D, "Dv": Dv}))
+
+
+def _scratch_floats(B, H, K, S, D, Dv):
+    """``scratch_of(...).floats()`` of ``flash_attention_bwd.cu`` for bf16
+    (self-attention, Sk = S), restated from its formulas (asserted in the
+    source's text): Delta, then fp32 dK / dV partials of every query head
+    where the launch is not the two-warpgroup pair with a block taking
+    the kv head's G heads."""
+    text = (_CSRC / "flash_attention_bwd.cu").read_text()
+    for formula in (
+            "bf16_in && !(wg2_pair(D, Dv) && wg2_heads(B, K, Sk, G) == G);",
+            "const long long rows = partials ? static_cast<long long>(B) * H "
+            "* Sk : 0;",
+            "long long part_at() const { return (delta + 3) & ~3LL; }",
+            "long long floats() const { return part_at() + part_k + part_v; }",
+            "return Scratch{static_cast<long long>(B) * H * S, rows * D, "
+            "rows * Dv};"):
+        assert formula in text, formula
+    G = H // K
+    heads = G if B * K * -(-S // BK) >= _bwd_int("kSumHeadsBlocks") else 1
+    partials = not (_cu_wg2_pair(D, Dv) and heads == G)
+    rows = B * H * S if partials else 0
+    return -(-B * H * S // 4) * 4 + rows * (D + Dv)
+
+
+@pytest.mark.parametrize("case", [
+    ((4, 32, 32, 1128, 96), 1, False), ((1, 8, 2, 1128, 96), 1, True),
+    ((4, 16, 8, 1128, 96), 2, False), ((2, 4, 2, 300, 96), 1, True),
+    ((4, 16, 8, 1128, 128), 2, False), ((1, 48, 1, 1128, 128), 1, True),
+    ((4, 16, 16, 1128, 128), 1, False)], ids=str)
+def test_backward_scratch_holds_partials_only_where_a_block_takes_one_head(
+        case):
+    """At (96, 96) as at (128, 128): ``backward_heads_per_block`` is 1 at
+    phi-3-vision-4.2b's training shape (one query head a kv head: the
+    dK/dV blocks store dk and dv themselves) and at GQA shapes under
+    ``SUM_HEADS_BLOCKS`` dK/dV blocks, the kv head's G above it; the
+    launch's scratch holds the per-head fp32 partials (B H S (D + Dv)
+    floats past Delta) only where a block takes one head of several."""
+    (B, H, K, S, D), nh, partials = case
+    assert kflash.backward_heads_per_block(B, H, K, S, D, D,
+                                           torch.bfloat16) == nh
+    delta = -(-B * H * S // 4) * 4
+    assert _scratch_floats(B, H, K, S, D, D) == delta + (
+        B * H * S * 2 * D if partials else 0)
 
 
 @pytest.mark.parametrize("case", [
@@ -610,13 +673,14 @@ def test_backward_kernel_names_the_pair_the_launch_runs(dims, dtype, pair):
 def test_backward_heads_per_block_follows_the_launch(case):
     """``backward_heads_per_block`` restates ``launch``'s choice (the
     kv head's G query heads a dK/dV block where B K ceil(Sk / 64) >=
-    kSumHeadsBlocks, read from the source, else one) at (128, 128) bf16,
-    and is 1 on the other pairs and in float32."""
+    kSumHeadsBlocks, read from the source, else one) at (128, 128) and (96,
+    96) bf16, and is 1 on the other pairs and in float32."""
     (B, H, K, S), nh = case
     assert kflash.SUM_HEADS_BLOCKS == _bwd_int("kSumHeadsBlocks")
-    assert kflash.backward_heads_per_block(B, H, K, S, 128, 128,
-                                           torch.bfloat16) == nh
-    for D, dtype in ((64, torch.bfloat16), (96, torch.bfloat16),
+    for D in (128, 96):
+        assert kflash.backward_heads_per_block(B, H, K, S, D, D,
+                                               torch.bfloat16) == nh
+    for D, dtype in ((64, torch.bfloat16), (96, torch.float32),
                      (128, torch.float32)):
         assert kflash.backward_heads_per_block(B, H, K, S, D, D, dtype) == 1
 
@@ -788,7 +852,7 @@ def _cu_bool_fn(name, D, DV):
 
 @pytest.mark.parametrize("dims,dtype,fwd,bwd", [
     ((64, 64), torch.bfloat16, "wg", "wg"),
-    ((96, 96), torch.bfloat16, "wg", "tc"),
+    ((96, 96), torch.bfloat16, "wg", "wg2"),
     ((128, 128), torch.bfloat16, "wg", "wg2"),
     ((192, 128), torch.bfloat16, "wg", "wg2"),
     ((16, 16), torch.bfloat16, "tc", "tc"),
@@ -805,9 +869,8 @@ def test_forward_kernel_names_the_kernel_the_launch_runs(dims, dtype, fwd,
     (64, 64), (96, 96), (128, 128) and (192, 128) ``flash_kernel_wg``
     (where ``wgmma_forward<D, DV>()``, read from the source, holds), at
     the other bf16 pairs (24 padded to 32) ``flash_kernel_tc``, float32
-    ``flash_kernel_f32``; and giving the forward its own pairs moved no
-    backward route: ``tc`` at 96, ``wg`` at 64, ``wg2`` at (128, 128) and
-    (192, 128)."""
+    ``flash_kernel_f32``; and the backward's routes: ``wg`` at 64, ``wg2``
+    at 96, (128, 128) and (192, 128), ``tc`` at the reduced pairs."""
     D, Dv = dims
     assert kflash.forward_kernel(D, Dv, dtype) == f"flash_kernel_{fwd}"
     assert kflash.backward_kernel(D, Dv, dtype) == (
@@ -872,69 +935,92 @@ def test_slab_swizzle_is_cutlass_and_a_bijection_of_each_row_group(W, bits,
 
 
 def _load_rows(W, NS, NT, kCols, row0, n_rows):
-    """``load_rows<W, NS, NT, kCols>``'s generic loop (the formulas
-    asserted in ``wgmma.cuh``'s text): for each thread and step, (shared
-    byte offset, source row, source column, bytes) of its ``cp_async16``."""
+    """``load_rows<W, NS, NT, kCols>`` (the formulas asserted in
+    ``wgmma.cuh``'s text): a thread's chunk c of row r of every slab, i =
+    tid + m NT, r = i / (W / 8), c = i % (W / 8), by shifts. For each
+    thread and step, (shared byte offset, source row, source column, bytes,
+    row, chunk of the row), in issue order."""
     text = (_CSRC / "wgmma.cuh").read_text()
     for formula in (
-            "constexpr int kChunks = W / 8, kRowChunks = NS * kChunks;",
-            "for (int m = 0; m < 64 * kRowChunks / NT; ++m) {",
-            "const int i = tid + m * NT, r = i / kRowChunks, cc = i % "
-            "kRowChunks;",
-            "const bool in = row0 + r < n_rows && cc < kCols / 8;",
-            "cp_async16(dst + (cc / kChunks) * slab_bytes<W>() +\n"
-            "                     slab_at<W>(r, cc % kChunks),",
-            "src + (in ? static_cast<long long>(row0 + r) * kCols + 8 * cc\n"
-            "                           : 0),\n"
-            "                 in ? 16 : 0);",
+            "constexpr int kChunks = W / 8, kShift = W == 64 ? 3 : 2;",
+            "static_assert(kCols == NS * W, \"whole rows of NS slabs\");",
+            "for (int m = 0; m < 64 * kChunks / NT; ++m) {",
+            "const int i = tid + m * NT, r = i >> kShift, c = i & (kChunks - "
+            "1);",
+            "src + static_cast<long long>(in ? row0 + r : 0) * kCols + 8 * c;",
+            "const uint32_t at = dst + slab_at<W>(r, c);",
+            "cp_async16(at + s * slab_bytes<W>(), row + W * s, in ? 16 : 0);",
             "return 64 * 2 * W;",
             "return W == 64 ? sw128(r, c) : sw64(r, c);"):
         assert formula in text, formula
+    assert kCols == NS * W
     at = _cuh_fn("sw64" if W == 32 else "sw128")
-    k_chunks, row_chunks = W // 8, NS * W // 8
+    k_chunks, shift = W // 8, {64: 3, 32: 2}[W]
+    assert 1 << shift == k_chunks
+    slab = 64 * 2 * W
     out = []
     for tid in range(NT):
-        for m in range(64 * row_chunks // NT):
+        for m in range(64 * k_chunks // NT):
             i = tid + m * NT
-            r, cc = i // row_chunks, i % row_chunks
-            inside = row0 + r < n_rows and cc < kCols // 8
-            out.append(((cc // k_chunks) * 64 * 2 * W + at(r, cc % k_chunks),
-                        row0 + r if inside else 0, 8 * cc if inside else 0,
-                        16 if inside else 0, r, cc))
+            r, c = i >> shift, i & (k_chunks - 1)
+            inside = row0 + r < n_rows
+            for s_ in range(NS):
+                cc = s_ * k_chunks + c
+                out.append((s_ * slab + at(r, c),
+                            row0 + r if inside else 0,
+                            8 * cc if inside else 0,
+                            16 if inside else 0, r, cc))
     return out
+
+
+def _check_load_rows(W, NS, kCols, row0, n_rows):
+    """Every (row, 16-byte chunk) of the 64-row tile is written exactly
+    once, at ``slab_at``'s offset in slab chunk / (W / 8), so that the
+    slabs' bytes are covered exactly once; a chunk of a real row reads that
+    row's 16 bytes at column 8 chunk, any other is zero-filled (0 source
+    bytes from row 0, column 0: an address inside the tensor); neighbouring
+    threads take neighbouring chunks of a slab's row. By a warpgroup's 128
+    threads (the forward's producer; the backward's streaming warpgroup)
+    and a block's 256 (the backward's first tiles)."""
+    for NT in (128, 256):
+        writes = _load_rows(W, NS, NT, kCols, row0, n_rows)
+        assert Counter((r, cc) for *_, r, cc in writes) == Counter(
+            (r, cc) for r in range(64) for cc in range(NS * W // 8))
+        assert sorted(off for off, *_ in writes) == list(
+            range(0, NS * 64 * 2 * W, 16))
+        for off, src_row, src_col, nbytes, r, cc in writes:
+            real = row0 + r < n_rows
+            assert nbytes == (16 if real else 0)
+            assert (src_row, src_col) == ((row0 + r, 8 * cc) if real
+                                          else (0, 0))
+        first = [(r, cc) for *_, r, cc in writes[::len(writes) // NT]]
+        assert first == [divmod(tid, W // 8) for tid in range(NT)]
 
 
 # (W, NS, kCols, row0, n_rows): q, k and v at D = 96 (three 32-column
 # slabs), a ragged last tile of them (S = 1,000: rows 960..999 real) and
-# one row; the same rows zero-filled to two 64-column slabs (the padded
-# variant's loader)
+# one row
 LOAD_CASES = [(32, 3, 96, 0, 1000), (32, 3, 96, 960, 1000),
-              (32, 3, 96, 0, 1), (64, 2, 96, 0, 1000), (64, 2, 96, 960, 1000)]
+              (32, 3, 96, 0, 1)]
 
 
 @pytest.mark.parametrize("case", LOAD_CASES, ids=str)
 def test_96_column_loader_writes_every_row_chunk_once(case):
-    """``load_rows`` at 96 columns, by the producer's 128 threads: every
-    (row, 16-byte chunk) of the 64-row tile is written exactly once, at
-    ``slab_at``'s offset in slab chunk / (W / 8), so that the slabs' bytes
-    are covered exactly once; a chunk of a real row and column reads that
-    row's 16 bytes at column 8 chunk, any other is zero-filled (0 source
-    bytes from row 0, column 0: an address inside the tensor); neighbouring
-    threads take neighbouring chunks of a row."""
-    W, NS, kCols, row0, n_rows = case
-    NT = 128
-    writes = _load_rows(W, NS, NT, kCols, row0, n_rows)
-    assert Counter((r, cc) for *_, r, cc in writes) == Counter(
-        (r, cc) for r in range(64) for cc in range(NS * W // 8))
-    assert sorted(off for off, *_ in writes) == list(
-        range(0, NS * 64 * 2 * W, 16))
-    for off, src_row, src_col, nbytes, r, cc in writes:
-        real = row0 + r < n_rows and cc < kCols // 8
-        assert nbytes == (16 if real else 0)
-        assert (src_row, src_col) == ((row0 + r, 8 * cc) if real else (0, 0))
-    row_chunks = NS * W // 8
-    first = [(r, cc) for *_, r, cc in writes[::64 * row_chunks // NT]]
-    assert first == [divmod(tid, row_chunks) for tid in range(NT)]
+    """``load_rows`` at 96 columns (``_check_load_rows``)."""
+    _check_load_rows(*case)
+
+
+# the same at 64 and 128 columns (one and two 64-column slabs in the
+# 128-byte swizzle): whole tiles, a ragged last one and one row
+LOAD_CASES_64 = [(64, 1, 64, 0, 1000), (64, 1, 64, 960, 1000),
+                 (64, 2, 128, 0, 1000), (64, 2, 128, 960, 1000),
+                 (64, 2, 128, 0, 1)]
+
+
+@pytest.mark.parametrize("case", LOAD_CASES_64, ids=str)
+def test_64_column_slab_loader_writes_every_row_chunk_once(case):
+    """``load_rows`` at 64-column slabs (``_check_load_rows``)."""
+    _check_load_rows(*case)
 
 
 def test_96_column_products_read_the_slabs_as_loaded():
@@ -967,6 +1053,27 @@ def test_96_column_products_read_the_slabs_as_loaded():
     # PV: k-step kk reads keys 16 kk .. 16 kk + 15 of every slab
     keys = [((kk * 1024) // (2 * W)) + j for kk in range(4) for j in range(16)]
     assert keys == list(range(64))
+
+def _variant_tools():
+    """(tool, variant) of tools/attention_{bwd,fwd}_variants.py."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import attention_bwd_variants
+    import attention_fwd_variants
+    return [(tool, name) for tool in (attention_bwd_variants,
+                                      attention_fwd_variants)
+            for name in tool.VARIANTS]
+
+
+@pytest.mark.parametrize("tool,name", _variant_tools(),
+                         ids=lambda x: getattr(x, "__name__", x))
+def test_kernel_variants_apply_to_the_sources(tool, name, tmp_path):
+    """Each text variant the timing tools build (the attention backward's
+    and forward's) still finds every substitution in the sources exactly
+    once (``variant_csrc`` refuses it otherwise), and changes them."""
+    dst = tool.variant_csrc(name, tmp_path)
+    assert any((dst / f).read_text() != (_CSRC / f).read_text()
+               for f in tool.VARIANTS[name])
+
 
 if __name__ == "__main__":
     print("gradients vs jax.grad of the model attention, worst of dq, dk, "

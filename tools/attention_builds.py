@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """The flash-attention forward and backward kernels of two checkouts on the
-card: bit for bit, and within phase 8's gates where the bf16 forward at D =
-96 and 64 changed kernels (``REDESIGNED``), and within phase 19's gate
-where a bf16 backward pair did (``REDESIGNED_BWD``, empty: no backward
-changed).
+card: bit for bit, and within phase 8's gates where a bf16 forward pair
+changed kernels (``REDESIGNED``, empty: no forward changed), and within
+phase 19's gate where a bf16 backward pair did (``REDESIGNED_BWD``: (96,
+96), from the mma.sync pair to the two-warpgroup wgmma one).
 
     python3 tools/attention_builds.py PARENT_ROOT CHANGE_ROOT
 
@@ -25,9 +25,13 @@ deepseek-v3 MLA, phi-3-vision-4.2b (D = 96) and musicgen-medium (D = 64)
 serving calls (bf16, p in float32 and rounded; SDPA's causal call beside
 each, p rounded), the bf16 MLA backward
 at deepseek-v3's training shape, and the bf16 (128, 128) backward at
-internlm2-1.8b's and moonshot's training shapes (``chip_smoke.
-ATTN_BWD_CASES``) with SDPA's backward on cuDNN beside it
-(``chip_smoke.sdpa_backward_ms``).
+internlm2-1.8b's and moonshot's training shapes and the (96, 96) one at
+phi-3-vision-4.2b's (``chip_smoke.ATTN_BWD_CASES``) with SDPA's backward on
+cuDNN beside it (``chip_smoke.sdpa_backward_ms``), each with its three
+kernels' device times (``chip_smoke.kernel_split_ms``), and the (96, 96)
+and (128, 128) dK/dV and dQ kernels' registers and spills from the build's
+``-Xptxas -v`` report (``chip_smoke.bwd_kernels``). Each run prints its
+times as it takes them.
 Every output must be bit-equal across the four runs, except the bf16
 forward at (D, Dv) in ``REDESIGNED`` and the bf16 backward at (D, Dv) in
 ``REDESIGNED_BWD``, whose kernels the change replaced: there each build's
@@ -62,12 +66,13 @@ def digest(t) -> str:
 
 
 # the bf16 forward instantiations whose kernel the change replaced
-# (flash_kernel_tc -> flash_kernel_wg)
-REDESIGNED = {(96, 96), (64, 64)}
+REDESIGNED = set()
 # the bf16 backward instantiations whose kernels the change replaced
-REDESIGNED_BWD = set()
-# the bf16 (128, 128) backward's timed shapes, by ATTN_BWD_CASES' labels
-BWD_TIMED = ("internlm2", "moonshot")
+# (dkdv_kernel_tc / dq_kernel_tc -> dkdv_kernel_wg2 / dq_kernel_wg2)
+REDESIGNED_BWD = {(96, 96)}
+# the bf16 backward's timed shapes, by ATTN_BWD_CASES' labels: (128, 128)
+# at internlm2-1.8b's and moonshot's, (96, 96) at phi-3-vision-4.2b's
+BWD_TIMED = ("internlm2", "moonshot", "phi")
 # the serving calls timed: moonshot-v1-16b-a3b's, deepseek-v3's,
 # phi-3-vision-4.2b's and musicgen-medium's prefill
 SERVE_SHAPES = ((4, 16, 16, 1000, 128), (4, 128, 128, 1000, 192, 128),
@@ -92,6 +97,11 @@ def plain_lse(q, k, causal=True, window=None, sink=0):
     return torch.logsumexp(s, -1)
 
 
+def note(ms: dict, key: str) -> None:
+    """Print one reading as it is taken (a later failure keeps it)."""
+    print(f"  {key}: {ms[key]}", flush=True)
+
+
 def dump(root: Path, out: Path) -> None:
     """Every output of ``root``'s kernels and their times into ``out``
     (``torch.save``)."""
@@ -105,6 +115,7 @@ def dump(root: Path, out: Path) -> None:
     if not Path(kflash.__file__).resolve().is_relative_to(root.resolve()):
         raise SystemExit(f"imported {kflash.__file__}, not {root}'s")
     dev = torch.device("cuda")
+    print(f"run of {root}", flush=True)
     cases = ([(s, causal, None, 0) for s in cs.ATTN_SHAPES
               for causal in (True, False)]
              + [(c[:5], True, c[5], c[6]) for c in cs.ATTN_MASK_CASES]
@@ -151,11 +162,18 @@ def dump(root: Path, out: Path) -> None:
         do = cs.attn_inputs(shape, torch.bfloat16, 1, dev)[0]
         o, lse = kflash._forward(q, k, v, True, window, sink, False,
                                  with_lse=True)
-        ms[f"{label}_bwd"] = cs.median_ms(lambda: kflash.flash_attention_bwd(
-            q, k, v, o, do, lse, True, window, sink))
+        def bwd():
+            return kflash.flash_attention_bwd(q, k, v, o, do, lse, True,
+                                              window, sink)
+        ms[f"{label}_bwd"] = cs.median_ms(bwd)
+        note(ms, f"{label}_bwd")
+        ms[f"{label}_bwd_stages"] = cs.kernel_split_ms(bwd,
+                                                       cs.ATTN_BWD_KERNELS)
+        note(ms, f"{label}_bwd_stages")
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         backend, ms[f"{label}_bwd_sdpa"] = cs.sdpa_backward_ms(leaves, do)
         ms[f"{label}_bwd_sdpa_backend"] = backend
+        note(ms, f"{label}_bwd_sdpa")
         del q, k, v, do, o, lse, leaves
         torch.cuda.empty_cache()
     B, H, K, S, D, Dv, _ = cs.MLA_BWD_CASES[0]
@@ -163,6 +181,10 @@ def dump(root: Path, out: Path) -> None:
     do = torch.from_numpy(np.random.default_rng(1).normal(
         size=(B, H, S, Dv)).astype(np.float32)).to(dev, torch.bfloat16)
     o, lse = kflash._forward(q, k, v, True, None, 0, False, with_lse=True)
+    for D in (96, 128):
+        route, regs, _ = cs.bwd_kernels(D, D)
+        ms[f"bwd_{D}_kernels"] = {"route": route, **regs}
+        note(ms, f"bwd_{D}_kernels")
     ms["mla_bwd"] = cs.median_ms(lambda: kflash.flash_attention_bwd(
         q, k, v, o, do, lse))
     del q, k, v, do, o, lse

@@ -33,12 +33,6 @@ HERE = Path(__file__).resolve().parents[1]
 
 # name: {file of csrc/: [(old, new), ...]}
 VARIANTS = {
-    # D = 96 on two 64-column slabs in the 128-byte swizzle, q, k and v
-    # zero-filled to 128 columns in shared memory (a quarter of the
-    # products on zeros), 96 columns stored
-    "padded_96": {"flash_attention.cu": [(
-        "  return D % 64 == 0 && DV % 64 == 0 ? 64 : 32;",
-        "  return 64;")]},
     # three consumer warpgroups a block (192-row q tiles, a ring of 3
     # slots, 152 registers a consumer) at D = 64 and 96
     "three_consumers": {"flash_attention.cu": [(
